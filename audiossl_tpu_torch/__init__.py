@@ -11,16 +11,26 @@ Hopper (``csrc/``, built at first use by ``kernels.py``). Each kernel has a
 plain PyTorch version beside it; a wrapper takes the plain version only for
 a tensor on the CPU, and on a CUDA tensor launches the kernel or raises.
 
-Ported so far (the serving slice):
+Ported so far (the serving slice, then DeLoRes-S pretraining):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
+  data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches
+  data/augment.py     RunningNorm, MixupBYOLA ring bank, RandomResizeCrop views
   frontend/           log-mel: plain version + the Hopper log-mel kernel
-  models/audiontt.py  AudioNTT2020Task6, eval path
-  models/convert.py   flax variables -> reference state_dict
+  ops/                windowing, running norm, bicubic crop-resize, and block 1
+                      (conv-BN-ReLU-pool) with its three Hopper kernels
+  models/audiontt.py  AudioNTT2020Task6, eval and training paths
+  models/heads.py     Barlow projector and loss
+  models/convert.py   flax variables -> reference state_dicts
+  objectives/         DeLoRes-S
+  train/              optimizers, train step, checkpoints, loop
+  train_upstream.py   pretraining CLI
   downstream/model.py DownstreamModel (AudioNTT encoder)
   serve/export.py     waveform -> embedding serving, artifact, CLI
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -40,3 +50,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r} (expected 'cuda' or 'cpu')")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """IEEE f32 for cuDNN convs and cuBLAS matmuls inside the block (cuDNN
+    convs default to TF32 on the card); restores the caller's settings after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

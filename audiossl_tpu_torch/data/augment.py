@@ -1,0 +1,227 @@
+"""Spectrogram augmentations with carried state (port of ``audiossl_tpu.data.augment``).
+
+Two independently augmented views per step from the reference's
+AugmentationModule (src/augmentations/__init__.py:5-35): RunningNorm
+pre-normalization, then per view MixupBYOLA against a ring-buffer memory bank
+and RandomResizeCrop. As on the JAX side, the bank is global per step and
+takes the whole (pre-mix) batch once per view, so view 2 can draw view 1's
+push.
+
+Every stochastic op takes its draws as tensors (mixup weight and partner per
+clip, crop box per clip); ``AugmentPipeline.sample_draws`` makes them from an
+explicit ``torch.Generator``, and tests hand the JAX cores the same draws.
+The bank is updated in place (its ring slots are overwritten) to keep one
+copy of it on the device.
+
+Ported: the delores_s configuration (RunningNorm or l2 / none, MixupBYOLA,
+RandomResizeCrop). Kmix, MixGaussianNoise, SpecMask, the ``precomputed``
+norm, MAST noise and waveform mixup raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from audiossl_tpu_torch.ops.resize import random_resize_crop, sample_crop_boxes
+from audiossl_tpu_torch.ops.stats import RunningNormState, running_norm_apply, running_norm_init
+
+EPS32 = 1.1920929e-7
+
+
+def log_mixup_exp(xa: torch.Tensor, xb: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """alpha * exp(xa) + (1 - alpha) * exp(xb), back in the log domain."""
+    return torch.log(alpha * torch.exp(xa) + (1.0 - alpha) * torch.exp(xb) + EPS32)
+
+
+@dataclasses.dataclass
+class MixupBankState:
+    bank: torch.Tensor  # [N, F, T] bf16, stored spectrograms (channel squeezed)
+    fill: int  # valid slots
+    ptr: int  # next write position (ring)
+
+
+def mixup_bank_init(n_memory: int, n_mels: int, n_frames: int, device: str | torch.device = "cpu") -> MixupBankState:
+    return MixupBankState(torch.zeros((n_memory, n_mels, n_frames), dtype=torch.bfloat16, device=device), 0, 0)
+
+
+def mixup_bank_push(state: MixupBankState, x: torch.Tensor) -> MixupBankState:
+    """Write batch ``x [B, C, F, T]`` into the ring (in place) and advance it."""
+    b, n = x.shape[0], state.bank.shape[0]
+    idx = (state.ptr + torch.arange(b, device=x.device)) % n
+    state.bank[idx] = x[:, 0].to(torch.bfloat16)
+    return MixupBankState(state.bank, min(state.fill + b, n), (state.ptr + b) % n)
+
+
+def mixup_byola(
+    state: MixupBankState, x: torch.Tensor, alpha: torch.Tensor, index: torch.Tensor, log_domain: bool = True
+) -> torch.Tensor:
+    """Mix clip i of ``x [B, C, F, T]`` with bank entry ``index[i]`` at weight
+    ``alpha[i]`` (= ratio * U(0, 1)): MixupBYOLA.forward
+    (augmentations.py:97-111), the identity while the bank is empty."""
+    if state.fill == 0:
+        return x
+    z = state.bank[index].to(x.dtype)[:, None]
+    a = alpha.view(-1, 1, 1, 1)
+    return log_mixup_exp(x, z, 1.0 - a) if log_domain else a * z + (1.0 - a) * x
+
+
+class ViewDraws(NamedTuple):
+    """The random numbers of one view: mixup weight [B] and bank index [B]
+    (None without mixup), crop boxes [B, 4] (None without RandomResizeCrop)."""
+
+    mix_alpha: torch.Tensor | None
+    mix_index: torch.Tensor | None
+    crop_boxes: torch.Tensor | None
+
+
+@dataclasses.dataclass
+class AugmentState:
+    mixup: MixupBankState | None
+    running_norm: RunningNormState | None
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Parsed from the YAML ``pretrain.augmentations`` + ``pretrain.normalization``
+    (the JAX package's fields, so the two parse a config alike)."""
+
+    mixup_ratio: float | None = 0.4
+    mixup_log: bool = True
+    kmix_ratio: float | None = None
+    kmix_log: bool = True
+    kmix_top_k: int = 128
+    rrc: bool = True
+    virtual_crop_scale: tuple[float, float] = (1.0, 1.5)
+    freq_scale: tuple[float, float] = (0.6, 1.5)
+    time_scale: tuple[float, float] = (0.6, 1.5)
+    gaussian_ratio: float | None = None
+    spec_mask_freq: int = 0
+    spec_mask_time: int = 0
+    normalization: str = "mean_var"  # mean_var | l2 | precomputed | none
+    norm_mean: float | None = None
+    norm_std: float | None = None
+    norm_std_mult: float = 2.0
+    wave_mixup_rate: float = 0.0
+    mast_noise: bool = False
+    n_memory: int = 2048
+
+    @classmethod
+    def from_dict(cls, pretrain: dict[str, Any]) -> "AugmentConfig":
+        aug = pretrain.get("augmentations", {}) or {}
+        kw: dict[str, Any] = {"normalization": pretrain.get("normalization", "none")}
+        if kw["normalization"] == "precomputed":
+            ns = pretrain.get("norm_stats")
+            if not ns:
+                raise ValueError("normalization: precomputed needs pretrain.norm_stats ({mean, std})")
+            mean, std = (ns["mean"], ns["std"]) if isinstance(ns, dict) else tuple(ns)
+            kw["norm_mean"], kw["norm_std"] = float(mean), float(std)
+            kw["norm_std_mult"] = float(pretrain.get("norm_std_mult", 2.0))
+        inp = pretrain.get("input") or {}
+        kw["wave_mixup_rate"] = float(inp.get("mixup", 0.0) or 0.0)
+        kw["mast_noise"] = bool(inp.get("noise", False))
+        if "MixupBYOLA" in aug:
+            kw["mixup_ratio"] = float(aug["MixupBYOLA"].get("ratio", 0.4))
+            kw["mixup_log"] = bool(aug["MixupBYOLA"].get("log_mixup_exp", True))
+        else:
+            kw["mixup_ratio"] = None
+        cp = (aug.get("Kmix") or {}).get("centroid_path")
+        if "Kmix" in aug and cp not in (None, "None"):
+            kw["kmix_ratio"] = float(aug["Kmix"].get("ratio", 0.4))
+            kw["kmix_log"] = bool(aug["Kmix"].get("log_mixup_exp", True))
+            kw["kmix_top_k"] = int(aug["Kmix"].get("top_k", 128))
+        if "RandomResizeCrop" in aug:
+            r = aug["RandomResizeCrop"]
+            kw["rrc"] = True
+            kw["virtual_crop_scale"] = tuple(r.get("virtual_crop_scale", (1.0, 1.5)))
+            kw["freq_scale"] = tuple(r.get("freq_crop_scale", (0.6, 1.5)))
+            kw["time_scale"] = tuple(r.get("time_crop_scale", (0.6, 1.5)))
+        else:
+            kw["rrc"] = False
+        if "MixGaussianNoise" in aug:
+            kw["gaussian_ratio"] = float(aug["MixGaussianNoise"].get("ratio", 0.3))
+        if "SpecMask" in aug:
+            kw["spec_mask_freq"] = int(aug["SpecMask"].get("freq_param", 0))
+            kw["spec_mask_time"] = int(aug["SpecMask"].get("time_param", 0))
+        return cls(**kw)
+
+
+_NOT_PORTED = {
+    "kmix_ratio": "Kmix (the DECAR slice, ROADMAP.md Queue 1 item 14)",
+    "gaussian_ratio": "MixGaussianNoise (the DECAR slice, ROADMAP.md Queue 1 item 14)",
+    "spec_mask_freq": "SpecMask (the SS-MAST slice, ROADMAP.md Queue 1 item 9)",
+    "spec_mask_time": "SpecMask (the SS-MAST slice, ROADMAP.md Queue 1 item 9)",
+    "wave_mixup_rate": "waveform mixup (the SS-MAST slice, ROADMAP.md Queue 1 item 9)",
+    "mast_noise": "MAST noise (the SS-MAST slice, ROADMAP.md Queue 1 item 9)",
+}
+
+
+class AugmentPipeline:
+    """(state, batch [B, 1, F, T], draws) -> (state, view 1, view 2).
+
+    Order as AugmentationModule.get_augmentations: RunningNorm first, then
+    view 1, a bank push, view 2 (which can draw view 1's push), a second push.
+    """
+
+    def __init__(self, cfg: AugmentConfig, epoch_samples: int):
+        for field, what in _NOT_PORTED.items():
+            if getattr(cfg, field):
+                raise NotImplementedError(f"{what} is not ported yet")
+        if cfg.normalization == "precomputed":
+            raise NotImplementedError(
+                "the precomputed normalization is not ported yet: the SS-MAST slice, ROADMAP.md Queue 1 item 9"
+            )
+        self.cfg = cfg
+        self.epoch_samples = epoch_samples
+
+    def init_state(self, n_mels: int, n_frames: int, device: str | torch.device = "cpu") -> AugmentState:
+        cfg = self.cfg
+        return AugmentState(
+            mixup=mixup_bank_init(cfg.n_memory, n_mels, n_frames, device) if cfg.mixup_ratio is not None else None,
+            # the reference caps RunningNorm at 2 * len(csv) samples per epoch: the
+            # FIFO sees each clip twice per epoch (two views), __init__.py:14
+            running_norm=running_norm_init(2 * self.epoch_samples, device=device)
+            if cfg.normalization == "mean_var" else None,
+        )
+
+    def sample_draws(self, state: AugmentState, b: int, n_mels: int, n_frames: int,
+                     generator: torch.Generator) -> tuple[ViewDraws, ViewDraws]:
+        """Both views' draws from ``generator``, on its device. Each view's
+        bank indices are uniform over the slots filled when it is made."""
+        cfg = self.cfg
+        draws = []
+        fill = state.mixup.fill if state.mixup is not None else 0
+        for _ in range(2):
+            alpha = index = boxes = None
+            dev = generator.device
+            if cfg.mixup_ratio is not None:
+                alpha = cfg.mixup_ratio * torch.rand(b, generator=generator, device=dev)
+                index = torch.randint(0, max(fill, 1), (b,), generator=generator, device=dev)
+                fill = min(fill + b, cfg.n_memory)
+            if cfg.rrc:
+                boxes = sample_crop_boxes(
+                    b, n_mels, n_frames, generator, cfg.virtual_crop_scale, cfg.freq_scale, cfg.time_scale
+                )
+            draws.append(ViewDraws(alpha, index, boxes))
+        return draws[0], draws[1]
+
+    def _one_view(self, mixup: MixupBankState | None, x: torch.Tensor, draws: ViewDraws) -> torch.Tensor:
+        if mixup is not None:
+            x = mixup_byola(mixup, x, draws.mix_alpha, draws.mix_index, self.cfg.mixup_log)
+        if self.cfg.rrc:
+            x = random_resize_crop(x, draws.crop_boxes, self.cfg.virtual_crop_scale)
+        return x
+
+    def __call__(self, state: AugmentState, x: torch.Tensor, draws: tuple[ViewDraws, ViewDraws]):
+        rn = state.running_norm
+        if rn is not None:
+            rn, x = running_norm_apply(rn, x)
+        mix = state.mixup
+        v1 = self._one_view(mix, x, draws[0])
+        if mix is not None:
+            mix = mixup_bank_push(mix, x)
+        v2 = self._one_view(mix, x, draws[1])
+        if mix is not None:
+            mix = mixup_bank_push(mix, x)
+        return AugmentState(mixup=mix, running_norm=rn), v1, v2

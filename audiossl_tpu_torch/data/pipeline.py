@@ -1,0 +1,141 @@
+"""CSV-manifest input pipeline: decode on host threads, window, batch.
+
+Port of the NumPy path of ``audiossl_tpu.data.pipeline.ManifestLoader``: the
+host decodes WAVs and crops one random window per clip; the frontend runs on
+the device inside the train step. Batches are ``[B, clip_samples]`` float32,
+or int16 PCM with ``wire_dtype="int16"`` (half the host->device bytes; the
+step rescales by 1/32768).
+
+For a seed the loader gives the JAX loader's batches: the epoch order is
+``default_rng(seed + epoch)``'s shuffle, and one ``default_rng((seed,
+epoch))`` draws the window starts clip by clip in batch order. Decoding runs
+on a thread pool a few batches ahead; the windows are drawn in order on the
+consuming thread, so the batches do not depend on the number of workers.
+After each batch ``position`` holds (epoch, next batch, window-rng state),
+which a checkpoint stores so that a resumed run continues the same stream.
+
+Not ported (ROADMAP.md Queue 1, item 1): tar-shard rows, ``host_shard``,
+``balanced`` sampling, labelled manifests and the native C++ loader.
+"""
+from __future__ import annotations
+
+import collections
+import concurrent.futures as cf
+import logging
+from typing import Any, Iterator
+
+import numpy as np
+import pandas as pd
+
+from audiossl_tpu_torch.data.wav import load_wave
+from audiossl_tpu_torch.ops.windowing import extract_window_np
+
+log = logging.getLogger("audiossl_tpu_torch.data")
+
+_TODO = "is not ported yet (ROADMAP.md Queue 1, item 1: host data)"
+PREFETCH_BATCHES = 4
+
+
+class ManifestLoader:
+    """Iterates (waves [B, L], None) batches from a CSV with a ``files`` column
+    (the reference upstream dataset, src/dataset/upstream_dataset.py:50-88)."""
+
+    def __init__(
+        self,
+        csv_path: str | pd.DataFrame,
+        batch_size: int,
+        clip_samples: int,
+        sample_rate: int = 16000,
+        labeled: bool = False,
+        drop_last: bool = True,
+        seed: int = 0,
+        num_workers: int = 8,
+        wire_dtype: str = "float32",
+        host_shard: tuple[int, int] | None = None,
+        on_error: str = "raise",
+        balanced: bool = False,
+    ):
+        if labeled:
+            raise NotImplementedError(f"a labelled manifest {_TODO}")
+        if host_shard is not None:
+            raise NotImplementedError(f"host_shard {_TODO}")
+        if balanced:
+            raise NotImplementedError(f"balanced sampling {_TODO}")
+        if on_error not in ("raise", "zeros"):
+            raise ValueError(f"on_error must be 'raise' or 'zeros', got {on_error!r}")
+        if wire_dtype not in ("float32", "int16"):
+            raise ValueError(f"wire_dtype must be 'float32' or 'int16', got {wire_dtype!r}")
+        self.df = csv_path.reset_index(drop=True) if isinstance(csv_path, pd.DataFrame) else pd.read_csv(csv_path)
+        self.files = self.df["files"].tolist()
+        if any(f.endswith(".tar") or "::" in f for f in self.files):
+            raise NotImplementedError(f"tar-shard manifest rows {_TODO}")
+        self.batch_size = batch_size
+        self.clip_samples = clip_samples
+        self.sample_rate = sample_rate
+        self.drop_last = drop_last
+        self.seed = seed
+        self.num_workers = num_workers
+        self.wire_dtype = wire_dtype
+        self.on_error = on_error
+        self.position: dict[str, Any] | None = None
+
+    def __len__(self) -> int:
+        n = len(self.files)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    @property
+    def num_samples(self) -> int:
+        return len(self.files)
+
+    def _decode(self, idx: int) -> np.ndarray | None:
+        """The decoded wave, or None for a bad file under on_error='zeros'."""
+        try:
+            return load_wave(self.files[idx], self.sample_rate)
+        except Exception:
+            if self.on_error != "zeros":
+                raise
+            log.warning("bad audio file, substituting silence: %s", self.files[idx])
+            return None
+
+    def _window(self, waves: list[np.ndarray | None], rng: np.random.Generator) -> np.ndarray:
+        # a bad file becomes silence without a draw, as the JAX loader does
+        out = np.stack([
+            np.zeros(self.clip_samples, np.float32) if w is None else extract_window_np(w, self.clip_samples, rng)
+            for w in waves
+        ]).astype(np.float32)
+        if self.wire_dtype == "int16":
+            out = np.clip(out * 32768.0, -32768, 32767).astype(np.int16)
+        return out
+
+    def epoch(self, epoch: int = 0, start: int = 0, rng_state: dict | None = None) -> Iterator:
+        """Batches ``start`` .. of ``epoch``; ``rng_state`` is the window-rng
+        state a checkpoint saved at ``start`` (``position``)."""
+        order = np.arange(len(self.files))
+        np.random.default_rng(self.seed + epoch).shuffle(order)
+        n_batches = len(self)
+        rng = np.random.default_rng((self.seed, epoch))
+        if rng_state is not None:
+            rng.bit_generator.state = rng_state
+        batch_idx = lambda b: order[b * self.batch_size : (b + 1) * self.batch_size]
+
+        def finish(b: int, waves: list) -> tuple[np.ndarray, None]:
+            batch = self._window(waves, rng)
+            self.position = {"epoch": epoch, "batch": b + 1, "rng": rng.bit_generator.state}
+            return batch, None
+
+        if self.num_workers <= 1:
+            for b in range(start, n_batches):
+                yield finish(b, [self._decode(i) for i in batch_idx(b)])
+            return
+        pool = cf.ThreadPoolExecutor(self.num_workers)
+        try:
+            pending: collections.deque = collections.deque()
+            nxt = start
+            while nxt < n_batches or pending:
+                while nxt < n_batches and len(pending) < PREFETCH_BATCHES:
+                    pending.append((nxt, [pool.submit(self._decode, i) for i in batch_idx(nxt)]))
+                    nxt += 1
+                b, futs = pending.popleft()
+                yield finish(b, [f.result() for f in futs])
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)

@@ -4,7 +4,8 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, which ctypes loads; wrappers pass tensor pointers
 and PyTorch's current stream as integers. Libraries go to ``.torch_build/``
 at the repo root, named by a hash of the source and flags, and are built at
-first use (``load``). Importing this module builds nothing.
+first use (``load``), or all at once with one nvcc per source started
+together (``load_all``). Importing this module builds nothing.
 """
 from __future__ import annotations
 
@@ -14,12 +15,13 @@ import logging
 import os
 import shutil
 import subprocess
+import time
 
 log = logging.getLogger(__name__)
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".torch_build")
-SOURCES = {"log_mel": "log_mel.cu"}
+SOURCES = {"log_mel": "log_mel.cu", "block1": "block1.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +47,22 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
+def _start_build(name: str) -> tuple[subprocess.Popen, str, str]:
+    path = library_path(name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, path
+
+
+def _finish_build(name: str, proc: subprocess.Popen, tmp: str, path: str) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA kernel build of {SOURCES[name]} failed (nvcc exit {proc.returncode}):\n{out}")
+    os.replace(tmp, path)
+    log.info("built %s:\n%s", SOURCES[name], out.strip())
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, compiled first if it is not
     built yet (the compiler's output, ptxas's register and spill report
@@ -53,13 +71,27 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         path = library_path(name)
         if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.tmp{os.getpid()}"
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
-            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"CUDA kernel build of {SOURCES[name]} failed (nvcc exit {proc.returncode}):\n{proc.stdout}")
-            os.replace(tmp, path)
-            log.info("built %s:\n%s", SOURCES[name], proc.stdout.strip())
+            _finish_build(name, *_start_build(name))
         _loaded[name] = ctypes.CDLL(path)
     return _loaded[name]
+
+
+def load_all() -> dict[str, float]:
+    """Build every source not built yet, one nvcc each, all started together,
+    then load them all. Returns the seconds from the start until each
+    source's library was ready (0 for one already built)."""
+    t0 = time.perf_counter()
+    builds = {name: _start_build(name) for name in SOURCES if not os.path.exists(library_path(name))}
+    seconds = {name: 0.0 for name in SOURCES}
+    failed = []
+    for name, build in builds.items():  # wait for every nvcc before raising for any
+        try:
+            _finish_build(name, *build)
+        except RuntimeError as e:
+            failed.append(str(e))
+        seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in SOURCES:
+        load(name)
+    return seconds

@@ -1,4 +1,4 @@
-"""AudioNTT2020Task6 encoder (BYOL-A conv net), PyTorch, eval path.
+"""AudioNTT2020Task6 encoder (BYOL-A conv net), PyTorch, eval and training.
 
 Port of ``audiossl_tpu.models.audiontt`` in the reference's own layout:
 NCHW input [B, 1, F, T] and the reference ``state_dict`` (``features_{1,2,3}.
@@ -6,14 +6,23 @@ NCHW input [B, 1, F, T] and the reference ``state_dict`` (``features_{1,2,3}.
 ``audiossl_tpu.models.torch_export`` or by ``models.convert`` loads with
 ``strict=True``. Three conv blocks (Conv 3x3 -> BN -> ReLU -> MaxPool 2x2)
 with per-block time-pooled taps, then a per-timestep MLP (Linear(64 *
-n_mels/8 -> d), ReLU, Dropout 0.3, Linear(d, d), ReLU).
+n_mels/8 -> d), ReLU, Dropout, Linear(d, d), ReLU).
 
-Numerics follow the JAX module: conv and linear run in ``compute_dtype``
-(bf16 by default, f32 for exact parity; an f32 model turns TF32 off for
-cuDNN and cuBLAS while it runs, since cuDNN convs default to TF32 on the
-card), BatchNorm uses its running statistics (eps 1e-5) computed in f32 and
-cast back, taps and outputs are f32. The training path (batch statistics, the fused block-1 kernel) is the
-next slice of the port; ``forward`` refuses to run in training mode.
+Numerics follow the JAX module: parameters are f32 and conv and linear run
+in ``compute_dtype`` (bf16 by default, f32 for exact parity; an f32 model
+turns TF32 off for cuDNN and cuBLAS while it runs, since cuDNN convs default
+to TF32 on the card); BatchNorm runs in f32 and casts back; taps and outputs
+are f32. In eval mode BN uses its running statistics. In training mode:
+
+* block 1 goes through ``ops.block1.fused_block1`` (the Hopper kernels on
+  the card) wherever ``block1.feasible`` holds, as the JAX module does;
+  otherwise, and for blocks 2 and 3, the conv runs in ``compute_dtype`` and
+  BN takes the batch statistics of its output in f32 (E[x²] − E[x]², flax's
+  fast variance);
+* running statistics update as 0.9 · running + 0.1 · batch with the BIASED
+  batch variance (flax's rule; ``nn.BatchNorm2d``'s own update stores the
+  unbiased one);
+* dropout draws its mask from the ``generator`` passed to ``forward``.
 """
 from __future__ import annotations
 
@@ -22,6 +31,9 @@ import contextlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from audiossl_tpu_torch import no_tf32
+from audiossl_tpu_torch.ops import block1
 
 
 def _conv_block(c_in: int) -> nn.Sequential:
@@ -40,16 +52,29 @@ def _time_major(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 2, 1).reshape(b, t, f * c)
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """IEEE f32 for cuDNN convs and cuBLAS matmuls inside the block; restores
-    the caller's TF32 settings after."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
+
+
+def update_running_stats(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """Fold one batch's mean and biased variance into ``bn``'s running
+    statistics, as flax does."""
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+
+
+def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=False, dtype=f32)`` over every
+    axis but 1: batch mean and fast biased variance in f32, running stats
+    updated, f32 output."""
+    axes = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.float()
+    mean = xf.mean(axes)
+    var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+    update_running_stats(bn, mean.detach(), var.detach())
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 
 
 class AudioNTT2020Task6(nn.Module):
@@ -63,6 +88,7 @@ class AudioNTT2020Task6(nn.Module):
         d: int = 2048,
         return_all_layers: bool = False,
         compute_dtype: torch.dtype = torch.bfloat16,
+        dropout_rate: float = 0.3,
     ):
         super().__init__()
         self.n_mels, self.d = n_mels, d
@@ -74,7 +100,7 @@ class AudioNTT2020Task6(nn.Module):
         self.fc = nn.Sequential(
             nn.Linear(64 * (n_mels // 8), d),
             nn.ReLU(),
-            nn.Dropout(p=0.3),
+            nn.Dropout(p=dropout_rate),
             nn.Linear(d, d),
             nn.ReLU(),
         )
@@ -83,32 +109,50 @@ class AudioNTT2020Task6(nn.Module):
         conv, bn = seq[0], seq[1]
         dt = self.compute_dtype
         x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
-        # BN from running statistics in f32, cast back to the compute dtype
-        x = F.batch_norm(
-            x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-            training=False, eps=bn.eps,
-        ).to(dt)
+        if self.training:
+            x = batch_norm_train(bn, x).to(dt)
+        else:  # BN from running statistics in f32, cast back to the compute dtype
+            x = F.batch_norm(
+                x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                training=False, eps=bn.eps,
+            ).to(dt)
         return F.max_pool2d(F.relu(x), 2, 2)
 
-    def forward(self, x: torch.Tensor):
-        if self.training:
-            raise NotImplementedError(
-                "AudioNTT2020Task6 is ported on its eval path only; call .eval() "
-                "(the training path is the next slice, ROADMAP.md)"
-            )
-        with _no_tf32() if self.compute_dtype == torch.float32 else contextlib.nullcontext():
-            return self._forward(x)
+    def _fused_block1(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self.features_1[0], self.features_1[1]
+        pooled, mean, var = block1.fused_block1(x, conv.weight, conv.bias, bn.weight, bn.bias)
+        update_running_stats(bn, mean, var)
+        return pooled
 
-    def _forward(self, x: torch.Tensor):
+    def _dropout(self, h: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        rate = self.fc[2].p
+        if rate == 0.0:
+            return h
+        if generator is None:
+            raise ValueError("AudioNTT2020Task6 in training mode with dropout needs an explicit torch.Generator")
+        keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - rate
+        return torch.where(keep, h / (1.0 - rate), 0.0)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        """``generator`` carries the dropout draws in training mode."""
+        with no_tf32() if self.compute_dtype == torch.float32 else contextlib.nullcontext():
+            return self._forward(x, generator)
+
+    def _forward(self, x: torch.Tensor, generator: torch.Generator | None):
         dt = self.compute_dtype
         x = x.to(dt)
         taps = []
-        for seq in (self.features_1, self.features_2, self.features_3):
-            x = self._block(seq, x)
+        for i, seq in enumerate((self.features_1, self.features_2, self.features_3)):
+            if i == 0 and self.training and block1.feasible(x.shape[3], x.shape[2], 64):
+                x = self._fused_block1(x)
+            else:
+                x = self._block(seq, x)
             taps.append(_time_major(x).float().mean(dim=1))
         h = _time_major(x)  # [B, T', F'*C]
         fc0, fc3 = self.fc[0], self.fc[3]
         h = F.relu(F.linear(h, fc0.weight.to(dt), fc0.bias.to(dt)))
+        if self.training:
+            h = self._dropout(h, generator)
         h = F.relu(F.linear(h, fc3.weight.to(dt), fc3.bias.to(dt))).float()
         if self.return_all_layers:
             return taps[0], taps[1], taps[2], h

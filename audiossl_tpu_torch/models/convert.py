@@ -1,7 +1,9 @@
-"""Carry weights across: JAX/flax AudioNTT variables -> the port's state_dict.
+"""Carry weights across: JAX/flax variables -> the port's state_dicts.
 
-The port's own copy of ``audiossl_tpu.models.torch_export.audiontt_to_torch``
-(the port imports nothing of the JAX package). Conventions bridged:
+The port's own copies of ``audiossl_tpu.models.torch_export``'s
+``audiontt_to_torch`` and ``projection_to_torch`` (the port imports nothing
+of the JAX package), so the whole DeLoRes-S trainer state, encoder and
+projector, carries over. Conventions bridged:
 
 * flax HWIO conv kernels, spatial (time, freq) -> torch OIHW, (freq, time):
   the JAX encoder runs time-major, the reference and the port freq-major;
@@ -9,10 +11,12 @@ The port's own copy of ``audiossl_tpu.models.torch_export.audiontt_to_torch``
 * flax BatchNorm scale/bias + batch_stats mean/var -> BatchNorm2d
   weight/bias/running_mean/running_var.
 
-Input is the encoder's variables as NumPy arrays (``{"params": ...,
-"batch_stats": ...}`` with ``ConvBlock_{0,1,2}`` and ``Dense_{0,1}``), e.g.
-``jax.tree.map(np.asarray, variables)``; output loads into
-``models.audiontt.AudioNTT2020Task6`` with ``strict=True``.
+``audiontt_from_flax`` takes the encoder's variables as NumPy arrays
+(``{"params": ..., "batch_stats": ...}`` with ``ConvBlock_{0,1,2}`` and
+``Dense_{0,1}``), e.g. ``jax.tree.map(np.asarray, variables)``; its output
+loads into ``models.audiontt.AudioNTT2020Task6`` with ``strict=True``.
+``projection_from_flax`` takes the projector's params and batch_stats; its
+output loads into ``models.heads.MLPProjector``.
 """
 from __future__ import annotations
 
@@ -47,4 +51,26 @@ def audiontt_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Te
         dense = params[f"Dense_{j}"]
         sd[f"{t}.weight"] = _t(np.asarray(dense["kernel"]).T)
         sd[f"{t}.bias"] = _t(dense["bias"])
+    return sd
+
+
+def projection_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``MLPProjector`` flax params and batch_stats -> the reference Barlow
+    ``Projection`` state_dict (``projector.{0,3,6}`` bias-free Linears,
+    ``projector.{1,4}`` BatchNorm1d, and the affine-free ``bn`` at its
+    initial state), which ``models.heads.MLPProjector`` loads."""
+    sd: dict[str, torch.Tensor] = {}
+    for dense_idx, torch_idx in ((0, 0), (1, 3), (2, 6)):
+        sd[f"projector.{torch_idx}.weight"] = _t(np.asarray(params[f"Dense_{dense_idx}"]["kernel"]).T)
+    for bn_idx, torch_idx in ((0, 1), (1, 4)):
+        p, s = params[f"BatchNorm_{bn_idx}"], batch_stats[f"BatchNorm_{bn_idx}"]
+        sd[f"projector.{torch_idx}.weight"] = _t(p["scale"])
+        sd[f"projector.{torch_idx}.bias"] = _t(p["bias"])
+        sd[f"projector.{torch_idx}.running_mean"] = _t(s["mean"])
+        sd[f"projector.{torch_idx}.running_var"] = _t(s["var"])
+        sd[f"projector.{torch_idx}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    out_dim = np.asarray(params["Dense_2"]["kernel"]).shape[1]
+    sd["bn.running_mean"] = torch.zeros(out_dim, dtype=torch.float32)
+    sd["bn.running_var"] = torch.ones(out_dim, dtype=torch.float32)
+    sd["bn.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return sd

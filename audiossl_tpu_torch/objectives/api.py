@@ -1,0 +1,66 @@
+"""Objective registry (port of ``audiossl_tpu.objectives.api``).
+
+An objective of the port is an ``nn.Module`` that owns its encoder and heads
+and computes the SSL loss of two views: ``loss(v1, v2, generator)``, with
+BatchNorm running statistics updated as a side effect of the forward.
+``encoder`` is the module that ``train/checkpoint.py`` exports for serving
+and downstream use.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+_REGISTRY: dict[str, Callable[..., nn.Module]] = {}
+
+
+def register(name: str):
+    def deco(cls):
+        _REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def get_objective(name: str, config: dict[str, Any], **kwargs) -> nn.Module:
+    """The objective ``name`` built from an experiment config."""
+    if name not in _REGISTRY:
+        raise NotImplementedError(
+            f"upstream objective {name!r} is not ported yet (ported: {sorted(_REGISTRY)}; "
+            "the others are ROADMAP.md Queue 1, slices 3 and 4)"
+        )
+    return _REGISTRY[name](config, **kwargs)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init: a normal of variance 1/fan_in truncated at
+    two standard deviations (std corrected for the truncation)."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def init_objective(name: str, config: dict[str, Any], seed: int, device: str | torch.device = "cpu") -> nn.Module:
+    """``get_objective`` with flax's initialisation drawn from
+    ``torch.Generator().manual_seed(seed)``: lecun-normal weights, zero
+    biases, BatchNorm at identity. The modules are built on the meta device
+    first, so no draw touches the global generator."""
+    with torch.device("meta"):
+        obj = get_objective(name, config)
+    obj = obj.to_empty(device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in obj.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                _lecun_normal_(m.weight, m.weight[0].numel(), g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+                if m.affine:
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+    return obj.to(device)

@@ -1,0 +1,193 @@
+"""Upstream pretraining loop (port of ``audiossl_tpu.train.loop``).
+
+Drives ``TrainStep`` over epochs of the manifest loader with the JAX loop's
+surface: JSON-lines stats (``stats.jsonl``: epoch, step, train_loss, batch
+and data time) written every ``run.log_every`` steps, which is also when the
+losses come back from the device and a non-finite one stops the run;
+step checkpoints every ``save_every`` steps; a checkpoint at the end of an
+epoch whose loss is the best so far, at the last epoch and at ``max_steps``.
+A resumed run (``load_checkpoint``) restores the whole state and continues
+the loader where the checkpoint left it, so it takes the same steps as a run
+that was never stopped.
+
+Not ported yet: the preemption guard (ROADMAP.md Queue 1, item 6) and the
+multi-device paths (slice 6).
+"""
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+import time
+from typing import Any
+
+import torch
+
+from audiossl_tpu_torch import config as cfgmod
+from audiossl_tpu_torch import resolve_device
+from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline, AugmentState, MixupBankState
+from audiossl_tpu_torch.data.pipeline import ManifestLoader
+from audiossl_tpu_torch.frontend import build_frontend
+from audiossl_tpu_torch.objectives import init_objective
+from audiossl_tpu_torch.ops.stats import RunningNormState
+from audiossl_tpu_torch.train import checkpoint as ckpt
+from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
+from audiossl_tpu_torch.train.step import TrainStep
+
+log = logging.getLogger("audiossl_tpu_torch.train")
+
+
+class MetricsBuffer:
+    """Deferred metric fetching: the loop appends device scalars and copies
+    them to the host every ``flush_every`` steps, so the host does not wait
+    for the device each step. A non-finite loss raises at the flush."""
+
+    def __init__(self, flush_every: int, stats_file):
+        self.flush_every = max(1, int(flush_every))
+        self.stats_file = stats_file
+        self.pending: list[tuple[int, int, torch.Tensor, float, float]] = []
+        self.last_loss = float("nan")
+
+    def push(self, epoch: int, step: int, loss: torch.Tensor, batch_time: float, data_time: float) -> bool:
+        self.pending.append((epoch, step, loss, batch_time, data_time))
+        if len(self.pending) >= self.flush_every:
+            self.flush()
+            return True
+        return False
+
+    def flush(self) -> None:
+        if not self.pending:
+            return
+        losses = torch.stack([p[2] for p in self.pending]).float().cpu().tolist()  # one host sync
+        for (epoch, step, _, bt, dt), loss in zip(self.pending, losses):
+            print(json.dumps({"epoch": epoch, "step": step, "train_loss": loss, "batch_time": bt, "data_time": dt}),
+                  file=self.stats_file)
+            self.last_loss = loss
+            if not math.isfinite(loss):
+                raise FloatingPointError(f"loss became {loss} at step {step}; stopping training")
+        self.pending.clear()
+
+
+def aug_state_dict(state: AugmentState) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    if state.mixup is not None:
+        out["mixup"] = {"bank": state.mixup.bank, "fill": state.mixup.fill, "ptr": state.mixup.ptr}
+    if state.running_norm is not None:
+        rn = state.running_norm
+        out["running_norm"] = {"n": rn.n, "mean": rn.mean, "var": rn.var, "max_update": rn.max_update}
+    return out
+
+
+def aug_state_from_dict(d: dict[str, Any], device: torch.device) -> AugmentState:
+    mix = d.get("mixup")
+    rn = d.get("running_norm")
+    return AugmentState(
+        mixup=MixupBankState(mix["bank"].to(device), int(mix["fill"]), int(mix["ptr"])) if mix else None,
+        running_norm=RunningNormState(int(rn["n"]), rn["mean"].to(device), rn["var"].to(device), int(rn["max_update"]))
+        if rn else None,
+    )
+
+
+def train_upstream(
+    config: dict[str, Any],
+    input_csv: str,
+    upstream: str,
+    load_checkpoint: str | None = None,
+    max_steps: int | None = None,
+    save_every: int = 500,
+    seed: int = 31,  # the reference seeds torch.manual_seed(31) (extras/delores-s/main.py:59-64)
+    device: str | torch.device = "cuda",
+):
+    """Pretrain ``upstream`` on the manifest ``input_csv``. Returns
+    (objective, final step, checkpoint directory)."""
+    dev = resolve_device(device)
+    run, pre = config["run"], config["pretrain"]
+    batch = int(run["batch_size"])
+    frontend = build_frontend(pre["input"])
+    clip = cfgmod.clip_samples(config)
+    loader = ManifestLoader(
+        input_csv, batch_size=batch, clip_samples=clip, sample_rate=frontend.sample_rate,
+        num_workers=int(run.get("num_dataloader_workers", 8)), seed=seed,
+        wire_dtype=str(run.get("wire_dtype", "int16")), on_error=str(run.get("data_on_error", "raise")),
+    )
+    normalization = str(pre.get("normalization", "mean_var"))
+    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=loader.num_samples)
+    objective = init_objective(upstream, config, seed, dev).train()
+
+    epochs = int(run.get("epochs", 1))
+    steps_per_epoch = max(len(loader), 1)
+    lr = float(run.get("learning_rate", 0.03))
+    if run.get("lr_schedule") == "warmup_cosine":
+        lr = warmup_cosine(lr, epochs * steps_per_epoch, 10 * steps_per_epoch)
+    optimizer, scheduler = build_optimizer(
+        str(run.get("optimizer", "sgd")), objective.parameters(), lr, **(run.get("optimizer_args") or {})
+    )
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    aug_state = pipeline.init_state(frontend.n_mels, frontend.num_frames(clip), dev)
+    step, position = 0, None
+    if load_checkpoint:
+        saved = ckpt.load_checkpoint(load_checkpoint)
+        objective.load_state_dict(saved["objective"])
+        optimizer.load_state_dict(saved["optimizer"])
+        if scheduler is not None:
+            scheduler.load_state_dict(saved["scheduler"])
+        aug_state = aug_state_from_dict(saved["augment"], dev)
+        generator.set_state(saved["generator"])
+        step, position = int(saved["step"]), saved["loader"]
+        log.info("resumed from %s at step %d", load_checkpoint, step)
+    train_step = TrainStep(objective, pipeline, frontend, optimizer, generator, scheduler, normalization)
+
+    save_path = run.get("save_path", "./runs/" + upstream)
+    ckpt_dir = save_path + "_chkp"
+    os.makedirs(ckpt_dir, exist_ok=True)
+    keep_last = int(run.get("keep_checkpoints", 0)) or None
+
+    def save() -> None:
+        state = {
+            "objective": objective.state_dict(),
+            "optimizer": optimizer.state_dict(),
+            "scheduler": scheduler.state_dict() if scheduler is not None else None,
+            "augment": aug_state_dict(aug_state),
+            "generator": generator.get_state(),
+            "loader": loader.position,
+            "step": step,
+            "config": config,
+        }
+        ckpt.save_checkpoint(ckpt_dir, step, state, objective.encoder.state_dict(), config, keep_last)
+
+    start_epoch, start_batch, rng_state = 0, 0, None
+    if position is not None:
+        start_epoch, start_batch, rng_state = position["epoch"], position["batch"], position["rng"]
+        if start_batch >= steps_per_epoch:
+            start_epoch, start_batch, rng_state = start_epoch + 1, 0, None
+    best_loss = float("inf")
+    done = False
+    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file:
+        buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
+        t_end = time.time()
+        for epoch in range(start_epoch, epochs):
+            first = epoch == start_epoch
+            for waves, _ in loader.epoch(epoch, start_batch if first else 0, rng_state if first else None):
+                data_time = time.time() - t_end
+                aug_state, loss = train_step(aug_state, torch.from_numpy(waves).to(dev))
+                step += 1
+                batch_time = time.time() - t_end
+                t_end = time.time()
+                if buf.push(epoch, step, loss, batch_time, data_time):
+                    log.info("epoch %d step %d loss %.4f (batch %.3fs data %.3fs)",
+                             epoch, step, buf.last_loss, batch_time, data_time)
+                if save_every and step % save_every == 0:
+                    save()
+                if max_steps and step >= max_steps:
+                    done = True
+                    break
+            buf.flush()
+            # best-train-loss checkpoint at epoch granularity (the reference's
+            # ModelCheckpoint(monitor='train_loss', save_top_k=1))
+            if buf.last_loss < best_loss or epoch == epochs - 1 or done:
+                best_loss = min(best_loss, buf.last_loss)
+                save()
+            if done:
+                break
+    return objective, step, ckpt_dir

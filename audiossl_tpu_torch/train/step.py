@@ -1,0 +1,86 @@
+"""One pretraining step (port of ``audiossl_tpu.train.step``):
+
+    waves -> (int16 decode) -> (l2) -> log-mel frontend -> RunningNorm + two
+    augmented views -> objective loss -> backward -> optimizer step
+
+On the card the frontend is the Hopper log-mel kernel and block 1 of the
+encoder the fused block-1 kernels. One process, one device: no mesh and no
+gradient all-reduce (DDP is ROADMAP.md Queue 1, slice 6).
+"""
+from __future__ import annotations
+
+import contextlib
+import torch
+from torch import nn
+
+from audiossl_tpu_torch import no_tf32
+from audiossl_tpu_torch.data.augment import AugmentPipeline, AugmentState, ViewDraws
+from audiossl_tpu_torch.frontend import FrontendSpec
+from audiossl_tpu_torch.ops.stats import l2_normalize
+
+
+def prepare_views(
+    pipeline: AugmentPipeline,
+    frontend: FrontendSpec,
+    normalization: str,
+    aug_state: AugmentState,
+    waves: torch.Tensor,
+    draws: tuple[ViewDraws, ViewDraws],
+) -> tuple[AugmentState, torch.Tensor, torch.Tensor]:
+    """waves [B, L] (f32, or int16 PCM) -> (aug_state', v1, v2), views in the
+    reference layout [B, 1, F, T]."""
+    if waves.dtype == torch.int16:  # the loader's PCM16 wire format
+        waves = waves.float() / 32768.0
+    if normalization == "l2":
+        waves = l2_normalize(waves, dim=-1)
+    lms = frontend(waves)[:, None]
+    return pipeline(aug_state, lms, draws)
+
+
+class TrainStep:
+    """``step(aug_state, waves) -> (aug_state', loss)``: views, loss,
+    backward and one optimizer (and scheduler) step. The views' random
+    numbers and the dropout masks come from ``generator``; an f32 objective
+    runs forward and backward with TF32 off."""
+
+    def __init__(
+        self,
+        objective: nn.Module,
+        pipeline: AugmentPipeline,
+        frontend: FrontendSpec,
+        optimizer: torch.optim.Optimizer,
+        generator: torch.Generator,
+        scheduler: torch.optim.lr_scheduler.LRScheduler | None = None,
+        normalization: str = "mean_var",
+    ):
+        self.objective = objective
+        self.pipeline = pipeline
+        self.frontend = frontend
+        self.optimizer = optimizer
+        self.generator = generator
+        self.scheduler = scheduler
+        self.normalization = normalization
+
+    def views(self, aug_state: AugmentState, waves: torch.Tensor):
+        n_frames = self.frontend.num_frames(waves.shape[-1])
+        draws = self.pipeline.sample_draws(aug_state, waves.shape[0], self.frontend.n_mels, n_frames, self.generator)
+        return prepare_views(self.pipeline, self.frontend, self.normalization, aug_state, waves, draws)
+
+    def loss_and_grads(self, v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+        f32 = self.objective.compute_dtype == torch.float32
+        with no_tf32() if f32 else contextlib.nullcontext():
+            loss = self.objective.loss(v1, v2, self.generator)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        return loss.detach()
+
+    def update(self) -> None:
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+
+    def __call__(self, aug_state: AugmentState, waves: torch.Tensor) -> tuple[AugmentState, torch.Tensor]:
+        aug_state, v1, v2 = self.views(aug_state, waves)
+        loss = self.loss_and_grads(v1, v2)
+        self.update()
+        return aug_state, loss

@@ -99,3 +99,21 @@ def test_kernel_requests_raise_without_the_card(no_cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(os, "access", lambda path, mode: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.load("log_mel")
+
+
+def test_trainer_raises_without_cuda_unless_given_cpu(no_cuda, tmp_path):
+    from audiossl_tpu_torch.config import load_config
+    from audiossl_tpu_torch.train.loop import train_upstream
+    from audiossl_tpu_torch.train_upstream import main
+
+    csv = tmp_path / "m.csv"
+    csv.write_text("files\n")
+    config = load_config(os.path.join(ROOT, "configs", "delores_s.yaml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_upstream(config, str(csv), "delores_s")  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--upstream", "delores_s", "--input", str(csv)])
+    config["run"].update(save_path=str(tmp_path / "run"), epochs=1)
+    config["pretrain"]["base_encoder"]["output_dim"] = config["pretrain"]["projection_dim"] = 32
+    _, step, _ = train_upstream(config, str(csv), "delores_s", device="cpu")  # an empty manifest: no step
+    assert step == 0
