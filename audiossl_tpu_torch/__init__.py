@@ -11,18 +11,22 @@ Hopper (``csrc/``, built at first use by ``kernels.py``). Each kernel has a
 plain PyTorch version beside it; a wrapper takes the plain version only for
 a tensor on the CPU, and on a CUDA tensor launches the kernel or raises.
 
-Ported so far (the serving slice, then DeLoRes-S pretraining):
+Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
   data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches
-  data/augment.py     RunningNorm, MixupBYOLA ring bank, RandomResizeCrop views
-  frontend/           log-mel: plain version + the Hopper log-mel kernel
-  ops/                windowing, running norm, bicubic crop-resize, and block 1
-                      (conv-BN-ReLU-pool) with its three Hopper kernels
+  data/augment.py     RunningNorm, MixupBYOLA ring bank, RandomResizeCrop,
+                      SpecMask and precomputed-norm views
+  frontend/           log-mel and Kaldi fbank: plain versions + the Hopper
+                      log-mel and dense-rows kernels; waveform mixup
+  ops/                windowing, running norm, bicubic crop-resize, masking,
+                      block 1 (conv-BN-ReLU-pool) with its three Hopper
+                      kernels, rel-pos attention with its three Hopper kernels
   models/audiontt.py  AudioNTT2020Task6, eval and training paths
+  models/mvit.py      MViTv2; models/mast.py: MAST and MASTWithHead
   models/heads.py     Barlow projector and loss
-  models/convert.py   flax variables -> reference state_dicts
-  objectives/         DeLoRes-S
+  models/convert.py   flax variables -> reference state_dicts (AudioNTT, MAST)
+  objectives/         DeLoRes-S, SS-MAST (MoCo queue, EMA key encoder)
   train/              optimizers, train step, checkpoints, loop
   train_upstream.py   pretraining CLI
   downstream/model.py DownstreamModel (AudioNTT encoder)

@@ -14,8 +14,9 @@ The bank is updated in place (its ring slots are overwritten) to keep one
 copy of it on the device.
 
 Ported: the delores_s configuration (RunningNorm or l2 / none, MixupBYOLA,
-RandomResizeCrop). Kmix, MixGaussianNoise, SpecMask, the ``precomputed``
-norm, MAST noise and waveform mixup raise ``NotImplementedError``.
+RandomResizeCrop) and the ssmast one (SpecMask, then the ``precomputed``
+norm; the waveform mixup runs before the frontend, in train/step.py).
+Kmix, MixGaussianNoise and MAST noise raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ from typing import Any, NamedTuple
 
 import torch
 
+from audiossl_tpu_torch.frontend.fbank import WaveMixDraws, sample_wave_mixup
+from audiossl_tpu_torch.ops.masking import MaskDraws, sample_mask_draws, spec_mask
 from audiossl_tpu_torch.ops.resize import random_resize_crop, sample_crop_boxes
-from audiossl_tpu_torch.ops.stats import RunningNormState, running_norm_apply, running_norm_init
+from audiossl_tpu_torch.ops.stats import RunningNormState, precomputed_norm, running_norm_apply, running_norm_init
 
 EPS32 = 1.1920929e-7
 
@@ -69,11 +72,13 @@ def mixup_byola(
 
 class ViewDraws(NamedTuple):
     """The random numbers of one view: mixup weight [B] and bank index [B]
-    (None without mixup), crop boxes [B, 4] (None without RandomResizeCrop)."""
+    (None without mixup), crop boxes [B, 4] (None without RandomResizeCrop),
+    SpecMask spans (None without SpecMask)."""
 
     mix_alpha: torch.Tensor | None
     mix_index: torch.Tensor | None
     crop_boxes: torch.Tensor | None
+    mask: MaskDraws | None = None
 
 
 @dataclasses.dataclass
@@ -150,10 +155,7 @@ class AugmentConfig:
 _NOT_PORTED = {
     "kmix_ratio": "Kmix (the DECAR slice, ROADMAP.md Queue 1 item 14)",
     "gaussian_ratio": "MixGaussianNoise (the DECAR slice, ROADMAP.md Queue 1 item 14)",
-    "spec_mask_freq": "SpecMask (the SS-MAST slice, ROADMAP.md Queue 1 item 9)",
-    "spec_mask_time": "SpecMask (the SS-MAST slice, ROADMAP.md Queue 1 item 9)",
-    "wave_mixup_rate": "waveform mixup (the SS-MAST slice, ROADMAP.md Queue 1 item 9)",
-    "mast_noise": "MAST noise (the SS-MAST slice, ROADMAP.md Queue 1 item 9)",
+    "mast_noise": "MAST noise (ROADMAP.md Queue 1)",
 }
 
 
@@ -162,16 +164,15 @@ class AugmentPipeline:
 
     Order as AugmentationModule.get_augmentations: RunningNorm first, then
     view 1, a bank push, view 2 (which can draw view 1's push), a second push.
+    A view is mixup, crop, SpecMask, then the precomputed norm: MAST masks
+    THEN normalizes (dataloader.py:186-202), so masked bins sit at
+    (0 - mean) / (2 std).
     """
 
     def __init__(self, cfg: AugmentConfig, epoch_samples: int):
         for field, what in _NOT_PORTED.items():
             if getattr(cfg, field):
                 raise NotImplementedError(f"{what} is not ported yet")
-        if cfg.normalization == "precomputed":
-            raise NotImplementedError(
-                "the precomputed normalization is not ported yet: the SS-MAST slice, ROADMAP.md Queue 1 item 9"
-            )
         self.cfg = cfg
         self.epoch_samples = epoch_samples
 
@@ -203,14 +204,26 @@ class AugmentPipeline:
                 boxes = sample_crop_boxes(
                     b, n_mels, n_frames, generator, cfg.virtual_crop_scale, cfg.freq_scale, cfg.time_scale
                 )
-            draws.append(ViewDraws(alpha, index, boxes))
+            mask = None
+            if cfg.spec_mask_freq or cfg.spec_mask_time:
+                mask = sample_mask_draws(b, n_mels, n_frames, cfg.spec_mask_freq, cfg.spec_mask_time, generator)
+            draws.append(ViewDraws(alpha, index, boxes, mask))
         return draws[0], draws[1]
+
+    def sample_wave_draws(self, b: int, generator: torch.Generator) -> WaveMixDraws | None:
+        """The waveform mixup's draws for B clips, or None when it is off."""
+        rate = self.cfg.wave_mixup_rate
+        return sample_wave_mixup(b, rate, generator) if rate > 0.0 else None
 
     def _one_view(self, mixup: MixupBankState | None, x: torch.Tensor, draws: ViewDraws) -> torch.Tensor:
         if mixup is not None:
             x = mixup_byola(mixup, x, draws.mix_alpha, draws.mix_index, self.cfg.mixup_log)
         if self.cfg.rrc:
             x = random_resize_crop(x, draws.crop_boxes, self.cfg.virtual_crop_scale)
+        if draws.mask is not None:
+            x = spec_mask(x, draws.mask)
+        if self.cfg.normalization == "precomputed":
+            x = precomputed_norm(x, self.cfg.norm_mean, self.cfg.norm_std_mult * self.cfg.norm_std)
         return x
 
     def __call__(self, state: AugmentState, x: torch.Tensor, draws: tuple[ViewDraws, ViewDraws]):

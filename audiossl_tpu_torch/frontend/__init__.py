@@ -5,8 +5,11 @@ Mirrors ``audiossl_tpu.frontend``:
     Hopper log-mel kernel (fused_stft.log_mel_fused) whenever the config is
     ``ct_eligible``, which the TPU package splits between its ct2 and ct
     kernels; otherwise the plain version (stft.log_mel).
-  * ``fbank`` — Kaldi-compatible fbank for MAST/AST; not ported yet (the
-    SS-MAST slice in ROADMAP.md), so it raises.
+  * ``fbank`` — Kaldi-compatible fbank for MAST/AST, padded or cut to
+    ``target_length`` frames. On a CUDA tensor it runs the dense-rows Hopper
+    kernel in Kaldi mode (fused_stft.kaldi_fbank_fused); on the CPU the plain
+    version (fbank.kaldi_fbank). The JAX package keeps fbank on XLA for a
+    TPU-only reason (the 400-tap window pads to 512 lanes).
 """
 from __future__ import annotations
 
@@ -16,12 +19,8 @@ from typing import Any
 import torch
 
 from audiossl_tpu_torch.frontend import fused_stft
+from audiossl_tpu_torch.frontend.fbank import FbankConfig, pad_or_trim_frames
 from audiossl_tpu_torch.frontend.stft import LogMelConfig, log_mel
-
-_FBANK_TODO = (
-    "the Kaldi fbank frontend is not ported yet: it belongs to the SS-MAST "
-    "slice (ROADMAP.md, Queue 1)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,14 +32,25 @@ class FrontendSpec:
 
     def logmel_config(self) -> LogMelConfig:
         if self.kind == "fbank":
-            raise NotImplementedError(_FBANK_TODO)
+            raise NotImplementedError("serving behind a fbank frontend is not ported yet (ROADMAP.md Queue 1)")
         return LogMelConfig(sample_rate=self.sample_rate, n_mels=self.n_mels)
 
+    def fbank_config(self) -> FbankConfig:
+        return FbankConfig(sample_rate=self.sample_rate, num_mel_bins=self.n_mels)
+
     def num_frames(self, n_samples: int) -> int:
+        if self.kind == "fbank":
+            return self.target_length or self.fbank_config().num_frames(n_samples)
         return self.logmel_config().num_frames(n_samples)
 
     def __call__(self, waves: torch.Tensor) -> torch.Tensor:
         """[B, L] -> [B, F, T]."""
+        if self.kind == "fbank":
+            cfg = self.fbank_config()
+            fb = fused_stft.kaldi_fbank_fused(waves, cfg)  # [B, T, M]; the plain version on the CPU
+            if self.target_length:
+                fb = pad_or_trim_frames(fb, self.target_length)
+            return fb.transpose(-1, -2)
         return logmel_features(waves, self.logmel_config())
 
 

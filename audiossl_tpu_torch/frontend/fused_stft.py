@@ -1,6 +1,6 @@
-"""The fused log-mel kernel's wrapper: wave -> [B, n_mels, n_frames].
+"""The spectrogram kernels' wrappers.
 
-``log_mel_fused`` is the port of the TPU kernels
+``log_mel_fused`` (wave -> [B, n_mels, n_frames]) is the port of the TPU kernels
 ``audiossl_tpu/frontend/pallas_stft.py:log_mel_fused_ct2`` and
 ``log_mel_fused_ct``: one hand-written Hopper kernel (csrc/log_mel.cu) covers
 the domains of both, i.e. every config with ``ct_eligible``. For a tensor on
@@ -11,6 +11,15 @@ The wrapper reflect-pads the wave (as the TPU ct2 wrapper does outside its
 kernel), builds the host-side constants once per (config, device), and
 hands the kernel the padded wave; the kernel frames, windows, transforms,
 applies the filterbank and takes the log, writing the output directly.
+
+``kaldi_fbank_fused`` (wave -> [B, n_frames, n_mels], the MAST frontend) and
+``log_mel_dense_fused`` (wave -> [B, n_mels, n_frames]) are the port of the
+TPU functions ``pallas_stft.py:kaldi_fbank_fused`` and ``log_mel_fused``,
+which share one kernel (``_fused_rows``): frame rows times the
+window-folded DFT bank, power, mel and log. Here too they share one Hopper
+kernel (csrc/fused_rows.cu) in its two log modes; framing (and for Kaldi
+DC removal and preemphasis) runs in plain torch before it. The plain version
+of that kernel is ``fused_rows_plain``.
 """
 from __future__ import annotations
 
@@ -21,9 +30,13 @@ import math
 import numpy as np
 import torch
 
-from audiossl_tpu_torch import kernels
+from audiossl_tpu_torch import kernels, no_tf32
+from audiossl_tpu_torch.frontend import fbank as fbankmod
 from audiossl_tpu_torch.frontend import mel as melmod
-from audiossl_tpu_torch.frontend.stft import LogMelConfig, log_mel, padded_window, reflect_pad
+from audiossl_tpu_torch.frontend import stft as stftmod
+from audiossl_tpu_torch.frontend.stft import EPS32, EPS64, LogMelConfig, log_mel, padded_window, reflect_pad
+
+ROW_MODES = ("kaldi", "librosa")
 
 
 def ct_eligible(cfg: LogMelConfig) -> bool:
@@ -148,3 +161,129 @@ def log_mel_fused(wave: torch.Tensor, cfg: LogMelConfig = LogMelConfig()) -> tor
 
 
 log_mel_fused.launches = 0  # kernel launches; the chip smoke run resets and reads it
+
+
+# ---------------------------------------------------------------- dense rows (csrc/fused_rows.cu)
+
+
+def fused_rows_plain(frames: torch.Tensor, bank: torch.Tensor, mel_t: torch.Tensor, mode: str) -> torch.Tensor:
+    """[..., win] frame rows -> [..., n_mels]: frames @ bank [win, 2 nb]
+    (cos columns, then sin), power, then ``mode`` "kaldi":
+    log(max(power @ mel_t, EPS32)) or "librosa": log((power + EPS64) @ mel_t
+    + EPS32). f32 products with TF32 off: the plain version of the kernel."""
+    n_bins = mel_t.shape[0]
+    with no_tf32():
+        spec = torch.matmul(frames.float(), bank)
+        power = spec[..., :n_bins].square() + spec[..., n_bins:].square()
+        if mode == "kaldi":
+            return torch.log(torch.clamp_min(torch.matmul(power, mel_t), EPS32))
+        if mode == "librosa":
+            return torch.log(torch.matmul(power + EPS64, mel_t) + EPS32)
+    raise ValueError(f"mode must be one of {ROW_MODES}, got {mode!r}")
+
+
+@functools.lru_cache(maxsize=1)
+def _rows_lib() -> ctypes.CDLL:
+    lib = kernels.load("fused_rows")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.audiossl_fused_rows_tile.argtypes = [i, i]
+    lib.audiossl_fused_rows_tile.restype = i
+    lib.audiossl_fused_rows.argtypes = [p, i, i, i, i, p, p, p, i, p, p]
+    lib.audiossl_fused_rows.restype = i
+    return lib
+
+
+def _sparse_rows(mel_t: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """mel_t [n_bins, n_mels] -> (fb [n_mels, n_bins] f32, mel_range [n_mels, 2]
+    int32: each filter's first nonzero bin and one past its last)."""
+    fb = np.ascontiguousarray(mel_t.T, np.float32)
+    mel_range = np.zeros((fb.shape[0], 2), np.int32)
+    for i, row in enumerate(fb):
+        nz = np.flatnonzero(row)
+        if nz.size:
+            mel_range[i] = (nz[0], nz[-1] + 1)
+    return fb, mel_range
+
+
+@functools.lru_cache(maxsize=16)
+def _rows_constants(cfg, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """(bank, mel_t, fb, mel_range) on ``device`` for an FbankConfig (Kaldi
+    mode) or a LogMelConfig (librosa mode)."""
+    if isinstance(cfg, fbankmod.FbankConfig):
+        bank, mel_t = fbankmod.fbank_constants(cfg)
+    else:
+        bank, mel_t = stftmod._constants(cfg)
+    fb, mel_range = _sparse_rows(mel_t)
+    return tuple(torch.from_numpy(a).to(device) for a in (bank, mel_t, fb, mel_range))
+
+
+def _check_wave(wave: torch.Tensor, name: str) -> None:
+    if wave.device.type != "cuda":
+        raise ValueError(f"{name} takes a CPU or CUDA tensor, got {wave.device}")
+    if wave.dim() != 2 or wave.dtype != torch.float32 or not wave.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous f32 [B, n] wave on the card, got {tuple(wave.shape)} "
+                         f"{wave.dtype}{'' if wave.is_contiguous() else ', not contiguous'}")
+
+
+def fused_rows(frames: torch.Tensor, cfg, mode: str) -> torch.Tensor:
+    """The kernel on contiguous f32 frame rows [rows, win] on the card ->
+    [rows, n_mels] f32. Raises for anything else; it never falls back."""
+    if mode not in ROW_MODES:
+        raise ValueError(f"mode must be one of {ROW_MODES}, got {mode!r}")
+    if frames.device.type != "cuda" or frames.dim() != 2 or frames.dtype != torch.float32 or not frames.is_contiguous():
+        raise ValueError(f"fused_rows takes contiguous f32 [rows, win] frames on the card, got "
+                         f"{tuple(frames.shape)} {frames.dtype} on {frames.device}")
+    bank, mel_t, fb, mel_range = _rows_constants(cfg, frames.device)
+    rows, win = frames.shape
+    n_bins, n_mels = mel_t.shape
+    if bank.shape != (win, 2 * n_bins):
+        raise ValueError(f"frames of width {win} do not fit the bank {tuple(bank.shape)}")
+    lib = _rows_lib()
+    if lib.audiossl_fused_rows_tile(win, n_bins) == 0:
+        raise ValueError(f"rows of {win} samples and {n_bins} bins exceed the kernel's shared-memory tile")
+    out = torch.empty((rows, n_mels), dtype=torch.float32, device=frames.device)
+    if rows:
+        with torch.cuda.device(frames.device):
+            err = lib.audiossl_fused_rows(
+                frames.data_ptr(), rows, win, n_bins, n_mels, bank.data_ptr(), fb.data_ptr(),
+                mel_range.data_ptr(), int(mode == "librosa"), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"fused_rows kernel launch failed: CUDA error {err}")
+        fused_rows.launches[mode] += 1
+    return out
+
+
+def kaldi_fbank_fused(wave: torch.Tensor, cfg: fbankmod.FbankConfig = fbankmod.FbankConfig()) -> torch.Tensor:
+    """[B, n] -> [B, n_frames, num_mel_bins] Kaldi fbank. CPU tensor: the
+    plain version (fbank.kaldi_fbank). CUDA tensor: frames in plain torch,
+    then the kernel in Kaldi mode, or an error."""
+    if wave.device.type == "cpu":
+        return fbankmod.kaldi_fbank(wave, cfg)
+    _check_wave(wave, "kaldi_fbank_fused")
+    if not cfg.use_power:
+        raise NotImplementedError("use_power=False (magnitude fbank) is not ported")
+    b = wave.shape[0]
+    frames = fbankmod.frame_rows(wave, cfg)
+    n_frames = frames.shape[1]
+    out = fused_rows(frames.reshape(b * n_frames, cfg.window_size).contiguous(), cfg, "kaldi")
+    return out.view(b, n_frames, cfg.num_mel_bins)
+
+
+def log_mel_dense_fused(wave: torch.Tensor, cfg: LogMelConfig = LogMelConfig()) -> torch.Tensor:
+    """[B, n] -> [B, n_mels, n_frames] librosa log-mel through the dense rows
+    kernel (the TPU ``log_mel_fused``; no dispatch site selects it, as in
+    the JAX package). CPU tensor: the plain version (stft.log_mel)."""
+    if wave.device.type == "cpu":
+        return log_mel(wave, cfg)
+    _check_wave(wave, "log_mel_dense_fused")
+    if cfg.power != 2.0:
+        raise ValueError(f"the rows kernel computes the power spectrum (power=2), got {cfg.power}")
+    b = wave.shape[0]
+    frames = stftmod.frame_signal(wave, cfg.n_fft, cfg.hop, cfg.center)
+    n_frames = frames.shape[1]
+    out = fused_rows(frames.reshape(b * n_frames, cfg.n_fft).contiguous(), cfg, "librosa")
+    return out.view(b, n_frames, cfg.n_mels).transpose(1, 2)
+
+
+fused_rows.launches = dict.fromkeys(ROW_MODES, 0)  # kernel launches by mode; the chip smoke run resets and reads them

@@ -21,7 +21,9 @@ log = logging.getLogger(__name__)
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".torch_build")
-SOURCES = {"log_mel": "log_mel.cu", "block1": "block1.cu"}
+SOURCES = {
+    "log_mel": "log_mel.cu", "block1": "block1.cu", "fused_rows": "fused_rows.cu", "attention": "attention.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

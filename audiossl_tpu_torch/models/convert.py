@@ -17,6 +17,13 @@ projector, carries over. Conventions bridged:
 loads into ``models.audiontt.AudioNTT2020Task6`` with ``strict=True``.
 ``projection_from_flax`` takes the projector's params and batch_stats; its
 output loads into ``models.heads.MLPProjector``.
+
+``mast_from_flax`` is the port's copy of ``mast_to_torch``: MAST trunk
+variables -> the reference's flat ``blocks.{i}`` MViTv2 state_dict, which
+runs freq-major. The port's MViT runs time-major, as the JAX module does;
+``mvit_reference_layout`` converts a state_dict either way (it is its own
+inverse): the patch and pooling conv kernels transpose their spatial axes
+and rel_pos_h / rel_pos_w swap.
 """
 from __future__ import annotations
 
@@ -73,4 +80,72 @@ def projection_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
     sd["bn.running_mean"] = torch.zeros(out_dim, dtype=torch.float32)
     sd["bn.running_var"] = torch.ones(out_dim, dtype=torch.float32)
     sd["bn.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return sd
+
+
+def mast_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``MASTEncoder`` flax variables (``{"params": {"mvit": ...}}``) ->
+    the reference MViTv2 state_dict, as ``mast_to_torch`` writes it."""
+    mvit = variables_numpy["params"]["mvit"]
+    freq_major = lambda w: _t(np.transpose(np.asarray(w), (3, 2, 1, 0)))  # HWIO (time, freq) -> OIHW (freq, time)
+    sd: dict[str, torch.Tensor] = {
+        "patch_embed.proj.weight": freq_major(mvit["patch_embed"]["kernel"]),
+        "patch_embed.proj.bias": _t(mvit["patch_embed"]["bias"]),
+    }
+
+    def put_ln(key: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{key}.weight"] = _t(tree["scale"])
+        sd[f"{key}.bias"] = _t(tree["bias"])
+
+    def put_dense(key: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{key}.weight"] = _t(np.asarray(tree["kernel"]).T)
+        if "bias" in tree:
+            sd[f"{key}.bias"] = _t(tree["bias"])
+
+    i = 0
+    while f"block{i}" in mvit:
+        blk, b = mvit[f"block{i}"], f"blocks.{i}"
+        put_ln(f"{b}.norm1", blk["norm1"])
+        put_ln(f"{b}.norm2", blk["norm2"])
+        attn = blk["attn"]
+        put_dense(f"{b}.attn.qkv", attn["qkv"])
+        put_dense(f"{b}.attn.proj", attn["proj"])
+        for pool in ("q", "k", "v"):
+            if f"pool_{pool}" in attn:
+                sd[f"{b}.attn.pool_{pool}.weight"] = freq_major(attn[f"pool_{pool}"]["Conv_0"]["kernel"])
+                put_ln(f"{b}.attn.norm_{pool}", attn[f"pool_{pool}"]["LayerNorm_0"])
+        if "rel_pos_h" in attn:  # the time-major tables swap back to freq-major H
+            sd[f"{b}.attn.rel_pos_h"] = _t(attn["rel_pos_w"])
+            sd[f"{b}.attn.rel_pos_w"] = _t(attn["rel_pos_h"])
+        if "proj" in blk:
+            put_dense(f"{b}.proj", blk["proj"])
+        put_dense(f"{b}.mlp.fc1", blk["mlp"]["Dense_0"])
+        put_dense(f"{b}.mlp.fc2", blk["mlp"]["Dense_1"])
+        i += 1
+    if i == 0:
+        raise KeyError("no MViT blocks found (expected params['mvit']['block0'])")
+    return sd
+
+
+def mvit_reference_layout(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The port's time-major MViT state_dict <-> the reference's freq-major one."""
+    out = {}
+    for key, v in sd.items():
+        if key.endswith(("patch_embed.proj.weight", ".attn.pool_q.weight", ".attn.pool_k.weight", ".attn.pool_v.weight")):
+            v = v.transpose(-1, -2).contiguous()
+        elif key.endswith(".attn.rel_pos_h"):
+            key = key[: -len("h")] + "w"
+        elif key.endswith(".attn.rel_pos_w"):
+            key = key[: -len("w")] + "h"
+        out[key] = v
+    return out
+
+
+def mast_with_head_from_flax(params_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``MASTWithHead`` flax params (``{"mast": {"mvit": ...}, "mlp_fc1": ...}``)
+    -> the port's ``models.mast.MASTWithHead`` state_dict."""
+    trunk = mvit_reference_layout(mast_from_flax({"params": params_numpy["mast"]}))
+    sd = {f"mast.{k}": v for k, v in trunk.items()}
+    sd["mlp_fc1.weight"] = _t(np.asarray(params_numpy["mlp_fc1"]["kernel"]).T)
+    sd["mlp_fc1.bias"] = _t(params_numpy["mlp_fc1"]["bias"])
     return sd

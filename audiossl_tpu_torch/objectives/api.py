@@ -29,7 +29,7 @@ def get_objective(name: str, config: dict[str, Any], **kwargs) -> nn.Module:
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"upstream objective {name!r} is not ported yet (ported: {sorted(_REGISTRY)}; "
-            "the others are ROADMAP.md Queue 1, slices 3 and 4)"
+            "the others are ROADMAP.md Queue 1, slice 4)"
         )
     return _REGISTRY[name](config, **kwargs)
 
@@ -43,9 +43,12 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 
 def init_objective(name: str, config: dict[str, Any], seed: int, device: str | torch.device = "cpu") -> nn.Module:
     """``get_objective`` with flax's initialisation drawn from
-    ``torch.Generator().manual_seed(seed)``: lecun-normal weights, zero
-    biases, BatchNorm at identity. The modules are built on the meta device
-    first, so no draw touches the global generator."""
+    ``torch.Generator().manual_seed(seed)``: lecun-normal dense and conv
+    kernels (depthwise ones included), zero biases, BatchNorm and LayerNorm
+    at identity, rel-pos tables truncated-normal with std 0.02 (cut at two
+    std), then the objective's own ``init_state_`` (SS-MAST: the key encoder
+    and the queue). The modules are built on the meta device first, so no
+    draw touches the global generator."""
     with torch.device("meta"):
         obj = get_objective(name, config)
     obj = obj.to_empty(device="cpu")
@@ -63,4 +66,12 @@ def init_objective(name: str, config: dict[str, Any], seed: int, device: str | t
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
                 m.num_batches_tracked.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        for name, p in obj.named_parameters():
+            if name.endswith((".rel_pos_h", ".rel_pos_w")):
+                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=g)
+        if hasattr(obj, "init_state_"):
+            obj.init_state_(g)
     return obj.to(device)

@@ -47,5 +47,9 @@ class DeloresS(nn.Module):
     def embed(self, v: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         return self.projector(max_mean_pool(self.encoder(v, generator)))
 
+    def export_state_dict(self) -> dict[str, torch.Tensor]:
+        """The encoder in the reference layout (what checkpoints export)."""
+        return self.encoder.state_dict()
+
     def loss(self, v1: torch.Tensor, v2: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         return barlow_loss(self.embed(v1, generator), self.embed(v2, generator), self.lambd, self.scale_loss)

@@ -62,6 +62,11 @@ def running_norm_apply(state: RunningNormState, x: torch.Tensor) -> tuple[Runnin
     return RunningNormState(n=k0 + u, mean=mean, var=var, max_update=state.max_update), (x - mean) / std
 
 
+def precomputed_norm(x: torch.Tensor, mean: float, std: float) -> torch.Tensor:
+    """(x - mean) / std with dataset statistics (MAST passes 2 * std)."""
+    return (x - mean) / std
+
+
 def normalize_batch(x: torch.Tensor, dim=(0, 2, 3)) -> torch.Tensor:
     """Zero mean, unit std over ``dim`` (NormalizeBatch; torch .std() is unbiased)."""
     mean = x.mean(dim, keepdim=True)

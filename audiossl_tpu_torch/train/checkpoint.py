@@ -3,12 +3,15 @@
 Layout under ``<save_path>_chkp/``, as the JAX package's:
 
   state/<step>.pt    everything a resumed run needs: the objective's
-                     state_dict (parameters and BatchNorm running stats),
+                     state_dict (parameters, BatchNorm running stats, and
+                     for SS-MAST the key encoder, queue, pointer and step),
                      optimizer and scheduler, the augmentation state (mixup
                      bank, fill, ptr, RunningNorm), the generator's state,
                      the loader's position, the step and the config
-  encoder/<step>.pt  the encoder's state_dict in the reference layout, which
-                     ``serve.export --state_dict`` and ``build_embedder`` read
+  encoder/<step>.pt  the objective's ``export_state_dict()`` in the reference
+                     layout: AudioNTT for DeLoRes-S, which ``serve.export
+                     --state_dict`` and ``build_embedder`` read; the MAST
+                     trunk for SS-MAST (freq-major, as ``mast_to_torch``)
   config.yaml
 
 Files are written with ``torch.save`` to a temporary name and renamed, so a

@@ -15,6 +15,7 @@ multi-device paths (slice 6).
 """
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import math
@@ -100,8 +101,11 @@ def train_upstream(
     device: str | torch.device = "cuda",
 ):
     """Pretrain ``upstream`` on the manifest ``input_csv``. Returns
-    (objective, final step, checkpoint directory)."""
+    (objective, final step, checkpoint directory). ``config`` is not
+    changed: the run writes ``pretrain.steps_per_epoch`` into its own copy
+    (the one its checkpoints store)."""
     dev = resolve_device(device)
+    config = copy.deepcopy(config)
     run, pre = config["run"], config["pretrain"]
     batch = int(run["batch_size"])
     frontend = build_frontend(pre["input"])
@@ -113,15 +117,17 @@ def train_upstream(
     )
     normalization = str(pre.get("normalization", "mean_var"))
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=loader.num_samples)
+    steps_per_epoch = max(len(loader), 1)
+    pre["steps_per_epoch"] = steps_per_epoch  # SS-MAST's momentum schedule reads it
     objective = init_objective(upstream, config, seed, dev).train()
 
     epochs = int(run.get("epochs", 1))
-    steps_per_epoch = max(len(loader), 1)
     lr = float(run.get("learning_rate", 0.03))
     if run.get("lr_schedule") == "warmup_cosine":
         lr = warmup_cosine(lr, epochs * steps_per_epoch, 10 * steps_per_epoch)
     optimizer, scheduler = build_optimizer(
-        str(run.get("optimizer", "sgd")), objective.parameters(), lr, **(run.get("optimizer_args") or {})
+        str(run.get("optimizer", "sgd")), [p for p in objective.parameters() if p.requires_grad], lr,
+        **(run.get("optimizer_args") or {}),
     )
     generator = torch.Generator(device=dev).manual_seed(seed)
     aug_state = pipeline.init_state(frontend.n_mels, frontend.num_frames(clip), dev)
@@ -154,7 +160,7 @@ def train_upstream(
             "step": step,
             "config": config,
         }
-        ckpt.save_checkpoint(ckpt_dir, step, state, objective.encoder.state_dict(), config, keep_last)
+        ckpt.save_checkpoint(ckpt_dir, step, state, objective.export_state_dict(), config, keep_last)
 
     start_epoch, start_batch, rng_state = 0, 0, None
     if position is not None:

@@ -1,10 +1,12 @@
 """One pretraining step (port of ``audiossl_tpu.train.step``):
 
-    waves -> (int16 decode) -> (l2) -> log-mel frontend -> RunningNorm + two
-    augmented views -> objective loss -> backward -> optimizer step
+    waves -> (int16 decode) -> (l2) -> (waveform mixup) -> frontend ->
+    (RunningNorm) + two augmented views -> objective loss -> backward ->
+    optimizer step
 
-On the card the frontend is the Hopper log-mel kernel and block 1 of the
-encoder the fused block-1 kernels. One process, one device: no mesh and no
+On the card the log-mel frontend is the Hopper log-mel kernel and the fbank
+frontend the dense-rows kernel; block 1 of AudioNTT runs the fused block-1
+kernels and MViT's attention the rel-pos attention kernels. One process, one device: no mesh and no
 gradient all-reduce (DDP is ROADMAP.md Queue 1, slice 6).
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from torch import nn
 from audiossl_tpu_torch import no_tf32
 from audiossl_tpu_torch.data.augment import AugmentPipeline, AugmentState, ViewDraws
 from audiossl_tpu_torch.frontend import FrontendSpec
+from audiossl_tpu_torch.frontend.fbank import WaveMixDraws, batch_waveform_mixup
 from audiossl_tpu_torch.ops.stats import l2_normalize
 
 
@@ -26,13 +29,19 @@ def prepare_views(
     aug_state: AugmentState,
     waves: torch.Tensor,
     draws: tuple[ViewDraws, ViewDraws],
+    wave_draws: WaveMixDraws | None = None,
 ) -> tuple[AugmentState, torch.Tensor, torch.Tensor]:
     """waves [B, L] (f32, or int16 PCM) -> (aug_state', v1, v2), views in the
-    reference layout [B, 1, F, T]."""
+    reference layout [B, 1, F, T]. ``wave_draws`` are the waveform mixup's
+    (needed when the pipeline's ``wave_mixup_rate`` is set)."""
     if waves.dtype == torch.int16:  # the loader's PCM16 wire format
         waves = waves.float() / 32768.0
     if normalization == "l2":
         waves = l2_normalize(waves, dim=-1)
+    if pipeline.cfg.wave_mixup_rate > 0.0:
+        if wave_draws is None:
+            raise ValueError("the waveform mixup is on (pretrain.input.mixup) but no draws were given")
+        waves = batch_waveform_mixup(waves, wave_draws)
     lms = frontend(waves)[:, None]
     return pipeline(aug_state, lms, draws)
 
@@ -62,9 +71,11 @@ class TrainStep:
         self.normalization = normalization
 
     def views(self, aug_state: AugmentState, waves: torch.Tensor):
+        b = waves.shape[0]
+        wave_draws = self.pipeline.sample_wave_draws(b, self.generator)
         n_frames = self.frontend.num_frames(waves.shape[-1])
-        draws = self.pipeline.sample_draws(aug_state, waves.shape[0], self.frontend.n_mels, n_frames, self.generator)
-        return prepare_views(self.pipeline, self.frontend, self.normalization, aug_state, waves, draws)
+        draws = self.pipeline.sample_draws(aug_state, b, self.frontend.n_mels, n_frames, self.generator)
+        return prepare_views(self.pipeline, self.frontend, self.normalization, aug_state, waves, draws, wave_draws)
 
     def loss_and_grads(self, v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
         f32 = self.objective.compute_dtype == torch.float32

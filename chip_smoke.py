@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, started
 together), holds each against its plain PyTorch version on the card, and
-drives the port's two main paths at full width with seeded weights:
+drives the port's main paths at full width with seeded weights:
 
   * serving: WAV requests -> Hopper log-mel kernel -> AudioNTT-2048 ->
     embedding;
@@ -14,6 +14,14 @@ drives the port's two main paths at full width with seeded weights:
     come from the log-mel kernel and whose block 1 runs the three block-1
     kernels; its exported encoder then serves one batch, and one f32 step
     on the card is held against the same step on the CPU plain path.
+
+  * SS-MAST pretraining (slice 3) through ``train_upstream`` at the
+    config's full width (configs/ssmast.yaml as it stands: MViTv2-B,
+    128 x 1024 fbank, B=64, bf16) for 3 steps, whose fbank runs
+    the dense-rows kernel and whose 24 attention blocks run the rel-pos
+    attention kernels (forward in the query and the key pass, both backward
+    kernels); its exported MAST trunk then embeds, and one f32 MAST-tiny
+    step on the card is held against the CPU.
 
 It checks the outputs, times each kernel, its plain version and a library
 composition, serving and training, and prints:
@@ -82,6 +90,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn()`` captured once in a CUDA graph and replayed
+    ``iters`` times, by CUDA events. The host's launch gaps drop out: at the
+    small attention shapes an eager loop of the plain or the library version
+    is bound by the host, and its time would be the host's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as capture requires
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, iters)
+    del graph
+    return ms
 
 
 def logmel_flops(cfg, n_frames_total: int, mel_nnz: int) -> float:
@@ -266,7 +294,22 @@ def main() -> int:
     b1_times = block1_times(dev, card)
     train_times(pretrain, pool, dev, card)
 
-    # phase 9: the kernel line
+    # phase 9: the SS-MAST slice's kernels against their plain versions
+    attn_err = attention_checks(dev)
+    rows_err = rows_checks(dev)
+
+    # phase 10: the SS-MAST main path through train_upstream, counts from 0;
+    # then one f32 step on the card against the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        mast_counts = ssmast_training_run(tmp, wav, dev)
+    mast_step_err = ssmast_f32_step_check(dev)
+
+    # phase 11: times at the SS-MAST shapes, beside the card
+    attn_times = attention_times(dev, card)
+    rows_t = rows_times(dev, card)
+    ssmast_train_times(dev, card, pool)
+
+    # phase 12: the kernel line
     entries = [{
         "name": "log_mel_fused",
         "route": "cuda",
@@ -293,7 +336,29 @@ def main() -> int:
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
-    print(json.dumps({"kernels": entries, "block1_grad_rel_err": grad_errs, "f32_step_rel_err": step_err}))
+    for name in ATTN_KERNELS:
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "audiossl_tpu_torch/csrc/attention.cu",
+            "replaces": "audiossl_tpu/ops/attention.py:" + ("88" if name == "rel_attention_fwd" else "95"),
+            "launches": mast_counts[name],
+            "max_abs_err": attn_err[name],
+            **attn_times[name],
+            "times_are": "summed over the 24 blocks of one SS-MAST step at B=64, bf16",
+        })
+    for name, line in (("fused_rows_kaldi", 533), ("fused_rows_librosa", 99)):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "audiossl_tpu_torch/csrc/fused_rows.cu",
+            "replaces": f"audiossl_tpu/frontend/pallas_stft.py:{line}",
+            "launches": mast_counts[name],  # librosa mode: read back 0, no path dispatches it (as in JAX)
+            "max_abs_err": rows_err[name],
+            **rows_t[name],
+        })
+    print(json.dumps({"kernels": entries, "block1_grad_rel_err": grad_errs, "f32_step_rel_err": step_err,
+                      "ssmast_f32_step_rel_err": mast_step_err}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -471,7 +536,7 @@ def f32_step_check(pre, pool, dev, b: int = 8) -> dict[str, float]:
     for d in (dev, torch.device("cpu")):
         state = pipeline.init_state(frontend.n_mels, n_frames, d)
         draws = pipeline.sample_draws(state, b, frontend.n_mels, n_frames, torch.Generator().manual_seed(5))
-        draws = tuple(type(v)(*(t.to(d) for t in v)) for v in draws)
+        draws = tuple(type(v)(*(t.to(d) if t is not None else None for t in v)) for v in draws)
         views.append(prepare_views(pipeline, frontend, "mean_var", state, waves.to(d), draws)[1:])
     view_err = max(float((c.cpu() - r).abs().max()) / max(1.0, float(r.abs().max())) for c, r in zip(*views))
     print(f"f32 step B={b}: views (log-mel kernel, RunningNorm, mixup, crop) card vs CPU: "
@@ -634,6 +699,461 @@ def train_times(pre, pool, dev, card, b: int = 256) -> None:
           f"({busy / wall_us:.1%}); {len(kernels_us)} kernels; by device time per step:")
     for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 3e3:9.4f} ms  {us / busy:6.1%}  {name[:110]}")
+
+
+# ---------------------------------------------------------------- SS-MAST (MViTv2-B)
+
+MAST_CLIP = 160000  # 10 s at 16 kHz (configs/ssmast.yaml)
+MAST_BATCH = 64
+# MAST-B's attention at B = 64, two views in one pass (128 clips): (BH, Lq,
+# key grid) and the blocks of one pass that run it (24 in all)
+MAST_ATTN = (
+    ((128, 1212, (26, 3)), 2), ((256, 306, (51, 6)), 1), ((256, 306, (26, 3)), 2), ((512, 78, (51, 6)), 1),
+    ((512, 78, (26, 3)), 15), ((1024, 26, (26, 3)), 1), ((1024, 26, (13, 2)), 2),
+)
+ATTN_KERNELS = ("rel_attention_fwd", "rel_attention_bwd_dq", "rel_attention_bwd_dkv")
+# attention kernels vs plain: f32 relative to max(1, max|plain|) (both sum in
+# f32, in other orders); bf16 in ulps of max|plain| (p and ds are rounded to
+# bf16 on both sides, and a sum-order difference can move a rounding)
+TOL_ATT_F32, TOL_ATT_GRAD_F32 = 1e-5, 1e-4
+TOL_ATT_BF16_ULPS, TOL_ATT_GRAD_BF16_ULPS = 2, 4
+# f32 SS-MAST step (MAST tiny, B=4), card vs CPU on the same views: the loss,
+# relative; each gradient tensor to 1e-3 of its own max|ref| + 1e-5 of the
+# largest gradient (the CPU parity test's bound against JAX)
+TOL_MAST_LOSS, TOL_MAST_GRAD = 1e-5, 1e-3
+
+
+def ssmast_config() -> dict:
+    """configs/ssmast.yaml as it stands, the slice's path."""
+    from audiossl_tpu_torch import config as cfgmod
+
+    return cfgmod.load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "ssmast.yaml"))
+
+
+def attention_case(bh, lq, grid, lk, d, dtype, dev, seed):
+    """q, k, v, bias (None without a key grid) and a cotangent dO."""
+    r = np.random.default_rng(seed)
+    lk = grid[0] * grid[1] if grid else lk
+    t = lambda *shape, s=1.0: torch.from_numpy((s * r.standard_normal(shape)).astype(np.float32)).to(dev, dtype)
+    bias = t(bh, lq, grid[0] + grid[1], s=0.5) if grid else None
+    return t(bh, lq, d), t(bh, lk, d), t(bh, lk, d), bias, t(bh, lq, d)
+
+
+def attention_checks(dev) -> dict[str, float]:
+    """The three attention kernels against their plain versions, f32 and
+    bf16, at two MAST-B shapes, a ragged one and the no-bias mode (AST)."""
+    from audiossl_tpu_torch.ops import attention as A
+
+    cases = [
+        ("MAST-B block 0 [128, 1212, 78] 26x3", 128, 1212, (26, 3), None, 96),
+        ("MAST-B block 2 [256, 306, 306] 51x6", 256, 306, (51, 6), None, 96),
+        ("ragged [3, 37, 33] 3x11", 3, 37, (3, 11), None, 96),
+        ("no bias [6, 600, 130] D=64", 6, 600, None, 130, 64),
+    ]
+    errs = dict.fromkeys(ATTN_KERNELS, 0.0)
+    for i, (label, bh, lq, grid, lk, d) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias, do = attention_case(bh, lq, grid, lk, d, dtype, dev, seed=i)
+            scale = d**-0.5
+            qs = A.scale_q(q, scale)
+            out = A.rel_attention_fwd(qs, k, v, bias, grid)
+            dq, dbias, stats = A.rel_attention_bwd_dq(qs, k, v, bias, grid, scale, do)
+            dk, dv = A.rel_attention_bwd_dkv(qs, k, v, bias, grid, do, stats)
+            want_dq, want_dbias, want_stats = A.attention_bwd_dq_plain(qs, k, v, bias, grid, scale, do)
+            want_dk, want_dv = A.attention_bwd_dkv_plain(qs, k, v, bias, grid, do, stats)  # the kernel's own inputs
+            pairs = [("rel_attention_fwd", "out", out, A.attention_fwd_plain(qs, k, v, bias, grid)),
+                     ("rel_attention_bwd_dq", "dq", dq, want_dq), ("rel_attention_bwd_dkv", "dk", dk, want_dk),
+                     ("rel_attention_bwd_dkv", "dv", dv, want_dv)]
+            if grid:
+                pairs.append(("rel_attention_bwd_dq", "dbias", dbias, want_dbias))
+            torch.cuda.synchronize()
+            stat_err = float((stats - want_stats).abs().max() / want_stats.abs().max())
+            if not stat_err <= 1e-5:
+                raise RuntimeError(f"rel_attention_bwd_dq's row statistics disagree at {label} {dtype}: {stat_err}")
+            for name, what, got, want in pairs:
+                got, want = got.float(), want.float()
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    raise RuntimeError(f"{name} {what} {label}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+                err, ref = float((got - want).abs().max()), float(want.abs().max())
+                grad = what != "out"
+                if dtype == torch.float32:
+                    tol = (TOL_ATT_GRAD_F32 if grad else TOL_ATT_F32) * max(1.0, ref)
+                else:
+                    tol = (TOL_ATT_GRAD_BF16_ULPS if grad else TOL_ATT_BF16_ULPS) * bf16_ulp(ref)
+                print(f"{name} {what} kernel vs plain, {label} {str(dtype)[6:]}: max|d| = {err:.3e} "
+                      f"(tol {tol:.3e}, max|plain| {ref:.3e})")
+                if not err <= tol:
+                    raise RuntimeError(f"{name} ({what}) disagrees with its plain version at {label} {dtype}: {err} > {tol}")
+                errs[name] = max(errs[name], err)
+    return errs
+
+
+def rows_checks(dev) -> dict[str, float]:
+    """The dense-rows kernel against its plain version: Kaldi mode at the
+    SS-MAST batch [64, 160000], librosa mode at the serving batch [256, 15200]."""
+    from audiossl_tpu_torch.frontend import fused_stft
+    from audiossl_tpu_torch.frontend.fbank import kaldi_fbank
+    from audiossl_tpu_torch.frontend.stft import log_mel
+
+    rng = np.random.default_rng(11)
+    errs = {}
+    for name, fn, plain, shape in (("fused_rows_kaldi", fused_stft.kaldi_fbank_fused, kaldi_fbank, (MAST_BATCH, MAST_CLIP)),
+                                   ("fused_rows_librosa", fused_stft.log_mel_dense_fused, log_mel, (SERVE_BATCH, CLIP))):
+        w = torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+        got, want = fn(w), plain(w)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+        errs[name] = float((got - want).abs().max())
+        print(f"{name} kernel vs plain, {list(shape)}: max|d| = {errs[name]:.3e} (tol {TOL_KERNEL})")
+        if not errs[name] <= TOL_KERNEL:
+            raise RuntimeError(f"{name} disagrees with its plain version: {errs[name]}")
+    return errs
+
+
+def ssmast_wavs(tmp: str, wav, n_rows: int) -> str:
+    """16 synthetic 10.5 s WAVs (two sines in noise) and a manifest of
+    ``n_rows`` rows cycling over them."""
+    rng = np.random.default_rng(21)
+    t = np.arange(int(10.5 * 16000)) / 16000.0
+    files = []
+    for i in range(16):
+        f0 = 90.0 * 2 ** (i / 3)
+        x = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 3.3 * f0 * t) + 0.02 * rng.standard_normal(t.size)
+        files.append(os.path.join(tmp, f"mast{i}.wav"))
+        wav.write_wav(files[-1], x.astype(np.float32))
+    csv = os.path.join(tmp, "mast.csv")
+    with open(csv, "w") as f:
+        f.write("files\n" + "".join(f"{files[r % 16]}\n" for r in range(n_rows)))
+    return csv
+
+
+def ssmast_training_run(tmp: str, wav, dev) -> dict[str, int]:
+    """SS-MAST pretraining through train_upstream at the config's full width
+    (MViTv2-B, 128 x 1024 fbank, B=64, bf16, queue 65536 x 256) for
+    TRAIN_STEPS steps; checks the losses, the launches per step and that the
+    exported MAST trunk embeds. Returns the launch counts of the run."""
+    from audiossl_tpu_torch.frontend import build_frontend, fused_stft
+    from audiossl_tpu_torch.models.convert import mvit_reference_layout
+    from audiossl_tpu_torch.models.mast import MASTEncoder, mast_config
+    from audiossl_tpu_torch.ops import attention as A
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    config = ssmast_config()
+    batch = int(config["run"]["batch_size"])
+    csv = ssmast_wavs(tmp, wav, batch * TRAIN_STEPS)
+    config["run"].update(save_path=os.path.join(tmp, "ssmast"), epochs=1)
+    wrappers = {name: getattr(A, name) for name in ATTN_KERNELS}
+    for fn in wrappers.values():
+        fn.launches = 0
+    fused_stft.fused_rows.launches.update(dict.fromkeys(fused_stft.ROW_MODES, 0))
+    t0 = time.perf_counter()
+    _, step, ckpt_dir = train_upstream(config, csv, "ssmast", max_steps=TRAIN_STEPS, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts.update({f"fused_rows_{mode}": n for mode, n in fused_stft.fused_rows.launches.items()})
+    with open(os.path.join(ckpt_dir, "stats.jsonl")) as f:
+        losses = [json.loads(line)["train_loss"] for line in f]
+    print(f"training: train_upstream ssmast, MViTv2-B, B={batch}, 128 x 1024 fbank, bf16, "
+          f"{step} steps in {seconds:.1f} s (set-up, loading and the checkpoint included); losses {losses}; "
+          f"launches {counts}")
+    if step != TRAIN_STEPS or len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"SS-MAST training took {step} steps with losses {losses}")
+    depth = mast_config(config["pretrain"]["model_size"]).depth  # 24 for MViTv2-B
+    # per step: one fbank; the forward in every block of the query and the key
+    # pass; each backward kernel in every block of the query pass
+    per_step = {"fused_rows_kaldi": 1, "rel_attention_fwd": 2 * depth, "rel_attention_bwd_dq": depth,
+                "rel_attention_bwd_dkv": depth, "fused_rows_librosa": 0}
+    for name, n in per_step.items():
+        if counts[name] != n * TRAIN_STEPS:
+            raise RuntimeError(f"{name} launched {counts[name]} times in {TRAIN_STEPS} steps, expected {n} per step")
+    sd = torch.load(os.path.join(ckpt_dir, "encoder", f"{step}.pt"), map_location="cpu", weights_only=True)
+    inp = config["pretrain"]["input"]
+    trunk = MASTEncoder(inp["n_mels"], inp["target_length"], config["pretrain"]["model_size"],
+                        compute_dtype=torch.bfloat16).to(dev).eval()
+    trunk.load_state_dict(mvit_reference_layout(sd))
+    frontend = build_frontend(config["pretrain"]["input"])
+    waves = torch.from_numpy(np.stack([wav.load_wave(os.path.join(tmp, f"mast{i}.wav"))[:MAST_CLIP] for i in range(8)])).to(dev)
+    with torch.inference_mode():
+        z = trunk(frontend(waves)[:, None])
+    if z.shape != (8, 768) or not torch.isfinite(z).all():
+        raise RuntimeError(f"the exported MAST trunk gave {tuple(z.shape)} or non-finite embeddings")
+    print(f"training: exported encoder/{step}.pt (the MAST trunk, reference layout) embeds 8 clips -> [8, 768], finite")
+    return counts
+
+
+def ssmast_f32_step_check(dev) -> dict[str, float]:
+    """One f32 SS-MAST step (MAST tiny, 64 x 96 views, B=4, drop path 0) on
+    the card against the same step on the CPU's plain
+    path, from the same weights, queue and views: the loss and every query
+    gradient. To show the CPU's own sensitivity, its gradients are also taken
+    on the views changed by 1e-6 relative."""
+    import copy
+
+    from audiossl_tpu_torch.objectives import init_objective
+
+    cfg = ssmast_config()
+    cfg["pretrain"].update(model_size="tiny", droppath_rate=0.0, compute_dtype="f32")
+    cfg["pretrain"]["input"].update(n_mels=64, target_length=96)
+    init = init_objective("ssmast", cfg, seed=0).train()
+    rng = np.random.default_rng(31)
+    views = [torch.from_numpy(rng.standard_normal((4, 1, 64, 96)).astype(np.float32)) for _ in range(2)]
+    noise = torch.Generator().manual_seed(7)
+    noisy = [v * (1.0 + 1e-6 * torch.randn(v.shape, generator=noise)) for v in views]
+    results = []
+    for d, vs in ((dev, views), (torch.device("cpu"), views), (torch.device("cpu"), noisy)):
+        obj = copy.deepcopy(init).to(d)
+        loss = obj.loss(*(v.to(d) for v in vs))
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in obj.encoder.named_parameters()}))
+    (loss_card, g_card), (loss_cpu, g_cpu), (_, g_noisy) = results
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+
+    def compare(g):  # per tensor |d| / (max|ref| + 1e-2 * largest), and all of them in norm
+        rels = {n: float((g[n] - ref).abs().max()) / (float(ref.abs().max()) + 1e-2 * largest) for n, ref in g_cpu.items()}
+        flat = lambda gs: torch.cat([v.flatten() for v in gs.values()])
+        return rels, float((flat(g) - flat(g_cpu)).norm() / flat(g_cpu).norm())
+
+    rels, norm_err = compare(g_card)
+    noise_rels, noise_norm = compare(g_noisy)
+    worst = max(rels, key=rels.get)
+    print(f"f32 SS-MAST step (MAST tiny, B=4), the CPU alone on its views changed by 1e-6 relative: gradients move "
+          f"{noise_norm:.3e} in norm, the worst tensor {max(noise_rels.values()):.3e}")
+    print(f"f32 SS-MAST step, card vs CPU plain path on the same views: loss {loss_card:.7e} vs {loss_cpu:.7e} "
+          f"(relative {loss_err:.3e}, tol {TOL_MAST_LOSS}); gradients {norm_err:.3e} in norm; worst tensor {worst} "
+          f"{rels[worst]:.3e} (tol {TOL_MAST_GRAD})")
+    if not (loss_err <= TOL_MAST_LOSS and rels[worst] <= TOL_MAST_GRAD):
+        raise RuntimeError(f"the f32 SS-MAST step on the card disagrees with the CPU path: {loss_err}, {rels[worst]}")
+    return {"loss": loss_err, "gradients_norm": norm_err, "worst_tensor": rels[worst],
+            "cpu_1e-6_views_gradients": noise_norm, "cpu_1e-6_views_worst_tensor": max(noise_rels.values())}
+
+
+def attention_bound(kind: str, bh: int, lq: int, lk: int, d: int, kb: int, esize: int) -> tuple[float, float, float]:
+    """(bound ms, bytes ms, operations ms) of one attention function: each
+    input read once, each output written once; the products the function
+    needs at the bf16 tensor rate (2 FLOP per MAC; the forward q k^T and
+    p v; dq + dbias: q k^T, dO v^T, ds k; dk + dv: q k^T, dO v^T, ds^T q, p^T dO)."""
+    q, kv, b = bh * lq * d, bh * lk * d, bh * lq * kb
+    if kind == "rel_attention_fwd":
+        nbytes, matmuls = esize * (2 * q + 2 * kv + b), 2
+    elif kind == "rel_attention_bwd_dq":
+        nbytes, matmuls = esize * (3 * q + 2 * kv + 2 * b) + 12 * bh * lq, 3
+    else:
+        nbytes, matmuls = esize * (2 * q + 4 * kv + b) + 12 * bh * lq, 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = matmuls * 2.0 * bh * lq * lk * d / PEAK_BF16 * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops
+
+
+def attention_times(dev, card) -> dict[str, dict]:
+    """Each attention kernel at each MAST-B shape (bf16, the path's dtype),
+    its plain version and the library yardstick (scaled_dot_product_attention
+    with the float mask bias E, forward; its autograd backward for the two
+    backward kernels: the graph of forward and backward less the forward's),
+    per launch and summed over one training step. Each is timed as a CUDA
+    graph (graph_ms), so that the host's launch gaps drop out."""
+    import torch.nn.functional as F
+
+    from audiossl_tpu_torch.ops import attention as A
+
+    step = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, library_ms=0.0) for name in ATTN_KERNELS}
+    for (bh, lq, grid), blocks in MAST_ATTN:
+        lk, d = grid[0] * grid[1], 96
+        q, k, v, bias, do = attention_case(bh, lq, grid, None, d, torch.bfloat16, dev, seed=lq + lk)
+        qs = A.scale_q(q, d**-0.5)
+        _, _, stats = A.rel_attention_bwd_dq(qs, k, v, bias, grid, d**-0.5, do)
+        # the plain versions take E on the card: a host-to-device copy cannot be captured
+        e = torch.from_numpy(A.rel_expand_matrix(*grid)).to(dev)
+        mask = torch.matmul(bias, e.to(torch.bfloat16))
+        ql, kl, vl, ml = (t.clone().requires_grad_() for t in (q, k, v, mask))
+
+        def library_fwd_bwd():
+            out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ml, scale=d**-0.5)
+            return torch.autograd.grad(out, (ql, kl, vl, ml), do)
+
+        lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d**-0.5))
+        lib_bwd = graph_ms(library_fwd_bwd) - lib_fwd
+        fns = {
+            "rel_attention_fwd": (lambda: A.rel_attention_fwd(qs, k, v, bias, grid),
+                                  lambda: A.attention_fwd_plain(qs, k, v, bias, e), lib_fwd, 2 * blocks),
+            "rel_attention_bwd_dq": (lambda: A.rel_attention_bwd_dq(qs, k, v, bias, grid, d**-0.5, do),
+                                     lambda: A.attention_bwd_dq_plain(qs, k, v, bias, e, d**-0.5, do), lib_bwd, blocks),
+            "rel_attention_bwd_dkv": (lambda: A.rel_attention_bwd_dkv(qs, k, v, bias, grid, do, stats),
+                                      lambda: A.attention_bwd_dkv_plain(qs, k, v, bias, e, do, stats), lib_bwd, blocks),
+        }
+        for name, (kernel, plain, lib_ms, per_step) in fns.items():
+            ms, plain_ms = graph_ms(kernel), graph_ms(plain, iters=5)
+            bound, t_bytes, t_ops = attention_bound(name, bh, lq, lk, d, sum(grid), 2)
+            print(f"[{card}] {name} [{bh}, {lq}, {lk}] {grid[0]}x{grid[1]} bf16, {per_step} a step: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms; bound {bound:.4f} ms (bytes {t_bytes:.4f}, "
+                  f"products {t_ops:.4f} at the bf16 rate, {t_ops * PEAK_BF16 / PEAK_F32:.4f} as f32 FFMA)")
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("bytes_ms", t_bytes),
+                             ("ops_ms", t_ops), ("library_ms", lib_ms)):
+                step[name][key] += per_step * val
+    out = {}
+    for name, st in step.items():
+        print(f"[{card}] {name}, summed over one SS-MAST step (B=64): kernel {st['ms']:.4f} ms, plain "
+              f"{st['plain_ms']:.4f} ms, library {st['library_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms")
+        out[name] = {"ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                     "bound_by": "operations" if st["ops_ms"] >= st["bytes_ms"] else "bytes", "library_ms": st["library_ms"]}
+    return out
+
+
+def rows_times(dev, card) -> dict[str, dict]:
+    """The dense-rows kernel on prepared frame rows in both modes, its plain
+    version and a torch.fft.rfft composition of the same function (the
+    library yardstick): Kaldi at [64, 160000], librosa at [256, 15200]."""
+    from audiossl_tpu_torch import no_tf32
+    from audiossl_tpu_torch.frontend import fbank, fused_stft
+    from audiossl_tpu_torch.frontend.stft import EPS32, EPS64, LogMelConfig, frame_signal
+
+    rng = np.random.default_rng(12)
+    out = {}
+    kcfg, lcfg = fbank.FbankConfig(), LogMelConfig()
+    w = torch.from_numpy((0.5 * rng.standard_normal((MAST_BATCH, MAST_CLIP))).astype(np.float32)).to(dev)
+    kframes = fbank.frame_rows(w, kcfg).reshape(-1, kcfg.window_size).contiguous()
+    w = torch.from_numpy((0.5 * rng.standard_normal((SERVE_BATCH, CLIP))).astype(np.float32)).to(dev)
+    lframes = frame_signal(w, lcfg.n_fft, lcfg.hop, lcfg.center).reshape(-1, lcfg.n_fft).contiguous()
+    kwin = torch.from_numpy(fbank.hanning_sym(kcfg.window_size)).to(dev)
+    lwin = torch.hann_window(lcfg.n_fft, periodic=True, device=dev)
+    for name, mode, cfg, frames, win, nfft in (("fused_rows_kaldi", "kaldi", kcfg, kframes, kwin, kcfg.padded_window),
+                                               ("fused_rows_librosa", "librosa", lcfg, lframes, lwin, lcfg.n_fft)):
+        bank, mel_t, _, _ = fused_stft._rows_constants(cfg, frames.device)
+
+        def library(frames=frames, win=win, nfft=nfft, mel_t=mel_t, mode=mode):
+            spec = torch.fft.rfft(frames * win, n=nfft)
+            power = spec.real.square() + spec.imag.square()
+            if mode == "kaldi":
+                return torch.log(torch.clamp_min(power @ mel_t, EPS32))
+            return torch.log((power + EPS64) @ mel_t + EPS32)
+
+        with no_tf32():
+            lib_err = float((library() - fused_stft.fused_rows_plain(frames, bank, mel_t, mode)).abs().max())
+            ms = cuda_ms(lambda: fused_stft.fused_rows(frames, cfg, mode))
+            plain_ms = cuda_ms(lambda: fused_stft.fused_rows_plain(frames, bank, mel_t, mode), iters=5)
+            library_ms = cuda_ms(library)
+        rows, width = frames.shape
+        n_bins, n_mels = mel_t.shape
+        nnz = int(torch.count_nonzero(mel_t))
+        flops = rows * (width + 2.5 * nfft * math.log2(nfft) + 3 * n_bins + 2 * nnz + 2 * n_mels)
+        nbytes = 4 * rows * (width + n_mels)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+        design = 2.0 * rows * width * 2 * n_bins
+        print(f"[{card}] {name} [{rows}, {width}] rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"(torch.fft.rfft composition) {library_ms:.4f} ms (max|d| vs plain {lib_err:.2e}); bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, function {flops / 1e9:.3f} "
+              f"GFLOP -> {t_ops:.4f} ms); the dense design does {design / 1e9:.2f} GFLOP -> {design / PEAK_F32 * 1e3:.4f} ms")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms,
+                     "design_gflop": design / 1e9}
+    return out
+
+
+def ssmast_step(dev):
+    """(TrainStep, augmentation state, generator) of SS-MAST at the config's
+    full width."""
+    from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.train.optim import build_optimizer
+    from audiossl_tpu_torch.train.step import TrainStep
+
+    config = ssmast_config()
+    pre = config["pretrain"]
+    frontend = build_frontend(pre["input"])
+    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
+    obj = init_objective("ssmast", config, seed=0, device=dev).train()
+    opt, _ = build_optimizer("adamw", [p for p in obj.parameters() if p.requires_grad], 3e-4, weight_decay=0.0)
+    gen = torch.Generator(dev).manual_seed(0)
+    step = TrainStep(obj, pipeline, frontend, opt, gen, None, "precomputed")
+    return step, pipeline.init_state(frontend.n_mels, frontend.num_frames(MAST_CLIP), dev), gen
+
+
+def clips_per_sec(step, state, waves, windows: int = 3, steps: int = 4) -> tuple[list[float], object]:
+    """Host-clock clips/s of ``windows`` windows of ``steps`` steps, each
+    ending in a synchronize, after 2 warm-up steps."""
+    for _ in range(2):
+        state, loss = step(state, waves)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, loss = step(state, waves)
+        torch.cuda.synchronize()
+        rates.append(steps * waves.shape[0] / (time.perf_counter() - t0))
+    if not math.isfinite(loss.item()):
+        raise RuntimeError(f"SS-MAST training loss became {loss.item()}")
+    return rates, state
+
+
+def ssmast_train_times(dev, card, pool) -> None:
+    """train_clips_per_sec of SS-MAST at B=64, bf16, full width, on waves
+    already on the card: the median of 3 windows of 4 steps on the host
+    clock; then the step split by CUDA events (mean of 4 steps); the
+    profiler's busy share."""
+    from audiossl_tpu_torch.objectives.delores_m import info_nce, queue_update
+    from audiossl_tpu_torch.ops.stats import l2_normalize
+
+    reps = -(-MAST_BATCH * MAST_CLIP // pool.size)
+    waves = torch.from_numpy(np.resize(np.tile(pool.ravel(), reps), (MAST_BATCH, MAST_CLIP))).to(dev)
+    step, state, gen = ssmast_step(dev)
+    rates, state = clips_per_sec(step, state, waves)
+    obj, opt = step.objective, step.optimizer
+    names = ("frontend+augment", "EMA + query forward", "key forward", "loss + queue", "query backward", "AdamW")
+    parts = dict.fromkeys(names, 0.0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    b, tau = MAST_BATCH, obj.temperature
+    for _ in range(4):
+        ev[0].record()
+        state, v1, v2 = step.views(state, waves)
+        ev[1].record()
+        m = obj.momentum()
+        obj._ema_(m)
+        obj._ema_(m)
+        q12 = l2_normalize(obj.encoder(torch.cat([v1, v2]), gen), dim=1)
+        ev[2].record()
+        k21 = obj._keys(torch.cat([v2, v1]), gen)
+        ev[3].record()
+        total = info_nce(q12[:b], k21[:b], obj.queue, tau)
+        queue, ptr = queue_update(obj.queue, obj.queue_ptr, k21[:b])
+        total = total + info_nce(q12[b:], k21[b:], queue, tau)
+        obj.queue, obj.queue_ptr = queue_update(queue, ptr, k21[b:])
+        obj.step.add_(1)
+        ev[4].record()
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        ev[5].record()
+        opt.step()
+        ev[6].record()
+        torch.cuda.synchronize()
+        for name, e0, e1 in zip(names, ev[:-1], ev[1:]):
+            parts[name] += e0.elapsed_time(e1) / 4
+    print(f"[{card}] SS-MAST training B={MAST_BATCH} bf16 MViTv2-B 128 x 1024: train_clips_per_sec "
+          f"{float(np.median(rates)):.1f} (median of windows {[round(r, 1) for r in rates]}); step split "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+          + f"; query forward + backward {parts['EMA + query forward'] + parts['query backward']:.4f} ms")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, loss = step(state, waves)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = sum(kernels_us.values())
+    if not busy:
+        print(f"[{card}] SS-MAST training profile: no device time recorded (not measured)")
+        return
+    print(f"[{card}] SS-MAST training profile, 2 steps: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+          f"({busy / wall_us:.1%}); {len(kernels_us)} kernels; by device time per step:")
+    for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {us / 2e3:9.4f} ms  {us / busy:6.1%}  {name[:110]}")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,130 @@
+"""The port's rel-pos attention (audiossl_tpu_torch.ops.attention) against the
+JAX package's Pallas kernel in interpret mode (f32, the HIGHEST parity path):
+the forward, and dq, dk, dv, dbias through the port's autograd Function, whose
+backward runs the two backward kernels' plain versions on the CPU. Inputs
+are numpy from a seed; the bounds are the JAX kernel test's own
+(tests/test_attention_kernel.py:38,56)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audiossl_tpu.ops.attention import fused_rel_attention as jax_fused
+from audiossl_tpu.ops.attention import rel_expand_matrix as jax_expand
+from audiossl_tpu_torch.ops import attention
+
+TOL_FWD = 1e-5
+TOL_GRAD = 2e-4
+
+
+def _case(bh, lq, lk, d, kb, seed, expand=None):
+    r = np.random.default_rng(seed)
+    q, k, v = (r.standard_normal((bh, n, d)).astype(np.float32) for n in (lq, lk, lk))
+    bias = None if kb is None else (0.5 * r.standard_normal((bh, lq, kb))).astype(np.float32)
+    do = r.standard_normal((bh, lq, d)).astype(np.float32)
+    return q, k, v, bias, do
+
+
+def _jax(q, k, v, bias, e, scale, do):
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    if bias is None:
+        f = lambda q, k, v: jax_fused(q, k, v, None, None, scale, True, True)
+    else:
+        f = lambda q, k, v, b: jax_fused(q, k, v, b, jnp.asarray(e), scale, True, True)
+        args.append(jnp.asarray(bias))
+    out, vjp = jax.vjp(f, *args)
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _port(q, k, v, bias, expand, scale, do):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    tb = None if bias is None else torch.from_numpy(bias).requires_grad_()
+    out = attention.fused_rel_attention(*ts, tb, expand, scale)
+    out.backward(torch.from_numpy(do))
+    grads = [t.grad.numpy() for t in ts] + ([] if tb is None else [tb.grad.numpy()])
+    return out.detach().numpy(), grads
+
+
+@pytest.mark.parametrize(
+    "bh,lq,grid,d",
+    [(3, 72, (5, 8), 24), (2, 1100, (13, 10), 96)],  # the second: 3 q-tiles of the JAX kernel
+)
+def test_matches_jax_kernel_with_rel_expand(bh, lq, grid, d):
+    kh, kw = grid
+    q, k, v, bias, do = _case(bh, lq, kh * kw, d, kh + kw, seed=lq)
+    scale = d**-0.5
+    e = jax_expand(kh, kw)
+    np.testing.assert_array_equal(attention.rel_expand_matrix(kh, kw), e)
+    out_j, g_j = _jax(q, k, v, bias, e, scale, do)
+    for expand in ((kh, kw), e):  # the pair (the kernels' form) and the matrix
+        out_p, g_p = _port(q, k, v, bias, expand, scale, do)
+        assert np.abs(out_p - out_j).max() < TOL_FWD
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), g_p, g_j):
+            assert np.abs(a - b).max() < TOL_GRAD, name
+
+
+def test_no_bias_mode_matches_jax_kernel():
+    q, k, v, _, do = _case(2, 600, 130, 64, None, seed=4)
+    scale = 64**-0.5
+    out_j, g_j = _jax(q, k, v, None, None, scale, do)
+    out_p, g_p = _port(q, k, v, None, None, scale, do)
+    assert np.abs(out_p - out_j).max() < TOL_FWD
+    for name, a, b in zip(("dq", "dk", "dv"), g_p, g_j):
+        assert np.abs(a - b).max() < TOL_GRAD, name
+
+
+def test_plain_takes_any_expand_matrix():
+    """The JAX kernel test's random 0/1 E: the plain versions take it; the
+    kernels' E check refuses it."""
+    r = np.random.default_rng(0)
+    q, k, v, bias, do = _case(3, 72, 40, 24, 13, seed=1)
+    e = (r.random((13, 40)) < 0.3).astype(np.float32)
+    out_j, g_j = _jax(q, k, v, bias, e, 24**-0.5, do)
+    out_p, g_p = _port(q, k, v, bias, e, 24**-0.5, do)
+    assert np.abs(out_p - out_j).max() < TOL_FWD
+    for a, b in zip(g_p, g_j):
+        assert np.abs(a - b).max() < TOL_GRAD
+    with pytest.raises(ValueError, match="rel_expand_matrix"):
+        attention.kernel_grid(e, 40)
+    assert attention.kernel_grid(attention.rel_expand_matrix(5, 8), 40) == (5, 8)
+    assert attention.kernel_grid(attention.rel_expand_matrix(8, 5), 40) == (8, 5)
+
+
+def test_bf16_plain_rounds_like_the_jax_kernel():
+    """bf16 operands: the plain forward and backward round where the JAX
+    kernel (interpret mode) rounds, so they agree to a bf16 ulp."""
+    q, k, v, bias, do = _case(2, 64, 30, 32, 11, seed=3)
+    scale = 32**-0.5
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    e = jax_expand(5, 6)
+    f = lambda q, k, v, b: jax_fused(q, k, v, b, jnp.asarray(e), scale, False, True)
+    out_j, vjp = jax.vjp(f, bf(q), bf(k), bf(v), bf(bias))
+    g_j = vjp(bf(do))
+    tb = lambda a: torch.from_numpy(np.array(bf(a).astype(jnp.float32))).to(torch.bfloat16)
+    ts = [tb(a).requires_grad_() for a in (q, k, v, bias)]
+    out_p = attention.fused_rel_attention(*ts[:3], ts[3], (5, 6), scale)
+    out_p.backward(tb(do))
+    assert out_p.dtype == torch.bfloat16
+    as_np = lambda t: t.detach().float().numpy()
+    ulp = lambda a: 2.0 ** (np.floor(np.log2(np.abs(a).max())) - 7)
+    ref = np.asarray(out_j.astype(jnp.float32))
+    assert np.abs(as_np(out_p) - ref).max() <= ulp(ref)
+    for t, g in zip(ts, g_j):
+        ref = np.asarray(g.astype(jnp.float32))
+        assert np.abs(as_np(t.grad) - ref).max() <= 2 * ulp(ref)
+
+
+def test_two_part_backward_matches_the_one_pass_formula():
+    """dkv's p and ds, rebuilt from dq's row statistics, are the one-pass ones."""
+    q, k, v, bias, do = (torch.from_numpy(a) for a in _case(2, 40, 12, 16, 7, seed=5))
+    qs = attention.scale_q(q, 0.25)
+    dq, dbias, stats = attention.attention_bwd_dq_plain(qs, k, v, bias, (3, 4), 0.25, do)
+    dk, dv = attention.attention_bwd_dkv_plain(qs, k, v, bias, (3, 4), do, stats)
+    e = torch.from_numpy(attention.rel_expand_matrix(3, 4))
+    p = torch.softmax(qs @ k.transpose(1, 2) + bias @ e, -1)
+    torch.testing.assert_close(dv, p.transpose(1, 2) @ do, rtol=1e-5, atol=1e-6)
+    ds = p * (do @ v.transpose(1, 2) - ((do @ v.transpose(1, 2)) * p).sum(-1, keepdim=True))
+    torch.testing.assert_close(dk, ds.transpose(1, 2) @ qs, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dbias, ds @ e.T, rtol=1e-5, atol=1e-6)
+    assert stats.shape == (2, 40, 3)

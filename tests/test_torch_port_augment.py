@@ -113,12 +113,15 @@ def test_config_parses_like_jax():
 
 @pytest.mark.parametrize(
     "extra,match",
-    [({"MixGaussianNoise": {"ratio": 0.3}}, "MixGaussianNoise"), ({"SpecMask": {"freq_param": 4}}, "SpecMask"),
+    [({"MixGaussianNoise": {"ratio": 0.3}}, "MixGaussianNoise"), ({"input": {"noise": True}}, "MAST noise"),
      ({"Kmix": {"centroid_path": "c.npy"}}, "Kmix")],
 )
 def test_options_of_later_slices_raise(extra, match):
     pre = _delores_pretrain()
-    pre["augmentations"].update(extra)
+    if "input" in extra:
+        pre["input"].update(extra["input"])
+    else:
+        pre["augmentations"].update(extra)
     with pytest.raises(NotImplementedError, match=match):
         augment.AugmentPipeline(augment.AugmentConfig.from_dict(pre), epoch_samples=8)
 
@@ -167,3 +170,77 @@ def test_pipeline_with_injected_draws_matches_jax_cores():
         bank = bank._replace(bank=jnp.asarray(ours).astype(jnp.bfloat16))
     assert state.running_norm.n == int(rn.n) == 8
     assert int(rn.max_update) == state.running_norm.max_update == 60
+
+
+# ---------------------------------------------------------------- SS-MAST augmentations
+
+
+def _jax_mask_draws(key, b, f, t, fp, tp):
+    """The widths and starts jax's spec_mask_batch draws from ``key``
+    (ops/masking.py: per clip, split in two, each axis split into width and start)."""
+    import jax
+
+    out = {n: [] for n in ("fs", "fw", "ts", "tw")}
+    for ki in jax.random.split(key, b):
+        kf, kt = jax.random.split(ki, 2)
+        for (ks, ws), k, size, p in ((("fs", "fw"), kf, f, fp), (("ts", "tw"), kt, t, tp)):
+            kw_, ks_ = jax.random.split(k)
+            w = int(jax.random.randint(kw_, (), 0, p + 1))
+            out[ws].append(w)
+            out[ks].append(int(jax.random.randint(ks_, (), 0, max(size - w, 0) + 1)))
+    from audiossl_tpu_torch.ops.masking import MaskDraws
+
+    return MaskDraws(*(torch.tensor(out[n]) for n in ("fs", "fw", "ts", "tw")))
+
+
+def test_spec_mask_then_precomputed_norm_matches_jax():
+    """One SS-MAST view: SpecMask (freq 48, time 192 at 128 x 1024 in the
+    config; 6 and 9 here) with JAX's own draws, then (x - mean) / (2 std)."""
+    import jax
+
+    from audiossl_tpu.ops.masking import spec_mask_batch as jax_spec_mask
+    from audiossl_tpu_torch.ops.masking import spec_mask
+
+    x = np.random.default_rng(3).standard_normal((5, 1, F_, T_)).astype(np.float32)
+    key = jax.random.key(7)
+    draws = _jax_mask_draws(key, 5, F_, T_, 6, 9)
+    want = np.asarray(jax_spec_mask(jnp.asarray(x), key, freq_param=6, time_param=9))
+    got = spec_mask(torch.from_numpy(x), draws)
+    _close(got.numpy(), want, 1e-6)
+    assert (want == 0).any()
+    with open(os.path.join(ROOT, "configs", "ssmast.yaml")) as f:
+        pre = yaml.safe_load(f)["pretrain"]
+    cfg = augment.AugmentConfig.from_dict(pre)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jaug.AugmentConfig.from_dict(pre))
+    assert (cfg.spec_mask_freq, cfg.spec_mask_time, cfg.normalization, cfg.wave_mixup_rate) == (48, 192, "precomputed", 0.5)
+    pipe = augment.AugmentPipeline(cfg, epoch_samples=8)
+    view = pipe._one_view(None, torch.from_numpy(x), augment.ViewDraws(None, None, None, draws))
+    _close(view.numpy(), np.asarray(jstats.precomputed_norm(jnp.asarray(want), cfg.norm_mean, 2 * cfg.norm_std)), 1e-6)
+    # the port's own draws: widths within the parameters, spans inside the grid
+    from audiossl_tpu_torch.ops.masking import sample_mask_draws
+
+    d = sample_mask_draws(1000, 128, 1024, 48, 192, torch.Generator().manual_seed(0))
+    assert int(d.f_width.max()) == 48 and int(d.t_width.max()) == 192 and int(d.f_width.min()) == 0
+    assert bool(((d.f_start + d.f_width) <= 128).all() and ((d.t_start + d.t_width) <= 1024).all())
+
+
+def test_waveform_mixup_matches_jax():
+    import jax
+
+    from audiossl_tpu.frontend.fbank import batch_waveform_mixup as jax_mix
+    from audiossl_tpu_torch.frontend.fbank import WaveMixDraws, batch_waveform_mixup, sample_wave_mixup
+
+    b, n = 6, 4000
+    w = (0.3 * np.random.default_rng(5).standard_normal((b, n)) + 0.05).astype(np.float32)
+    key = jax.random.key(11)
+    kd, kp, kl = jax.random.split(key, 3)  # jax's draws (frontend/fbank.py:156-160)
+    draws = WaveMixDraws(
+        torch.from_numpy(np.array(jax.random.uniform(kd, (b, 1)) < 0.5)[:, 0]),
+        torch.from_numpy(np.array(jax.random.randint(kp, (b,), 0, b))).long(),
+        torch.from_numpy(np.array(jax.random.beta(kl, 10.0, 10.0, (b, 1)))[:, 0]),
+    )
+    assert draws.gate.any() and not draws.gate.all()
+    _close(batch_waveform_mixup(torch.from_numpy(w), draws).numpy(), jax_mix(jnp.asarray(w), key, 0.5), 1e-6)
+    # the port's Beta(10, 10) draws: mean 1/2, variance 1/84
+    lam = sample_wave_mixup(20000, 0.5, torch.Generator().manual_seed(1)).lam
+    assert abs(float(lam.mean()) - 0.5) < 0.005 and abs(float(lam.var()) - 1 / 84) < 0.001

@@ -138,3 +138,121 @@ def test_fused_block1_autograd_on_the_card(cuda):
         grads.append([out.detach().cpu(), mean.cpu(), var.cpu()] + [p.grad.cpu() for p in ps])
     for c, g in zip(*grads):
         assert float((c - g).abs().max()) <= 1e-3 * max(1.0, float(c.abs().max()))
+
+
+# ---------------------------------------------------------------- rel-pos attention
+
+
+def _attn_inputs(bh, lq, grid, d, dtype, device, seed=0):
+    r = np.random.default_rng(seed)
+    lk = grid[0] * grid[1] if grid else 77
+    t = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32)).to(device, dtype)
+    q, k, v, do = t(bh, lq, d), t(bh, lk, d), t(bh, lk, d), t(bh, lq, d)
+    bias = (0.5 * t(bh, lq, grid[0] + grid[1])).contiguous() if grid else None
+    return q, k, v, bias, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,lq,grid,d", [(3, 72, (5, 8), 24), (2, 1100, (13, 10), 96), (4, 37, (3, 11), 96),
+                                          (2, 301, (51, 6), 96), (3, 45, None, 64)])
+def test_attention_kernels_match_plain(cuda, dtype, bh, lq, grid, d):
+    from audiossl_tpu_torch.ops import attention as A
+
+    q, k, v, bias, do = _attn_inputs(bh, lq, grid, d, dtype, cuda)
+    qs = A.scale_q(q, d**-0.5)
+    runs = []
+    for _ in range(2):
+        out = A.rel_attention_fwd(qs, k, v, bias, grid)
+        dq, dbias, stats = A.rel_attention_bwd_dq(qs, k, v, bias, grid, d**-0.5, do)
+        dk, dv = A.rel_attention_bwd_dkv(qs, k, v, bias, grid, do, stats)
+        torch.cuda.synchronize()
+        runs.append([out, dq, dk, dv] + ([dbias] if grid else []))
+    for a, b in zip(*runs):  # no atomics: two runs give the same bits
+        assert torch.equal(a, b)
+    want_out = A.attention_fwd_plain(qs, k, v, bias, grid)
+    want_dq, want_db, want_st = A.attention_bwd_dq_plain(qs, k, v, bias, grid, d**-0.5, do)
+    want_dk, want_dv = A.attention_bwd_dkv_plain(qs, k, v, bias, grid, do, want_st)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7  # relative to max(1, max|ref|); bf16: one ulp
+    for name, got, want in zip(("out", "dq", "dk", "dv", "dbias"), runs[0],
+                               [want_out, want_dq, want_dk, want_dv] + ([want_db] if grid else [])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale * (1 if name == "out" else 4), name
+    torch.testing.assert_close(stats, want_st, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_function_on_the_card_matches_cpu(cuda):
+    from audiossl_tpu_torch.ops import attention as A
+
+    q, k, v, bias, do = _attn_inputs(2, 130, (4, 6), 32, torch.float32, "cpu", seed=3)
+    grads = []
+    for dev in (cuda, "cpu"):
+        ts = [t.to(dev).requires_grad_() for t in (q, k, v, bias)]
+        before = A.rel_attention_fwd.launches, A.rel_attention_bwd_dq.launches, A.rel_attention_bwd_dkv.launches
+        A.fused_rel_attention(*ts, (4, 6), 32**-0.5).backward(do.to(dev))
+        after = A.rel_attention_fwd.launches, A.rel_attention_bwd_dq.launches, A.rel_attention_bwd_dkv.launches
+        assert [a - b for a, b in zip(after, before)] == ([1, 1, 1] if dev == cuda else [0, 0, 0])
+        grads.append([t.grad.cpu() for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from audiossl_tpu_torch.ops import attention as A
+
+    q, k, v, bias, do = _attn_inputs(2, 40, (3, 4), 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.rel_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias, (3, 4))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        A.rel_attention_fwd(q.half(), k.half(), v.half(), bias.half(), (3, 4))
+    with pytest.raises(ValueError, match="rel_expand_matrix"):
+        A.rel_attention_fwd(q, k, v, bias, (torch.rand(7, 12) < 0.3).float())
+    with pytest.raises(ValueError, match="one dtype"):
+        A.rel_attention_bwd_dq(q, k, v, bias, (3, 4), 0.1, do.bfloat16())
+    short, long = torch.zeros((8, 8, 96), device=cuda), torch.zeros((8, 4000, 96), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        A.rel_attention_fwd(short, long, long, None, None)
+    assert A.rel_attention_fwd(q, k, v, bias, A.rel_expand_matrix(3, 4)).shape == q.shape  # the checked matrix
+
+
+# ---------------------------------------------------------------- dense spectrogram rows
+
+
+@pytest.mark.parametrize("n", [160000, 400, 12345, 555])  # 10 s; one frame; rows not a multiple of the tile
+def test_fused_rows_kaldi_matches_plain(cuda, n):
+    from audiossl_tpu_torch.frontend.fbank import kaldi_fbank
+
+    w = torch.from_numpy((0.5 * np.random.default_rng(n).standard_normal((3, n))).astype(np.float32)).to(cuda)
+    before = fused_stft.fused_rows.launches["kaldi"]
+    got = fused_stft.kaldi_fbank_fused(w)
+    want = kaldi_fbank(w)
+    torch.cuda.synchronize()
+    assert fused_stft.fused_rows.launches["kaldi"] == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(got, fused_stft.kaldi_fbank_fused(w))
+
+
+@pytest.mark.parametrize("n", [15200, 600, 12345])  # 600: 4 frames (reflect padding needs n > n_fft / 2)
+def test_fused_rows_librosa_matches_plain(cuda, n):
+    w = torch.from_numpy((0.5 * np.random.default_rng(n).standard_normal((2, n))).astype(np.float32)).to(cuda)
+    before = fused_stft.fused_rows.launches["librosa"]
+    got = fused_stft.log_mel_dense_fused(w)
+    want = log_mel(w)
+    torch.cuda.synchronize()
+    assert fused_stft.fused_rows.launches["librosa"] == before + 1
+    assert got.shape == want.shape and float((got - want).abs().max()) <= 1e-3
+
+
+def test_fused_rows_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    from audiossl_tpu_torch.frontend.fbank import FbankConfig
+
+    w = torch.zeros((2, 16000), device=cuda)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        fused_stft.kaldi_fbank_fused(w[:, ::2])
+    with pytest.raises(ValueError, match="contiguous f32"):
+        fused_stft.kaldi_fbank_fused(w.double())
+    with pytest.raises(ValueError, match="contiguous f32"):
+        fused_stft.log_mel_dense_fused(w.bfloat16())
+    with pytest.raises(ValueError, match="do not fit the bank"):
+        fused_stft.fused_rows(torch.zeros((4, 512), device=cuda), FbankConfig(), "kaldi")

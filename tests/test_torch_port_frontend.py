@@ -177,6 +177,80 @@ class TestFrontendSpec:
         torch.testing.assert_close(spec(waves), log_mel(waves), rtol=0, atol=0)
 
     def test_fbank_kind_is_not_ported(self):
+        """The fbank kind trains (SS-MAST); serving behind it is not ported yet."""
+        from audiossl_tpu_torch.frontend.fbank import FbankConfig, kaldi_fbank
+
         spec = build_frontend({"type": "fbank", "sampling_rate": 16000, "n_mels": 128, "target_length": 1024})
-        with pytest.raises(NotImplementedError, match="SS-MAST"):
-            spec(torch.zeros((1, 16000)))
+        assert spec.num_frames(160000) == 1024
+        waves = torch.from_numpy(_waves(2, 16000))
+        out = spec(waves)
+        assert out.shape == (2, 128, 1024)
+        want = kaldi_fbank(waves, FbankConfig()).transpose(-1, -2)
+        torch.testing.assert_close(out[..., :98], want, rtol=0, atol=0)
+        assert not out[..., 98:].any()  # zero-padded to target_length
+        with pytest.raises(NotImplementedError, match="serving"):
+            spec.logmel_config()
+
+
+class TestFbank:
+    """The Kaldi fbank (MAST frontend) and the dense-rows kernel's plain
+    version, against the JAX package's XLA fbank, its fused Pallas rows
+    kernel in interpret mode (both log modes) and the NumPy Kaldi oracle."""
+
+    TOL_ORACLE = 1e-3
+
+    def _ref_tol(self, ref):
+        return TOL_JAX * max(1.0, float(np.abs(ref).max()))
+
+    @pytest.mark.parametrize("n", [16000, 400, 12345])  # 1 s, one frame, frames not a multiple of a tile
+    def test_kaldi_fbank_matches_jax(self, n):
+        from audiossl_tpu.frontend.fbank import FbankConfig as JaxFbankConfig
+        from audiossl_tpu.frontend.fbank import kaldi_fbank as jax_kaldi_fbank
+        from audiossl_tpu_torch.frontend.fbank import FbankConfig, kaldi_fbank
+
+        waves = _waves(2, n)
+        got = kaldi_fbank(torch.from_numpy(waves), FbankConfig()).numpy()
+        cpu_wrapper = fused_stft.kaldi_fbank_fused(torch.from_numpy(waves)).numpy()  # the CPU path is the plain version
+        np.testing.assert_array_equal(cpu_wrapper, got)
+        for ref in (np.asarray(jax_kaldi_fbank(jnp.asarray(waves), JaxFbankConfig())),
+                    np.asarray(pallas_stft.kaldi_fbank_fused(jnp.asarray(waves), interpret=True))):
+            assert got.shape == ref.shape == (2, 1 + (n - 400) // 160, 128)
+            assert np.abs(got - ref).max() <= self._ref_tol(ref)
+
+    def test_kaldi_fbank_matches_oracle(self):
+        from tests.oracles.kaldi_oracle import kaldi_fbank_oracle
+        from audiossl_tpu_torch.frontend.fbank import kaldi_fbank
+
+        wave = _waves(1, 16000)[0]
+        got = kaldi_fbank(torch.from_numpy(wave)).numpy()
+        assert np.abs(got - kaldi_fbank_oracle(wave)).max() <= self.TOL_ORACLE
+
+    def test_dense_librosa_rows_match_jax_kernel(self):
+        waves = _waves(2)
+        ref = np.asarray(pallas_stft.log_mel_fused(jnp.asarray(waves), frames_per_tile=64, interpret=True))
+        got = fused_stft.log_mel_dense_fused(torch.from_numpy(waves)).numpy()
+        assert got.shape == ref.shape == (2, 64, 96)
+        assert np.abs(got - ref).max() <= self._ref_tol(ref)
+
+    def test_pad_trim_and_constants(self):
+        from audiossl_tpu.frontend import fbank as jfb
+        from audiossl_tpu_torch.frontend import fbank as tfb
+
+        np.testing.assert_array_equal(tfb.kaldi_mel_banks(128, 512, 16000), jfb.kaldi_mel_banks(128, 512, 16000))
+        np.testing.assert_array_equal(tfb.hanning_sym(400), jfb.hanning_sym(400))
+        x = np.random.default_rng(0).standard_normal((2, 5, 3)).astype(np.float32)
+        for t in (3, 5, 8):
+            np.testing.assert_array_equal(tfb.pad_or_trim_frames(torch.from_numpy(x), t).numpy(),
+                                          np.asarray(jfb.pad_or_trim_frames(jnp.asarray(x), t)))
+        bank, mel_t = tfb.fbank_constants(tfb.FbankConfig())
+        assert bank.shape == (400, 2 * 257) and mel_t.shape == (257, 128) and not mel_t[-1].any()  # Nyquist column
+
+    def test_fused_rows_wrappers_refuse_what_the_kernel_does_not_take(self):
+        from audiossl_tpu_torch.frontend.fbank import FbankConfig
+
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fused_stft.kaldi_fbank_fused(torch.empty((2, 16000), device="meta"))
+        with pytest.raises(ValueError, match="contiguous f32"):
+            fused_stft.fused_rows(torch.zeros((4, 400)), FbankConfig(), "kaldi")  # the kernel takes card tensors only
+        with pytest.raises(ValueError, match="mode"):
+            fused_stft.fused_rows_plain(torch.zeros((1, 400)), torch.zeros((400, 514)), torch.zeros((257, 128)), "htk")

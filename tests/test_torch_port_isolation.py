@@ -117,3 +117,22 @@ def test_trainer_raises_without_cuda_unless_given_cpu(no_cuda, tmp_path):
     config["pretrain"]["base_encoder"]["output_dim"] = config["pretrain"]["projection_dim"] = 32
     _, step, _ = train_upstream(config, str(csv), "delores_s", device="cpu")  # an empty manifest: no step
     assert step == 0
+
+
+def test_ssmast_trainer_raises_without_cuda_unless_given_cpu(no_cuda, tmp_path):
+    from audiossl_tpu_torch.config import load_config
+    from audiossl_tpu_torch.train.loop import train_upstream
+    from audiossl_tpu_torch.train_upstream import main
+
+    csv = tmp_path / "m.csv"
+    csv.write_text("files\n")
+    config = load_config(os.path.join(ROOT, "configs", "ssmast.yaml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_upstream(config, str(csv), "ssmast")  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--upstream", "ssmast", "--input", str(csv)])
+    config["run"].update(save_path=str(tmp_path / "run"), epochs=1)
+    config["pretrain"].update(model_size="tiny", num_negatives=64)
+    config["pretrain"]["input"].update(n_mels=64, target_length=96)
+    _, step, _ = train_upstream(config, str(csv), "ssmast", device="cpu")  # an empty manifest: no step
+    assert step == 0 and config["pretrain"]["steps_per_epoch"] == 1000  # the caller's config is not changed
