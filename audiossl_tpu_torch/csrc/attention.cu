@@ -18,38 +18,68 @@
 // matrix is never stored, as on the TPU):
 //   dp = dO v^T,   ds = p (dp - rowsum(dp p)),   dq = round(round(ds) k) * scale,
 //   dbias = ds E^T (f32),   dk = round(ds)^T qs,   dv = round(p)^T dO.
-// attn_bwd_dq_kernel takes one block per (b*h, q-tile) and writes dq, dbias
-// and each row's softmax max, sum and rowsum(dp p); attn_bwd_dkv_kernel takes
-// one block per (b*h, key tile), loops over every q-tile in order and rebuilds
-// p and ds from those row statistics with the same arithmetic, so the two
-// kernels see the same p bit for bit. On the TPU dk and dv accumulate across
+// It runs as two launches: a dq kernel per (b*h, q-tile), which writes dq,
+// dbias and each row's softmax max, sum and rowsum(dp p), and a dk/dv kernel
+// per (b*h, key tile), which loops over the q-tiles in order and rebuilds p
+// and ds from those row statistics. On the TPU dk and dv accumulate across
 // q-tiles in an output block revisited in grid order; here the loop inside
 // the block takes that place: no float atomics, and two runs give the same
 // bits.
 //
-// Precision: every product is f32 FFMA on f32 values (bf16 operands are
-// widened exactly), the counterpart of the JAX package's HIGHEST parity path
-// in f32; no TF32, no tensor cores. Rounding to the stream dtype happens where
-// the JAX kernel rounds: p before p v, ds and p before the dk/dv/dq products,
-// dq before its scale.
+// Rounding to the stream dtype happens where the JAX kernel rounds: p before
+// p v, ds and p before the dk/dv/dq products, dq before its scale; every sum
+// is f32.
 //
-// Design: one block of 256 threads (8 warps). The forward stages k
-// transposed ([D][Lk | 1], odd stride: conflict-free both along keys and
-// along D), its q-tile transposed and the tile's bias rows in shared memory;
-// a thread computes the scores of one key for 8 query rows (float4 loads of
-// the q tile), a warp takes the softmax of a row, the buffer of k is reused
-// for v, and a warp computes 4 (or fewer) output rows, lanes over D. The
-// q-tile is 32, 16 or 8 rows, whichever fits beside k (or v) and the score
-// tile in the 227 KB of shared memory; keys longer than that raise in the
-// wrapper. D <= 128.
+// Two designs.
+//
+// f32 (the parity path): every product is f32 FFMA on f32 values, the
+// counterpart of the JAX package's HIGHEST path; no TF32. One block of 256 threads (8 warps). The forward stages k transposed
+// ([D][Lk | 1], odd stride: conflict-free both along keys and along D), its
+// q-tile transposed and the tile's bias rows in shared memory; a thread
+// computes the scores of one key for 8 query rows (float4 loads of the q
+// tile), a warp takes the softmax of a row, the buffer of k is reused for v,
+// and a warp computes 4 (or fewer) output rows, lanes over D. The q-tile is
+// 32, 16 or 8 rows, whichever fits beside k (or v) and the score tile in the
+// 227 KB of shared memory; keys longer than that raise in the wrapper. The
+// dk/dv kernel takes 32 keys a block, one a lane. D <= 128. The forward runs
+// this design in bf16 too; in bf16 the backward takes D % 8 == 0 only
+// (every MViT and ViT head width) and raises for shapes its shared memory
+// does not hold.
+//
+// bf16 backward (the SS-MAST path): mma.sync.m16n8k16 bf16 x bf16 -> f32 on
+// the tensor cores, operands from shared memory through ldmatrix (.trans
+// where the product reads a matrix along its rows), staged with cp.async; D
+// is zero-padded to 32, 64, 96 or 128, keys to 16 (a padded key gets p = 0
+// and ds = 0), queries are masked. In bf16 the JAX kernel rounds p and ds to
+// bf16 and accumulates in f32 (default MXU precision), which is what the
+// tensor cores compute; only the order of the sums changes.
+//   attn_bwd_dq_mma: one block of 4 warps (keys <= 128) or 8 per (b*h, 16
+//     query rows a warp), whose q and dO fragments stay in registers; k and
+//     v stay in shared memory. Two passes over the keys, 16 at a time: the
+//     row max, the row sum and rowsum(dp p), online (both sums rescaled as
+//     the max grows), then ds -> dbias (each lane owns the height or the
+//     width sums of one row: deterministic) and dq += round(ds) k with ds's
+//     C fragments re-used as the A operand.
+//   attn_bwd_dkv_mma: one block of 4-8 warps per (b*h, 16 keys a warp,
+//     query split); dk and dv stay in registers across the loop over 32-row
+//     query tiles, whose q and dO are double-buffered with cp.async and whose
+//     bias and statistics are prefetched through registers. s^T = k qs^T and
+//     dp^T = v dO^T on the tensor cores; p^T's and ds^T's C fragments are the
+//     A operands of dv += p^T dO and dk += ds^T qs. Where (b*h) x key tiles
+//     would not fill the card twice over (MAST-B's first stage: 128 blocks),
+//     the query tiles split across blocks, each split writes f32 partials
+//     and attn_dkv_reduce adds them in split order.
 //
 // Bound on an H100 SXM: at MAST-B's shapes (B = 64, two views in one pass,
 // D = 96) the forward moves, e.g. at (BH, Lq, Lk) = (128, 1212, 78), 72.4 MB
 // of q, k, v, bias and out in bf16 (21.6 us at 3.35 TB/s) for 4.6 GFLOP of
 // products (4.7 us at 989 TFLOP/s bf16): bound by bytes (chip_smoke.py's
-// attention_bound computes it for every shape). This design runs on the f32
-// pipe (67 TFLOP/s, 69 us for those products) and rereads k and v from L2
-// for every q-tile; mma.sync or wgmma tiles are the way closer.
+// attention_bound computes it for every shape). Over one SS-MAST step the
+// backward kernels' bytes bound is 0.3864 ms (dq) and 0.4083 ms (dk/dv), their
+// products 70.7 and 94.3 GFLOP, 0.072 and 0.095 ms at the bf16 rate: bound by
+// bytes. The forward runs on the f32 pipe (67 TFLOP/s, 69 us for those
+// products) and rereads k and v from L2 for every q-tile; the same bf16 tiles
+// are the way closer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -412,6 +442,652 @@ attn_bwd_dkv_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* 
     }
 }
 
+// ---------------------------------------------------------------- bf16 backward on tensor cores
+//
+// Fragments of mma.sync.m16n8k16 (PTX ISA), lane = 4 g + t: A (16 x 16,
+// row-major) a0 = (row g, cols 2t, 2t+1), a1 = (g + 8, same), a2 = (g, 2t + 8,
+// 2t + 9), a3 = (g + 8, same); B (16 x 8) b0 = (rows 2t, 2t+1, col g), b1 = (rows
+// 2t + 8, 2t + 9, col g); C (16 x 8, f32) c0, c1 = (row g, cols 2t, 2t+1), c2, c3
+// = (row g + 8, same). Every operand tile lives in shared memory as bf16 rows
+// of stride kPad more than the padded head width, so the eight 16-byte rows
+// of an ldmatrix land in eight different bank groups.
+
+constexpr int kPad = 8;        // bf16 elements of padding per shared-memory row
+constexpr int kDqKeysSmall = 128;  // dq kernel: 4 warps x 16 query rows per block up to these keys, else 8
+constexpr int kDkvQ = 32;      // dk/dv kernel: query rows per step of its loop
+constexpr int kPrefetch = 8;   // dk/dv kernel: bias / statistics values a thread prefetches per step
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// c += a b, bf16 operands, f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+                 "{%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, zero-filled where `valid` is false
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// bf16 pair (lo, hi) as one register, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// A operand (16 x 16, k over two adjacent n-tiles) from two C fragments,
+// each value rounded to bf16
+__device__ __forceinline__ void a_from_c(unsigned (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
+    a[0] = pack_bf16(c0[0], c0[1]);
+    a[1] = pack_bf16(c0[2], c0[3]);
+    a[2] = pack_bf16(c1[0], c1[1]);
+    a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// ldmatrix lane addresses (lane = threadIdx.x % 32) into a [rows][ld] bf16 tile:
+// A operand rows r0.., cols c0..
+__device__ __forceinline__ const __nv_bfloat16* a_addr(const __nv_bfloat16* t, int ld, int r0, int c0, int lane) {
+    return t + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
+}
+// B operands of two n-tiles (n0.., n0 + 8..) with B[k][n] = t[n][k]: ldsm_x4
+__device__ __forceinline__ const __nv_bfloat16* bt_addr(const __nv_bfloat16* t, int ld, int n0, int k0, int lane) {
+    return t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8;
+}
+// B operands of two n-tiles with B[k][n] = t[k][n]: ldsm_x4_t
+__device__ __forceinline__ const __nv_bfloat16* bn_addr(const __nv_bfloat16* t, int ld, int k0, int n0, int lane) {
+    return t + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * ld + n0 + ((lane >> 4) << 3);
+}
+
+// rows [r0, r0 + n) of a [rows][d] bf16 matrix into a [n][ld] tile with
+// cp.async (d % 8 == 0), zeros past `rows` and past column d up to dp
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int rows, int r0,
+                                           int n, int d, int dp) {
+    const int chunks = dp / 8;
+    for (int idx = threadIdx.x; idx < n * chunks; idx += blockDim.x) {
+        const int r = idx / chunks, c = (idx - r * chunks) * 8;
+        const bool valid = r0 + r < rows && c < d;
+        cp_async16(dst + r * ld + c, valid ? src + static_cast<long long>(r0 + r) * d + c : src, valid);
+    }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// Warps (16 query rows each) per block of the dq kernel: 4 for short keys,
+// where k and v are small and more blocks fit on an SM; 8 for long keys,
+// where one block fills the shared memory and should keep 8 warps busy.
+__host__ __device__ inline int dq_warps(int lk) { return lk <= kDqKeysSmall ? 4 : 8; }
+
+// Shared memory of the dq kernel at head width dp = 16 KD: k and v [lkp][dp +
+// kPad], then one region that first holds the q and dO tiles [16 warps][dp +
+// kPad] and then, per warp, ds of a 16-key chunk [16][17] f32 and the dbias
+// sums [16][kb] f32; the bias tile [16 warps][kb] f32; each key's two bias columns.
+__host__ __device__ inline int dq_mma_smem(int lk, int dp, int kb) {
+    const int warps = dq_warps(lk);
+    const int lkp = round_up(lk, 16), ld = dp + kPad, rows = 16 * warps;
+    const int tiles = 2 * 2 * rows * ld;
+    const int scratch = 4 * warps * 16 * (17 + kb);
+    return 2 * 2 * lkp * ld + round_up(tiles > scratch ? tiles : scratch, 16) + round_up(4 * rows * kb, 16) + 4 * lkp;
+}
+
+// Shared memory of the dk/dv kernel with `warps` x 16 keys: k and v tiles,
+// two buffers each of q and dO [kDkvQ][dp + kPad], bias [kDkvQ][kb] f32 and
+// statistics [kDkvQ][3] f32.
+__host__ __device__ inline int dkv_mma_smem(int warps, int dp, int kb) {
+    const int ld = dp + kPad;
+    return 2 * 2 * 16 * warps * ld + 2 * 2 * 2 * kDkvQ * ld + 2 * 4 * kDkvQ * (kb + 3);
+}
+
+// dq, dbias and the row statistics, bf16 operands on the tensor cores. One
+// block of WARPS warps per (b*h, 16 WARPS query rows), a warp per 16 rows; k
+// and v stay in shared memory for the whole block. Each warp makes two
+// passes over the keys in chunks of 16 (one ldmatrix.x4 of k or v per 16
+// columns of D): (A) scores and dp -> the row max, the row sum and
+// rowsum(dp p), online (both sums rescaled when the max grows); (B) p, dp ->
+// ds: dbias from ds (f32), dq += round(ds) k with ds's C fragments re-used as
+// the A operand.
+template <int KD, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ bias,
+                const __nv_bfloat16* __restrict__ dout, int lq, int lk, int d, int kh, int kw, int tiles, float scale,
+                __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dbias, float* __restrict__ stats) {
+    constexpr int DP = 16 * KD, LD = DP + kPad, ROWS = 16 * WARPS;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int kb = kh + kw, lkp = round_up(lk, 16);
+    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+    __nv_bfloat16* vs = ks + lkp * LD;
+    unsigned char* region = reinterpret_cast<unsigned char*>(vs + lkp * LD);
+    __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(region);
+    __nv_bfloat16* ot = qt + ROWS * LD;
+    const int tiles_bytes = 2 * 2 * ROWS * LD, scratch_bytes = 4 * WARPS * 16 * (17 + kb);
+    float* bs = reinterpret_cast<float*>(region + round_up(tiles_bytes > scratch_bytes ? tiles_bytes : scratch_bytes, 16));
+    int* kidx = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(bs) + round_up(4 * ROWS * kb, 16));
+    const int bh = blockIdx.x / tiles;
+    const int q0 = (blockIdx.x % tiles) * ROWS;
+    const long long kbase = static_cast<long long>(bh) * lk * d;
+    const long long qbase = static_cast<long long>(bh) * lq * d;
+
+    stage_rows(ks, LD, k + kbase, lk, 0, lkp, d, DP);
+    stage_rows(vs, LD, v + kbase, lk, 0, lkp, d, DP);
+    stage_rows(qt, LD, qs + qbase, lq, q0, ROWS, d, DP);
+    stage_rows(ot, LD, dout + qbase, lq, q0, ROWS, d, DP);
+    cp_async_commit();
+    if (kb > 0) {  // the bias tile, 8 loads in flight a thread
+        const __nv_bfloat16* b = bias + (static_cast<long long>(bh) * lq + q0) * kb;
+        const int nb = ROWS * kb, nvalid = (lq - q0 < ROWS ? lq - q0 : ROWS) * kb;
+        for (int base = threadIdx.x; base < nb; base += 8 * blockDim.x) {
+            float r[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int idx = base + i * blockDim.x;
+                r[i] = idx < nvalid ? __bfloat162float(b[idx]) : 0.0f;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                if (base + i * blockDim.x < nb) bs[base + i * blockDim.x] = r[i];
+        }
+        for (int j = threadIdx.x; j < lkp; j += blockDim.x) kidx[j] = j < lk ? (j / kw) | ((kh + j % kw) << 16) : 0;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    unsigned qf[KD][4], of[KD][4];
+#pragma unroll
+    for (int s = 0; s < KD; ++s) {
+        ldsm_x4(qf[s], a_addr(qt, LD, warp * 16, s * 16, lane));
+        ldsm_x4(of[s], a_addr(ot, LD, warp * 16, s * 16, lane));
+    }
+    __syncthreads();  // the q / dO region becomes the warps' scratch
+    const int r0 = q0 + warp * 16;
+    if (r0 >= lq) return;
+    float* dsc = reinterpret_cast<float*>(region) + warp * 16 * (17 + kb);  // [16][17]
+    float* bkt = dsc + 16 * 17;                                              // [16][kb]
+    const float* brow[2] = {bs + (warp * 16 + g) * kb, bs + (warp * 16 + g + 8) * kb};
+
+    // scores of the chunk's 16 keys for rows g, g + 8 (keys past lk: -inf)
+    auto scores = [&](float (&s)[2][4], int kc) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+        for (int st = 0; st < KD; ++st) {
+            unsigned b[4];
+            ldsm_x4(b, bt_addr(ks, LD, kc, st * 16, lane));
+            mma_bf16(s[0], qf[st], b[0], b[1]);
+            mma_bf16(s[1], qf[st], b[2], b[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int j = kc + 8 * n + 2 * t + (e & 1);
+                if (j >= lk) {
+                    s[n][e] = __int_as_float(0xff800000);
+                } else if (kb > 0) {
+                    const int ix = kidx[j];
+                    const float* br = brow[e >> 1];
+                    s[n][e] += br[ix & 0xffff] + br[ix >> 16];
+                }
+            }
+    };
+    auto dps = [&](float (&p)[2][4], int kc) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) p[n][e] = 0.0f;
+#pragma unroll
+        for (int st = 0; st < KD; ++st) {
+            unsigned b[4];
+            ldsm_x4(b, bt_addr(vs, LD, kc, st * 16, lane));
+            mma_bf16(p[0], of[st], b[0], b[1]);
+            mma_bf16(p[1], of[st], b[2], b[3]);
+        }
+    };
+
+    // (A) row max, row sum and rowsum(dp p), online
+    float m[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)}, l[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f};
+    for (int kc = 0; kc < lkp; kc += 16) {
+        float s[2][4], dp[2][4];
+        scores(s, kc);
+        dps(dp, kc);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float cm = quad_max(fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]), fmaxf(s[1][2 * h], s[1][2 * h + 1])));
+            const float mn = fmaxf(m[h], cm);
+            const float r = expf(m[h] - mn);
+            float sum = l[h] * r, dot = u[h] * r;
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+                for (int e = 2 * h; e < 2 * h + 2; ++e) {
+                    const float x = expf(s[n][e] - mn);
+                    sum += x;
+                    dot = fmaf(dp[n][e], x, dot);
+                }
+            m[h] = mn;
+            l[h] = sum;
+            u[h] = dot;
+        }
+    }
+    float delta[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] = quad_sum(l[h]);
+        delta[h] = quad_sum(u[h]) / l[h];
+    }
+
+    // (B) ds -> dbias and dq
+    float acc[2 * KD][4];
+#pragma unroll
+    for (int n = 0; n < 2 * KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    const int own = lane & 15;  // lanes 0-15: row own's height sums; 16-31: its width sums
+    const bool width = lane >= 16;
+    for (int e = width ? kh : 0; e < (width ? kb : kh); ++e) bkt[own * kb + e] = 0.0f;
+    for (int kc = 0; kc < lkp; kc += 16) {
+        float s[2][4], ds[2][4];
+        scores(s, kc);
+        dps(ds, kc);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = expf(s[n][e] - m[e >> 1]) / l[e >> 1];
+                ds[n][e] = p * (ds[n][e] - delta[e >> 1]);
+            }
+        if (kb > 0) {
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) dsc[(g + 8 * (e >> 1)) * 17 + 8 * n + 2 * t + (e & 1)] = ds[n][e];
+            __syncwarp();
+            const int jn = min(16, lk - kc);
+            int cur = -1;  // a run of keys into one sum adds up in a register first
+            float run = 0.0f;
+            for (int jl = 0; jl < jn; ++jl) {
+                const int ix = kidx[kc + jl];
+                const int e = width ? ix >> 16 : ix & 0xffff;
+                if (e != cur) {
+                    if (cur >= 0) bkt[own * kb + cur] += run;
+                    cur = e;
+                    run = 0.0f;
+                }
+                run += dsc[own * 17 + jl];
+            }
+            if (cur >= 0) bkt[own * kb + cur] += run;
+            __syncwarp();
+        }
+        unsigned a[4];
+        a_from_c(a, ds[0], ds[1]);
+#pragma unroll
+        for (int dn = 0; dn < KD; ++dn) {
+            unsigned b[4];
+            ldsm_x4_t(b, bn_addr(ks, LD, kc, dn * 16, lane));
+            mma_bf16(acc[2 * dn], a, b[0], b[1]);
+            mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int q = r0 + g + 8 * h;
+        if (q >= lq) continue;
+#pragma unroll
+        for (int n = 0; n < 2 * KD; ++n) {
+            const int c = 8 * n + 2 * t;
+            if (c < d) {
+                const float x0 = round_to<__nv_bfloat16>(acc[n][2 * h]) * scale;
+                const float x1 = round_to<__nv_bfloat16>(acc[n][2 * h + 1]) * scale;
+                *reinterpret_cast<__nv_bfloat162*>(dq + qbase + static_cast<long long>(q) * d + c) =
+                    __floats2bfloat162_rn(x0, x1);
+            }
+        }
+        if (t == 0) {
+            float* out = stats + (static_cast<long long>(bh) * lq + q) * 3;
+            out[0] = m[h];
+            out[1] = l[h];
+            out[2] = delta[h];
+        }
+    }
+    if (kb > 0 && r0 + own < lq) {
+        __nv_bfloat16* out = dbias + (static_cast<long long>(bh) * lq + r0 + own) * kb;
+        for (int e = width ? kh : 0; e < (width ? kb : kh); ++e) out[e] = __float2bfloat16(bkt[own * kb + e]);
+    }
+}
+
+// dk and dv, bf16 operands on the tensor cores. One block per (b*h, key tile
+// of 16 x warps keys, query split); a warp keeps the dk and dv of its 16 keys
+// in registers across the loop over kDkvQ-row query tiles, which computes
+// s^T = k qs^T and dp^T = v dO^T and rebuilds p and ds from the row
+// statistics; p^T's and ds^T's C fragments are the A operand of dv += p^T dO
+// and dk += ds^T qs directly. The next query tile is staged with cp.async (q
+// and dO) and through registers (bias and statistics) while the block computes
+// the current one. With splits > 1 each split writes f32 partial sums, and
+// attn_dkv_reduce adds them in split order (no atomics).
+template <int KD>
+__global__ void __launch_bounds__(256)
+attn_bwd_dkv_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ bias,
+                 const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats, int lq, int lk, int d, int kh,
+                 int kw, int ktiles, int splits, int per_split, __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, float* __restrict__ partial) {
+    constexpr int DP = 16 * KD, LD = DP + kPad, TQ = kDkvQ;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int warps = blockDim.x / 32, kt_rows = 16 * warps, kb = kh + kw;
+    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+    __nv_bfloat16* vs = ks + kt_rows * LD;
+    __nv_bfloat16* qt = vs + kt_rows * LD;   // [2][TQ][LD]
+    __nv_bfloat16* ot = qt + 2 * TQ * LD;    // [2][TQ][LD]
+    float* bs = reinterpret_cast<float*>(ot + 2 * TQ * LD);  // [2][TQ][kb]
+    float* st = bs + 2 * TQ * kb;                            // [2][TQ][3]
+    const int sp = blockIdx.x % splits;
+    const int kt = (blockIdx.x / splits) % ktiles;
+    const int bh = blockIdx.x / (splits * ktiles);
+    const int j0 = kt * kt_rows;
+    const long long kbase = static_cast<long long>(bh) * lk * d;
+    const long long qbase = static_cast<long long>(bh) * lq * d;
+    const __nv_bfloat16* brows = kb > 0 ? bias + static_cast<long long>(bh) * lq * kb : bias;
+    const float* srows = stats + static_cast<long long>(bh) * lq * 3;
+    const int qtiles = (lq + TQ - 1) / TQ;
+    const int ta = sp * per_split, tb = min(qtiles, ta + per_split);
+    const int nb = TQ * kb, ns = TQ * 3;  // bias and statistics values of one tile
+
+    // the bias and statistics of query tile `tile`: into registers, then shared memory
+    auto fetch = [&](float (&r)[kPrefetch], int tile) {
+        const int q0 = tile * TQ;
+#pragma unroll
+        for (int i = 0; i < kPrefetch; ++i) {
+            const int idx = threadIdx.x + i * blockDim.x;
+            float x = 0.0f;
+            if (idx < nb) {
+                if (q0 + idx / kb < lq) x = __bfloat162float(brows[static_cast<long long>(q0) * kb + idx]);
+            } else if (idx < nb + ns) {
+                const int u = idx - nb;
+                if (q0 + u / 3 < lq) x = srows[static_cast<long long>(q0) * 3 + u];
+                else x = (u % 3 == 1) ? 1.0f : 0.0f;
+            }
+            r[i] = x;
+        }
+    };
+    auto store = [&](const float (&r)[kPrefetch], int buf) {
+#pragma unroll
+        for (int i = 0; i < kPrefetch; ++i) {
+            const int idx = threadIdx.x + i * blockDim.x;
+            if (idx < nb) bs[buf * nb + idx] = r[i];
+            else if (idx < nb + ns) st[buf * ns + idx - nb] = r[i];
+        }
+    };
+
+    stage_rows(ks, LD, k + kbase, lk, j0, kt_rows, d, DP);
+    stage_rows(vs, LD, v + kbase, lk, j0, kt_rows, d, DP);
+    if (ta < tb) {
+        stage_rows(qt, LD, qs + qbase, lq, ta * TQ, TQ, d, DP);
+        stage_rows(ot, LD, dout + qbase, lq, ta * TQ, TQ, d, DP);
+    }
+    cp_async_commit();
+    float pre[kPrefetch];
+    if (ta < tb) {
+        fetch(pre, ta);
+        store(pre, 0);
+    }
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    const int jw = j0 + warp * 16;  // the warp's first key
+    const bool active = jw < lk;
+    int bcol[2][2] = {{0, 0}, {0, 0}};  // the two bias columns of keys jw + g and jw + g + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int j = jw + g + 8 * h;
+        if (kb > 0 && j < lk) {
+            bcol[h][0] = j / kw;
+            bcol[h][1] = kh + j % kw;
+        }
+    }
+    float dka[2 * KD][4], dva[2 * KD][4];
+#pragma unroll
+    for (int n = 0; n < 2 * KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+
+    int buf = 0;
+    for (int tile = ta; tile < tb; ++tile, buf ^= 1) {
+        cp_async_wait_all();
+        __syncthreads();
+        const bool next = tile + 1 < tb;
+        if (next) {
+            stage_rows(qt + (buf ^ 1) * TQ * LD, LD, qs + qbase, lq, (tile + 1) * TQ, TQ, d, DP);
+            stage_rows(ot + (buf ^ 1) * TQ * LD, LD, dout + qbase, lq, (tile + 1) * TQ, TQ, d, DP);
+            cp_async_commit();
+            fetch(pre, tile + 1);
+        }
+        if (active) {
+            const __nv_bfloat16* qb = qt + buf * TQ * LD;
+            const __nv_bfloat16* ob = ot + buf * TQ * LD;
+            const float* bb = bs + buf * nb;
+            const float* sb = st + buf * ns;
+            const int q0 = tile * TQ;
+            float p[TQ / 8][4], ds[TQ / 8][4];
+#pragma unroll
+            for (int n = 0; n < TQ / 8; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.0f;
+#pragma unroll
+            for (int s = 0; s < KD; ++s) {  // s^T = k qs^T, dp^T = v dO^T
+                unsigned ak[4], av[4];
+                ldsm_x4(ak, a_addr(ks, LD, warp * 16, s * 16, lane));
+                ldsm_x4(av, a_addr(vs, LD, warp * 16, s * 16, lane));
+#pragma unroll
+                for (int np = 0; np < TQ / 16; ++np) {
+                    unsigned b[4];
+                    ldsm_x4(b, bt_addr(qb, LD, np * 16, s * 16, lane));
+                    mma_bf16(p[2 * np], ak, b[0], b[1]);
+                    mma_bf16(p[2 * np + 1], ak, b[2], b[3]);
+                    ldsm_x4(b, bt_addr(ob, LD, np * 16, s * 16, lane));
+                    mma_bf16(ds[2 * np], av, b[0], b[1]);
+                    mma_bf16(ds[2 * np + 1], av, b[2], b[3]);
+                }
+            }
+#pragma unroll
+            for (int n = 0; n < TQ / 8; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int ql = 8 * n + 2 * t + (e & 1), h = e >> 1;
+                    float x = p[n][e];
+                    if (kb > 0) x += bb[ql * kb + bcol[h][0]] + bb[ql * kb + bcol[h][1]];
+                    const bool in = q0 + ql < lq && jw + g + 8 * h < lk;
+                    const float pr = in ? expf(x - sb[3 * ql]) / sb[3 * ql + 1] : 0.0f;
+                    p[n][e] = pr;
+                    ds[n][e] = pr * (ds[n][e] - sb[3 * ql + 2]);
+                }
+#pragma unroll
+            for (int kq = 0; kq < TQ / 16; ++kq) {  // dv += round(p)^T dO, dk += round(ds)^T qs
+                unsigned ap[4], ad[4];
+                a_from_c(ap, p[2 * kq], p[2 * kq + 1]);
+                a_from_c(ad, ds[2 * kq], ds[2 * kq + 1]);
+#pragma unroll
+                for (int dn = 0; dn < KD; ++dn) {
+                    unsigned b[4];
+                    ldsm_x4_t(b, bn_addr(ob, LD, kq * 16, dn * 16, lane));
+                    mma_bf16(dva[2 * dn], ap, b[0], b[1]);
+                    mma_bf16(dva[2 * dn + 1], ap, b[2], b[3]);
+                    ldsm_x4_t(b, bn_addr(qb, LD, kq * 16, dn * 16, lane));
+                    mma_bf16(dka[2 * dn], ad, b[0], b[1]);
+                    mma_bf16(dka[2 * dn + 1], ad, b[2], b[3]);
+                }
+            }
+        }
+        if (next) store(pre, buf ^ 1);
+    }
+
+    if (!active) return;
+    const long long total = static_cast<long long>(gridDim.x / (splits * ktiles)) * lk * d;  // bh * lk * d
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int j = jw + g + 8 * h;
+        if (j >= lk) continue;
+#pragma unroll
+        for (int n = 0; n < 2 * KD; ++n) {
+            const int c = 8 * n + 2 * t;
+            if (c >= d) continue;
+            const long long o = kbase + static_cast<long long>(j) * d + c;
+            if (splits == 1) {
+                *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(dka[n][2 * h], dka[n][2 * h + 1]);
+                *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(dva[n][2 * h], dva[n][2 * h + 1]);
+            } else {
+                float* pk = partial + 2 * sp * total;
+                *reinterpret_cast<float2*>(pk + o) = make_float2(dka[n][2 * h], dka[n][2 * h + 1]);
+                *reinterpret_cast<float2*>(pk + total + o) = make_float2(dva[n][2 * h], dva[n][2 * h + 1]);
+            }
+        }
+    }
+}
+
+// dk, dv = the sums of the splits' partials, in split order
+__global__ void attn_dkv_reduce(const float* __restrict__ partial, long long total, int splits,
+                                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+    for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+         i += static_cast<long long>(gridDim.x) * blockDim.x) {
+        float a = 0.0f, b = 0.0f;
+        for (int s = 0; s < splits; ++s) {
+            a += partial[2 * s * total + i];
+            b += partial[(2 * s + 1) * total + i];
+        }
+        dk[i] = __float2bfloat16(a);
+        dv[i] = __float2bfloat16(b);
+    }
+}
+
+// The head width the tensor-core kernels pad d to (16 KD, KD even), or 0
+// when they do not take d.
+__host__ __device__ inline int mma_width(int d) {
+    if (d <= 0 || d > kMaxD || d % 8 != 0) return 0;
+    return round_up(d, 32);
+}
+
+struct DkvPlan {
+    int warps, ktiles, splits, per_split, smem;
+};
+
+// Launch shape of attn_bwd_dkv_mma: 16 keys a warp, 4 to 8 warps; the query
+// tiles split across blocks when the grid would not fill the card twice over
+DkvPlan dkv_plan(int bh, int lq, int lk, int d, int kb, int sms) {
+    DkvPlan p{};
+    const int dp = mma_width(d);
+    int w = (lk + 15) / 16;
+    p.warps = w < 4 ? 4 : (w > 8 ? 8 : w);
+    p.ktiles = (lk + 16 * p.warps - 1) / (16 * p.warps);
+    const int qtiles = (lq + kDkvQ - 1) / kDkvQ;
+    const long long blocks = static_cast<long long>(bh) * p.ktiles;
+    p.splits = 1;
+    if (blocks < 2LL * sms) {
+        const int want = static_cast<int>((4LL * sms + blocks - 1) / blocks);
+        const int most = (qtiles + 1) / 2;
+        p.splits = want < most ? want : most;
+        if (p.splits < 1) p.splits = 1;
+    }
+    p.per_split = (qtiles + p.splits - 1) / p.splits;
+    p.splits = (qtiles + p.per_split - 1) / p.per_split;  // no empty split
+    p.smem = dp ? dkv_mma_smem(p.warps, dp, kb) : 0;
+    return p;
+}
+
+bool dkv_mma_fits(int lk, int d, int kb) {
+    const int dp = mma_width(d);
+    if (!dp) return false;
+    int w = (lk + 15) / 16;
+    w = w < 4 ? 4 : (w > 8 ? 8 : w);
+    return kDkvQ * (kb + 3) <= kPrefetch * 32 * w && dkv_mma_smem(w, dp, kb) <= kSmemLimit;
+}
+
+bool dq_mma_fits(int lk, int d, int kb) {
+    const int dp = mma_width(d);
+    return dp && dq_mma_smem(lk, dp, kb) <= kSmemLimit;
+}
+
+int sm_count() {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        return 132;
+    return sms;
+}
+
+template <int KD, int WARPS>
+int dq_mma_launch_w(const void* qs, const void* k, const void* v, const void* bias, const void* dout, int bh, int lq,
+                  int lk, int d, int kh, int kw, float scale, void* dq, void* dbias, float* stats, cudaStream_t stream) {
+    const int smem = dq_mma_smem(lk, 16 * KD, kh + kw);
+    const cudaError_t err =
+        cudaFuncSetAttribute(attn_bwd_dq_mma<KD, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tiles = (lq + 16 * WARPS - 1) / (16 * WARPS);
+    using B = __nv_bfloat16;
+    attn_bwd_dq_mma<KD, WARPS><<<bh * tiles, 32 * WARPS, smem, stream>>>(
+        static_cast<const B*>(qs), static_cast<const B*>(k), static_cast<const B*>(v), static_cast<const B*>(bias),
+        static_cast<const B*>(dout), lq, lk, d, kh, kw, tiles, scale, static_cast<B*>(dq), static_cast<B*>(dbias), stats);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int KD>
+int dq_mma_launch(const void* qs, const void* k, const void* v, const void* bias, const void* dout, int bh, int lq,
+                  int lk, int d, int kh, int kw, float scale, void* dq, void* dbias, float* stats, cudaStream_t stream) {
+    return dq_warps(lk) == 4
+               ? dq_mma_launch_w<KD, 4>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, stream)
+               : dq_mma_launch_w<KD, 8>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, stream);
+}
+
+template <int KD>
+int dkv_mma_launch(const void* qs, const void* k, const void* v, const void* bias, const void* dout,
+                   const float* stats, int bh, int lq, int lk, int d, int kh, int kw, void* dk, void* dv,
+                   float* scratch, cudaStream_t stream) {
+    const DkvPlan p = dkv_plan(bh, lq, lk, d, kh + kw, sm_count());
+    if (p.splits > 1 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkv_mma<KD>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    using B = __nv_bfloat16;
+    attn_bwd_dkv_mma<KD><<<bh * p.ktiles * p.splits, 32 * p.warps, p.smem, stream>>>(
+        static_cast<const B*>(qs), static_cast<const B*>(k), static_cast<const B*>(v), static_cast<const B*>(bias),
+        static_cast<const B*>(dout), stats, lq, lk, d, kh, kw, p.ktiles, p.splits, p.per_split, static_cast<B*>(dk),
+        static_cast<B*>(dv), scratch);
+    int e = static_cast<int>(cudaGetLastError());
+    if (e || p.splits == 1) return e;
+    const long long total = static_cast<long long>(bh) * lk * d;
+    const long long blocks = (total + 255) / 256;
+    attn_dkv_reduce<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(scratch, total, p.splits,
+                                                                                      static_cast<B*>(dk), static_cast<B*>(dv));
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Kernel>
 int prepare(Kernel kernel, int smem) {
     if (smem > 48 * 1024) {
@@ -423,6 +1099,8 @@ int prepare(Kernel kernel, int smem) {
 
 template <typename T>
 int tile_rows(int which, int lk, int d, int kb) {
+    if (sizeof(T) == 2 && which == 1) return dq_mma_fits(lk, d, kb) ? 16 * dq_warps(lk) : 0;
+    if (sizeof(T) == 2 && which == 2) return dkv_mma_fits(lk, d, kb) ? kDkvQ : 0;
     if (which == 0) {
         if (fwd_smem<T, 32>(lk, d, kb) <= kSmemLimit) return 32;
         if (fwd_smem<T, 16>(lk, d, kb) <= kSmemLimit) return 16;
@@ -518,24 +1196,48 @@ extern "C" int audiossl_attn_bwd_dq(const void* qs, const void* k, const void* v
                                     void* dbias, float* stats, void* stream) {
     if (bad_shape(bh, lq, lk, d, kh, kw) || (bias == nullptr) != (kh + kw == 0)) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (audiossl_attn_tile(1, lk, d, kh + kw, bf16) * 2 + (bf16 ? 1 : 0)) {
-        case 64: return dq_launch<float, 32>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
-        case 32: return dq_launch<float, 16>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
-        case 16: return dq_launch<float, 8>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
-        case 65: return dq_launch<__nv_bfloat16, 32>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
-        case 33: return dq_launch<__nv_bfloat16, 16>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
-        case 17: return dq_launch<__nv_bfloat16, 8>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
+    if (bf16) {
+        if (!dq_mma_fits(lk, d, kh + kw)) return static_cast<int>(cudaErrorInvalidValue);
+        switch (mma_width(d) / 16) {
+            case 2: return dq_mma_launch<2>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
+            case 4: return dq_mma_launch<4>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
+            case 6: return dq_mma_launch<6>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
+            case 8: return dq_mma_launch<8>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
+    switch (audiossl_attn_tile(1, lk, d, kh + kw, 0)) {
+        case 32: return dq_launch<float, 32>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
+        case 16: return dq_launch<float, 16>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
+        case 8: return dq_launch<float, 8>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
-// From the stats audiossl_attn_bwd_dq wrote: dk, dv [bh, lk, d].
+// f32 scratch (floats) that audiossl_attn_bwd_dkv needs for these shapes: the
+// splits' partial dk and dv when the bf16 kernel splits the query rows, else 0.
+extern "C" long long audiossl_attn_dkv_scratch(int bh, int lq, int lk, int d, int kb, int bf16) {
+    if (!bf16 || bh <= 0 || lq <= 0 || lk <= 0 || !dkv_mma_fits(lk, d, kb)) return 0;
+    const DkvPlan p = dkv_plan(bh, lq, lk, d, kb, sm_count());
+    return p.splits > 1 ? 2LL * p.splits * bh * lk * d : 0;
+}
+
+// From the stats audiossl_attn_bwd_dq wrote: dk, dv [bh, lk, d]. `scratch`
+// holds audiossl_attn_dkv_scratch(...) floats (null when that is 0).
 extern "C" int audiossl_attn_bwd_dkv(const void* qs, const void* k, const void* v, const void* bias, const void* dout,
                                      const float* stats, int bh, int lq, int lk, int d, int kh, int kw, int bf16,
-                                     void* dk, void* dv, void* stream) {
+                                     void* dk, void* dv, float* scratch, void* stream) {
     if (bad_shape(bh, lq, lk, d, kh, kw) || (bias == nullptr) != (kh + kw == 0)) return static_cast<int>(cudaErrorInvalidValue);
     if (audiossl_attn_tile(2, lk, d, kh + kw, bf16) == 0) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return bf16 ? dkv_launch<__nv_bfloat16>(qs, k, v, bias, dout, stats, bh, lq, lk, d, kh, kw, dk, dv, s)
-                : dkv_launch<float>(qs, k, v, bias, dout, stats, bh, lq, lk, d, kh, kw, dk, dv, s);
+    if (bf16) {
+        switch (mma_width(d) / 16) {
+            case 2: return dkv_mma_launch<2>(qs, k, v, bias, dout, stats, bh, lq, lk, d, kh, kw, dk, dv, scratch, s);
+            case 4: return dkv_mma_launch<4>(qs, k, v, bias, dout, stats, bh, lq, lk, d, kh, kw, dk, dv, scratch, s);
+            case 6: return dkv_mma_launch<6>(qs, k, v, bias, dout, stats, bh, lq, lk, d, kh, kw, dk, dv, scratch, s);
+            case 8: return dkv_mma_launch<8>(qs, k, v, bias, dout, stats, bh, lq, lk, d, kh, kw, dk, dv, scratch, s);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
+    return dkv_launch<float>(qs, k, v, bias, dout, stats, bh, lq, lk, d, kh, kw, dk, dv, s);
 }

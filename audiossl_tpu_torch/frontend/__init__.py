@@ -4,9 +4,12 @@ Mirrors ``audiossl_tpu.frontend``:
   * ``logmel`` — librosa-style STFT power mel. On a CUDA tensor it runs the
     Hopper log-mel kernel (fused_stft.log_mel_fused) whenever the config is
     ``ct_eligible``, which the TPU package splits between its ct2 and ct
-    kernels; otherwise the plain version (stft.log_mel).
+    kernels, and the rows kernel in librosa mode
+    (fused_stft.log_mel_dense_fused, the TPU package's general
+    ``log_mel_fused``) for any other n_fft; on the CPU the plain version
+    (stft.log_mel). A CUDA tensor never reaches the plain version.
   * ``fbank`` — Kaldi-compatible fbank for MAST/AST, padded or cut to
-    ``target_length`` frames. On a CUDA tensor it runs the dense-rows Hopper
+    ``target_length`` frames. On a CUDA tensor it runs the rows Hopper
     kernel in Kaldi mode (fused_stft.kaldi_fbank_fused); on the CPU the plain
     version (fbank.kaldi_fbank). The JAX package keeps fbank on XLA for a
     TPU-only reason (the 400-tap window pads to 512 lanes).
@@ -55,11 +58,15 @@ class FrontendSpec:
 
 
 def logmel_features(waves: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
-    """[B, L] -> [B, n_mels, T]: the kernel on CUDA when the config allows
-    it, else the plain version."""
-    if waves.is_cuda and fused_stft.ct_eligible(cfg):
+    """[B, L] -> [B, n_mels, T]. CPU tensor: the plain version. CUDA tensor:
+    the log-mel kernel where the config is ``ct_eligible``, else the rows
+    kernel in librosa mode; either raises rather than fall back."""
+    if waves.device.type == "cpu":
+        return log_mel(waves, cfg)
+    if fused_stft.ct_eligible(cfg):
         return fused_stft.log_mel_fused(waves, cfg)
-    return log_mel(waves, cfg)
+    out = fused_stft.log_mel_dense_fused(waves.reshape(-1, waves.shape[-1]).float().contiguous(), cfg)
+    return out.reshape(*waves.shape[:-1], *out.shape[1:])
 
 
 def build_frontend(input_cfg: dict[str, Any]) -> FrontendSpec:

@@ -17,15 +17,20 @@ applies the filterbank and takes the log, writing the output directly.
 TPU functions ``pallas_stft.py:kaldi_fbank_fused`` and ``log_mel_fused``,
 which share one kernel (``_fused_rows``): frame rows times the
 window-folded DFT bank, power, mel and log. Here too they share one Hopper
-kernel (csrc/fused_rows.cu) in its two log modes; framing (and for Kaldi
-DC removal and preemphasis) runs in plain torch before it. The plain version
-of that kernel is ``fused_rows_plain``.
+source (csrc/fused_rows.cu) in its two log modes: a shared-memory FFT where
+the transform length is a power of two (every config of the repo), the
+dense window-folded DFT for any other width. Framing (and for Kaldi DC
+removal and preemphasis) runs in plain torch before it. The plain version
+of that kernel is ``fused_rows_plain``; ``frontend.logmel_features``
+routes every CUDA log-mel that is not ``ct_eligible`` to
+``log_mel_dense_fused``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -188,9 +193,25 @@ def _rows_lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.audiossl_fused_rows_tile.argtypes = [i, i]
     lib.audiossl_fused_rows_tile.restype = i
+    lib.audiossl_fused_rows_fft_warps.argtypes = [i, i, i, i]
+    lib.audiossl_fused_rows_fft_warps.restype = i
     lib.audiossl_fused_rows.argtypes = [p, i, i, i, i, p, p, p, i, p, p]
     lib.audiossl_fused_rows.restype = i
+    lib.audiossl_fused_rows_fft.argtypes = [p, i, i, i, i, i, p, p, p, p, p, i, p, i, p, p, p]
+    lib.audiossl_fused_rows_fft.restype = i
     return lib
+
+
+def fft_width(n: int) -> bool:
+    """Whether rows zero-padded to ``n`` take the FFT design (a power of two,
+    n >= 8); any other width takes the dense design."""
+    return n >= 8 and n & (n - 1) == 0
+
+
+def rows_twiddles(n: int) -> np.ndarray:
+    """[n, 2] f32: W_n^e = (cos, -sin)(2 pi e / n), computed in float64."""
+    ang = 2.0 * np.pi * np.arange(n) / n
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
 
 
 def _sparse_rows(mel_t: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -205,16 +226,55 @@ def _sparse_rows(mel_t: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return fb, mel_range
 
 
-@functools.lru_cache(maxsize=16)
-def _rows_constants(cfg, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """(bank, mel_t, fb, mel_range) on ``device`` for an FbankConfig (Kaldi
-    mode) or a LogMelConfig (librosa mode)."""
+class RowsConstants(NamedTuple):
+    """The rows kernel's constants for one config. ``n`` is the transform
+    length the rows are zero-padded to; ``bank`` (window folded into the
+    real DFT, [win, 2 n_bins]) and ``mel_t`` serve the plain version, ``bank``
+    and ``fb`` the dense design; ``window``, ``twiddle`` (rows_twiddles),
+    ``fb_packed`` (each filter's weights over its nonzero bins, filter after
+    filter) and ``mel_off`` (where filter i's weights start) the FFT design;
+    ``mel_range`` both designs. ``n_dense``: the FFT design takes the power of
+    bins below it from the bank's arithmetic (the bins of single-bin
+    filters, rounded up to 32; see csrc/fused_rows.cu). Arrays are numpy
+    (``rows_constants``) or tensors on a device (``_rows_constants``)."""
+
+    n: int
+    n_dense: int
+    bank: Any
+    mel_t: Any
+    fb: Any
+    mel_range: Any
+    window: Any
+    twiddle: Any
+    fb_packed: Any
+    mel_off: Any
+
+
+def rows_constants(cfg) -> RowsConstants:
+    """RowsConstants (numpy) for an FbankConfig (Kaldi mode: the symmetric
+    Hanning over window_size samples, padded to padded_window) or a
+    LogMelConfig (librosa mode: the periodic Hann centred in n_fft)."""
     if isinstance(cfg, fbankmod.FbankConfig):
         bank, mel_t = fbankmod.fbank_constants(cfg)
+        n, window = cfg.padded_window, fbankmod.hanning_sym(cfg.window_size)
     else:
         bank, mel_t = stftmod._constants(cfg)
+        n, window = cfg.n_fft, padded_window(cfg).astype(np.float32)
     fb, mel_range = _sparse_rows(mel_t)
-    return tuple(torch.from_numpy(a).to(device) for a in (bank, mel_t, fb, mel_range))
+    widths = mel_range[:, 1] - mel_range[:, 0]
+    mel_off = (np.cumsum(widths) - widths).astype(np.int32)
+    packed = [fb[i, lo:hi] for i, (lo, hi) in enumerate(mel_range)]
+    fb_packed = np.concatenate(packed).astype(np.float32) if packed else np.zeros(0, np.float32)
+    single = mel_range[widths == 1]
+    n_dense = min(-(-int(single[:, 1].max()) // 32) * 32, n // 2 + 1) if len(single) else 0
+    return RowsConstants(n, n_dense, bank, mel_t, fb, mel_range, window, rows_twiddles(n), fb_packed, mel_off)
+
+
+@functools.lru_cache(maxsize=16)
+def _rows_constants(cfg, device: torch.device) -> RowsConstants:
+    """rows_constants(cfg) with every array as a tensor on ``device``."""
+    c = rows_constants(cfg)
+    return RowsConstants(c.n, c.n_dense, *(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in c[2:]))
 
 
 def _check_wave(wave: torch.Tensor, name: str) -> None:
@@ -227,27 +287,41 @@ def _check_wave(wave: torch.Tensor, name: str) -> None:
 
 def fused_rows(frames: torch.Tensor, cfg, mode: str) -> torch.Tensor:
     """The kernel on contiguous f32 frame rows [rows, win] on the card ->
-    [rows, n_mels] f32. Raises for anything else; it never falls back."""
+    [rows, n_mels] f32: the FFT design where the transform length is a power
+    of two, else the dense design. Raises for anything else; it never falls
+    back."""
     if mode not in ROW_MODES:
         raise ValueError(f"mode must be one of {ROW_MODES}, got {mode!r}")
     if frames.device.type != "cuda" or frames.dim() != 2 or frames.dtype != torch.float32 or not frames.is_contiguous():
         raise ValueError(f"fused_rows takes contiguous f32 [rows, win] frames on the card, got "
                          f"{tuple(frames.shape)} {frames.dtype} on {frames.device}")
-    bank, mel_t, fb, mel_range = _rows_constants(cfg, frames.device)
+    c = _rows_constants(cfg, frames.device)
     rows, win = frames.shape
-    n_bins, n_mels = mel_t.shape
-    if bank.shape != (win, 2 * n_bins):
-        raise ValueError(f"frames of width {win} do not fit the bank {tuple(bank.shape)}")
+    n_bins, n_mels = c.mel_t.shape
+    if c.bank.shape != (win, 2 * n_bins):
+        raise ValueError(f"frames of width {win} do not fit the bank {tuple(c.bank.shape)}")
     lib = _rows_lib()
-    if lib.audiossl_fused_rows_tile(win, n_bins) == 0:
+    fft = fft_width(c.n)
+    if fft and lib.audiossl_fused_rows_fft_warps(win, c.n, c.fb_packed.numel(), n_mels) == 0:
+        raise ValueError(f"a {c.n}-point transform exceeds the FFT kernel's shared memory")
+    if not fft and lib.audiossl_fused_rows_tile(win, n_bins) == 0:
         raise ValueError(f"rows of {win} samples and {n_bins} bins exceed the kernel's shared-memory tile")
     out = torch.empty((rows, n_mels), dtype=torch.float32, device=frames.device)
     if rows:
+        librosa = int(mode == "librosa")
         with torch.cuda.device(frames.device):
-            err = lib.audiossl_fused_rows(
-                frames.data_ptr(), rows, win, n_bins, n_mels, bank.data_ptr(), fb.data_ptr(),
-                mel_range.data_ptr(), int(mode == "librosa"), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-            )
+            stream = torch.cuda.current_stream().cuda_stream
+            if fft:
+                dense_pw = torch.empty((rows, c.n_dense), dtype=torch.float32, device=frames.device) if c.n_dense else None
+                err = lib.audiossl_fused_rows_fft(
+                    frames.data_ptr(), rows, win, c.n, n_mels, c.fb_packed.numel(), c.window.data_ptr(),
+                    c.twiddle.data_ptr(), c.fb_packed.data_ptr(), c.mel_range.data_ptr(), c.mel_off.data_ptr(),
+                    librosa, c.bank.data_ptr(), c.n_dense, dense_pw.data_ptr() if c.n_dense else None,
+                    out.data_ptr(), stream)
+            else:
+                err = lib.audiossl_fused_rows(
+                    frames.data_ptr(), rows, win, n_bins, n_mels, c.bank.data_ptr(), c.fb.data_ptr(),
+                    c.mel_range.data_ptr(), librosa, out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"fused_rows kernel launch failed: CUDA error {err}")
         fused_rows.launches[mode] += 1
@@ -271,9 +345,10 @@ def kaldi_fbank_fused(wave: torch.Tensor, cfg: fbankmod.FbankConfig = fbankmod.F
 
 
 def log_mel_dense_fused(wave: torch.Tensor, cfg: LogMelConfig = LogMelConfig()) -> torch.Tensor:
-    """[B, n] -> [B, n_mels, n_frames] librosa log-mel through the dense rows
-    kernel (the TPU ``log_mel_fused``; no dispatch site selects it, as in
-    the JAX package). CPU tensor: the plain version (stft.log_mel)."""
+    """[B, n] -> [B, n_mels, n_frames] librosa log-mel through the rows
+    kernel in librosa mode (the TPU ``log_mel_fused``, which takes any
+    n_fft); ``frontend.logmel_features`` sends it every CUDA config that is
+    not ``ct_eligible``. CPU tensor: the plain version (stft.log_mel)."""
     if wave.device.type == "cpu":
         return log_mel(wave, cfg)
     _check_wave(wave, "log_mel_dense_fused")

@@ -20,7 +20,9 @@ of the same function beside it and a ``launches`` counter:
                                max, sum and rowsum(dp * p)
   ``rel_attention_bwd_dkv`` <- ``_bwd_kernel`` (dk, dv), from those row statistics
 
-A wrapper takes the plain version for a CPU tensor only; on a CUDA tensor it
+In bf16 the two backward kernels run their products on the tensor cores
+(mma.sync); in f32 (the parity path) every kernel is f32 FFMA. A wrapper
+takes the plain version for a CPU tensor only; on a CUDA tensor it
 launches the kernel or raises. The kernels read the bias decomposed, so on
 CUDA ``expand`` must be ``rel_expand_matrix(kh, kw)`` (given as the pair
 ``(kh, kw)``, or as that matrix, which is checked); the plain versions take
@@ -130,8 +132,10 @@ def _lib() -> ctypes.CDLL:
     lib.audiossl_attn_fwd.restype = i
     lib.audiossl_attn_bwd_dq.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p, p, p, p]
     lib.audiossl_attn_bwd_dq.restype = i
-    lib.audiossl_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p]
+    lib.audiossl_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
     lib.audiossl_attn_bwd_dkv.restype = i
+    lib.audiossl_attn_dkv_scratch.argtypes = [i, i, i, i, i, i]
+    lib.audiossl_attn_dkv_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -181,6 +185,8 @@ def _check(q, k, v, bias, kb: int, extra=()) -> None:
 def _tile_or_raise(which: int, q, k, kb: int) -> None:
     lk, d = k.shape[1], k.shape[2]
     bf16 = int(q.dtype == torch.bfloat16)
+    if bf16 and which > 0 and d % 8:
+        raise ValueError(f"the bf16 backward kernels take head widths that are a multiple of 8, got {d}")
     if _lib().audiossl_attn_tile(which, lk, d, kb, bf16) == 0:
         limit = max((n for n in range(1, 4097) if _lib().audiossl_attn_tile(which, n, d, kb, bf16)), default=0)
         raise ValueError(f"{lk} keys do not fit the attention kernel's shared memory (at D={d}, "
@@ -244,10 +250,13 @@ def rel_attention_bwd_dkv(qs, k, v, bias, expand, do, stats):
     if stats.shape != (bh, lq, 3) or stats.dtype != torch.float32 or not stats.is_contiguous():
         raise ValueError(f"stats must be contiguous [{bh}, {lq}, 3] f32")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    bf16 = int(qs.dtype == torch.bfloat16)
     with torch.cuda.device(qs.device):
+        n_scratch = _lib().audiossl_attn_dkv_scratch(bh, lq, lk, d, kh + kw, bf16)
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=qs.device) if n_scratch else None
         err = _lib().audiossl_attn_bwd_dkv(
             _ptr(qs), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), stats.data_ptr(), bh, lq, lk, d, kh, kw,
-            int(qs.dtype == torch.bfloat16), dk.data_ptr(), dv.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            bf16, dk.data_ptr(), dv.data_ptr(), _ptr(scratch), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rel_attention_bwd_dkv kernel launch failed: CUDA error {err}")
     rel_attention_bwd_dkv.launches += 1

@@ -23,8 +23,14 @@ drives the port's main paths at full width with seeded weights:
     kernels); its exported MAST trunk then embeds, and one f32 MAST-tiny
     step on the card is held against the CPU.
 
+  * the log-mel dispatcher (slice 4): ``frontend.logmel_features`` on a
+    config that is not ``ct_eligible`` (n_fft = 400) launches the rows
+    kernel in librosa mode once and matches the plain log_mel; each
+    attention backward kernel run twice gives the same bits.
+
 It checks the outputs, times each kernel, its plain version and a library
-composition, serving and training, and prints:
+composition (the attention and rows kernels as CUDA graph replays), serving
+and training, and prints:
 
   * the card's name and power limit as nvidia-smi gives them;
   * one {"kernels": [...]} JSON line (launches on the main paths, error
@@ -304,12 +310,18 @@ def main() -> int:
         mast_counts = ssmast_training_run(tmp, wav, dev)
     mast_step_err = ssmast_f32_step_check(dev)
 
-    # phase 11: times at the SS-MAST shapes, beside the card
+    # phase 11: the log-mel dispatcher on a config that is not ct_eligible,
+    # counts from 0 (the rows kernel in librosa mode, the dense design); each
+    # attention backward kernel run twice gives the same bits
+    dispatch = dispatcher_check(dev)
+    attention_determinism(dev)
+
+    # phase 12: times at the SS-MAST shapes, beside the card
     attn_times = attention_times(dev, card)
     rows_t = rows_times(dev, card)
     ssmast_train_times(dev, card, pool)
 
-    # phase 12: the kernel line
+    # phase 13: the kernel line
     entries = [{
         "name": "log_mel_fused",
         "route": "cuda",
@@ -353,8 +365,9 @@ def main() -> int:
             "route": "cuda",
             "source": "audiossl_tpu_torch/csrc/fused_rows.cu",
             "replaces": f"audiossl_tpu/frontend/pallas_stft.py:{line}",
-            "launches": mast_counts[name],  # librosa mode: read back 0, no path dispatches it (as in JAX)
-            "max_abs_err": rows_err[name],
+            # Kaldi: the SS-MAST run; librosa: logmel_features at n_fft = 400
+            "launches": mast_counts[name] if name == "fused_rows_kaldi" else dispatch["launches"],
+            "max_abs_err": max(rows_err[name], dispatch["max_abs_err"]) if name == "fused_rows_librosa" else rows_err[name],
             **rows_t[name],
         })
     print(json.dumps({"kernels": entries, "block1_grad_rel_err": grad_errs, "f32_step_rel_err": step_err,
@@ -811,6 +824,56 @@ def rows_checks(dev) -> dict[str, float]:
     return errs
 
 
+def dispatcher_check(dev) -> dict:
+    """logmel_features, the serving frontend's log-mel, on a config that is
+    not ct_eligible (n_fft = 400): on the card it must launch the rows kernel
+    in librosa mode exactly once (its dense design, as 400 is no power of
+    two), the log-mel kernel never, and match the plain log_mel."""
+    from audiossl_tpu_torch.frontend import fused_stft, logmel_features
+    from audiossl_tpu_torch.frontend.stft import LogMelConfig, log_mel
+
+    cfg = LogMelConfig(n_fft=400, hop=160)
+    w = torch.from_numpy((0.5 * np.random.default_rng(13).standard_normal((64, CLIP))).astype(np.float32)).to(dev)
+    fused_stft.fused_rows.launches.update(dict.fromkeys(fused_stft.ROW_MODES, 0))
+    fused_stft.log_mel_fused.launches = 0
+    got = logmel_features(w, cfg)
+    torch.cuda.synchronize()
+    counts, log_mel_launches = dict(fused_stft.fused_rows.launches), fused_stft.log_mel_fused.launches
+    want = log_mel(w, cfg)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"logmel_features at n_fft=400: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+    err = float((got - want).abs().max())
+    print(f"dispatcher: logmel_features, LogMelConfig(n_fft=400, hop=160), [64, {CLIP}] on the card: rows kernel "
+          f"launches {counts}, log-mel kernel launches {log_mel_launches}; max|d| vs plain = {err:.3e} (tol {TOL_KERNEL})")
+    if counts != {"kaldi": 0, "librosa": 1} or log_mel_launches != 0:
+        raise RuntimeError(f"logmel_features at n_fft=400 did not launch the rows kernel once: {counts}, {log_mel_launches}")
+    if not err <= TOL_KERNEL:
+        raise RuntimeError(f"logmel_features at n_fft=400 disagrees with the plain log_mel: {err}")
+    return {"launches": counts["librosa"], "max_abs_err": err}
+
+
+def attention_determinism(dev) -> None:
+    """Each backward kernel twice on the same bf16 inputs at two MAST-B
+    shapes (the dk/dv kernel splits its query rows at the first): the bits
+    must be equal."""
+    from audiossl_tpu_torch.ops import attention as A
+
+    for bh, lq, grid in ((128, 1212, (26, 3)), (256, 306, (51, 6))):
+        d = 96
+        q, k, v, bias, do = attention_case(bh, lq, grid, None, d, torch.bfloat16, dev, seed=bh + lq)
+        qs = A.scale_q(q, d**-0.5)
+        first = A.rel_attention_bwd_dq(qs, k, v, bias, grid, d**-0.5, do)
+        second = A.rel_attention_bwd_dq(qs, k, v, bias, grid, d**-0.5, do)
+        kv = [A.rel_attention_bwd_dkv(qs, k, v, bias, grid, do, first[2]) for _ in range(2)]
+        torch.cuda.synchronize()
+        same_dq = all(torch.equal(a, b) for a, b in zip(first, second))
+        same_dkv = all(torch.equal(a, b) for a, b in zip(*kv))
+        print(f"determinism [{bh}, {lq}, {grid[0] * grid[1]}] bf16: dq/dbias/stats equal bits {same_dq}, "
+              f"dk/dv equal bits {same_dkv}")
+        if not (same_dq and same_dkv):
+            raise RuntimeError(f"a backward attention kernel gave other bits on a second run at [{bh}, {lq}]")
+
+
 def ssmast_wavs(tmp: str, wav, n_rows: int) -> str:
     """16 synthetic 10.5 s WAVs (two sines in noise) and a manifest of
     ``n_rows`` rows cycling over them."""
@@ -1002,9 +1065,10 @@ def attention_times(dev, card) -> dict[str, dict]:
 
 
 def rows_times(dev, card) -> dict[str, dict]:
-    """The dense-rows kernel on prepared frame rows in both modes, its plain
+    """The rows kernel on prepared frame rows in both modes, its plain
     version and a torch.fft.rfft composition of the same function (the
-    library yardstick): Kaldi at [64, 160000], librosa at [256, 15200]."""
+    library yardstick), each a CUDA graph replay (graph_ms): Kaldi at
+    [64, 160000], librosa at [256, 15200]."""
     from audiossl_tpu_torch import no_tf32
     from audiossl_tpu_torch.frontend import fbank, fused_stft
     from audiossl_tpu_torch.frontend.stft import EPS32, EPS64, LogMelConfig, frame_signal
@@ -1016,38 +1080,35 @@ def rows_times(dev, card) -> dict[str, dict]:
     kframes = fbank.frame_rows(w, kcfg).reshape(-1, kcfg.window_size).contiguous()
     w = torch.from_numpy((0.5 * rng.standard_normal((SERVE_BATCH, CLIP))).astype(np.float32)).to(dev)
     lframes = frame_signal(w, lcfg.n_fft, lcfg.hop, lcfg.center).reshape(-1, lcfg.n_fft).contiguous()
-    kwin = torch.from_numpy(fbank.hanning_sym(kcfg.window_size)).to(dev)
-    lwin = torch.hann_window(lcfg.n_fft, periodic=True, device=dev)
-    for name, mode, cfg, frames, win, nfft in (("fused_rows_kaldi", "kaldi", kcfg, kframes, kwin, kcfg.padded_window),
-                                               ("fused_rows_librosa", "librosa", lcfg, lframes, lwin, lcfg.n_fft)):
-        bank, mel_t, _, _ = fused_stft._rows_constants(cfg, frames.device)
+    for name, mode, cfg, frames in (("fused_rows_kaldi", "kaldi", kcfg, kframes),
+                                    ("fused_rows_librosa", "librosa", lcfg, lframes)):
+        c = fused_stft._rows_constants(cfg, frames.device)
+        nfft = c.n
 
-        def library(frames=frames, win=win, nfft=nfft, mel_t=mel_t, mode=mode):
-            spec = torch.fft.rfft(frames * win, n=nfft)
+        def library(frames=frames, c=c, mode=mode):
+            spec = torch.fft.rfft(frames * c.window, n=c.n)
             power = spec.real.square() + spec.imag.square()
             if mode == "kaldi":
-                return torch.log(torch.clamp_min(power @ mel_t, EPS32))
-            return torch.log((power + EPS64) @ mel_t + EPS32)
+                return torch.log(torch.clamp_min(power @ c.mel_t, EPS32))
+            return torch.log((power + EPS64) @ c.mel_t + EPS32)
 
         with no_tf32():
-            lib_err = float((library() - fused_stft.fused_rows_plain(frames, bank, mel_t, mode)).abs().max())
-            ms = cuda_ms(lambda: fused_stft.fused_rows(frames, cfg, mode))
-            plain_ms = cuda_ms(lambda: fused_stft.fused_rows_plain(frames, bank, mel_t, mode), iters=5)
-            library_ms = cuda_ms(library)
+            lib_err = float((library() - fused_stft.fused_rows_plain(frames, c.bank, c.mel_t, mode)).abs().max())
+            ms = graph_ms(lambda: fused_stft.fused_rows(frames, cfg, mode))
+            plain_ms = graph_ms(lambda: fused_stft.fused_rows_plain(frames, c.bank, c.mel_t, mode), iters=5)
+            library_ms = graph_ms(library)
         rows, width = frames.shape
-        n_bins, n_mels = mel_t.shape
-        nnz = int(torch.count_nonzero(mel_t))
+        n_bins, n_mels = c.mel_t.shape
+        nnz = int(torch.count_nonzero(c.mel_t))
         flops = rows * (width + 2.5 * nfft * math.log2(nfft) + 3 * n_bins + 2 * nnz + 2 * n_mels)
         nbytes = 4 * rows * (width + n_mels)
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-        design = 2.0 * rows * width * 2 * n_bins
-        print(f"[{card}] {name} [{rows}, {width}] rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"(torch.fft.rfft composition) {library_ms:.4f} ms (max|d| vs plain {lib_err:.2e}); bound "
-              f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, function {flops / 1e9:.3f} "
-              f"GFLOP -> {t_ops:.4f} ms); the dense design does {design / 1e9:.2f} GFLOP -> {design / PEAK_F32 * 1e3:.4f} ms")
+        print(f"[{card}] {name} [{rows}, {width}] rows, {nfft}-point FFT design: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (torch.fft.rfft composition) {library_ms:.4f} ms (max|d| vs plain "
+              f"{lib_err:.2e}); bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
+              f"function {flops / 1e9:.3f} GFLOP -> {t_ops:.4f} ms); all CUDA graph replays")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms,
-                     "design_gflop": design / 1e9}
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms}
     return out
 
 

@@ -181,6 +181,41 @@ def test_attention_kernels_match_plain(cuda, dtype, bh, lq, grid, d):
     torch.testing.assert_close(stats, want_st, rtol=1e-5, atol=1e-5)
 
 
+# MAST-B's attention shapes at B = 64, two views in one pass (chip_smoke.py's
+# MAST_ATTN), then a ragged Lq, the 13 x 2 grid at a small batch and the no-bias mode
+MAST_BWD_SHAPES = [(128, 1212, (26, 3)), (256, 306, (51, 6)), (256, 306, (26, 3)), (512, 78, (51, 6)),
+                   (512, 78, (26, 3)), (1024, 26, (26, 3)), (1024, 26, (13, 2)),
+                   (5, 1001, (26, 3)), (7, 93, (13, 2)), (6, 300, None)]
+
+
+@pytest.mark.parametrize("bh,lq,grid", MAST_BWD_SHAPES)
+def test_attention_backward_bf16_tensor_core_kernels(cuda, bh, lq, grid):
+    """Both backward kernels in bf16 (the tensor-core design) against their
+    plain versions within 4 bf16 ulps of max|ref|, the row statistics within
+    1e-5, and two runs bit for bit."""
+    from audiossl_tpu_torch.ops import attention as A
+
+    d = 96
+    q, k, v, bias, do = _attn_inputs(bh, lq, grid, d, torch.bfloat16, cuda, seed=lq)
+    qs = A.scale_q(q, d**-0.5)
+    runs = []
+    for _ in range(2):
+        dq, dbias, stats = A.rel_attention_bwd_dq(qs, k, v, bias, grid, d**-0.5, do)
+        dk, dv = A.rel_attention_bwd_dkv(qs, k, v, bias, grid, do, stats)
+        torch.cuda.synchronize()
+        runs.append([dq, dk, dv, stats] + ([dbias] if grid else []))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    dq, dk, dv, stats = runs[0][:4]
+    want_dq, want_db, want_st = A.attention_bwd_dq_plain(qs, k, v, bias, grid, d**-0.5, do)
+    want_dk, want_dv = A.attention_bwd_dkv_plain(qs, k, v, bias, grid, do, stats)  # the kernel's own statistics
+    torch.testing.assert_close(stats, want_st, rtol=1e-5, atol=1e-5)
+    for name, got, want in zip(("dq", "dk", "dv", "dbias"), runs[0][:3] + runs[0][4:], [want_dq, want_dk, want_dv, want_db]):
+        assert got.dtype == want.dtype and got.shape == want.shape and torch.isfinite(got.float()).all(), name
+        ref = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= 4 * _bf16_ulp(ref), name
+
+
 def test_attention_function_on_the_card_matches_cpu(cuda):
     from audiossl_tpu_torch.ops import attention as A
 
@@ -212,6 +247,9 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     short, long = torch.zeros((8, 8, 96), device=cuda), torch.zeros((8, 4000, 96), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         A.rel_attention_fwd(short, long, long, None, None)
+    odd = torch.zeros((2, 16, 20), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        A.rel_attention_bwd_dq(odd, odd, odd, None, None, 0.1, odd)
     assert A.rel_attention_fwd(q, k, v, bias, A.rel_expand_matrix(3, 4)).shape == q.shape  # the checked matrix
 
 
@@ -241,6 +279,37 @@ def test_fused_rows_librosa_matches_plain(cuda, n):
     want = log_mel(w)
     torch.cuda.synchronize()
     assert fused_stft.fused_rows.launches["librosa"] == before + 1
+    assert got.shape == want.shape and float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("cfg,n", [(LogMelConfig(n_fft=400), 8000), (LogMelConfig(n_fft=600, hop=100, n_mels=40), 5000),
+                                   (LogMelConfig(n_fft=512, hop=128, n_mels=40), 5000),
+                                   (LogMelConfig(n_fft=2048, hop=512, n_mels=128), 20000)])
+def test_fused_rows_other_widths_match_plain(cuda, cfg, n):
+    """Widths that are not a power of two take the dense design, the others
+    the FFT design (odd log2(N/2) at 512, a larger N at 2048)."""
+    w = torch.from_numpy((0.5 * np.random.default_rng(n).standard_normal((2, n))).astype(np.float32)).to(cuda)
+    before = fused_stft.fused_rows.launches["librosa"]
+    got = fused_stft.log_mel_dense_fused(w, cfg)
+    want = log_mel(w, cfg)
+    torch.cuda.synchronize()
+    assert fused_stft.fused_rows.launches["librosa"] == before + 1
+    assert got.shape == want.shape and float((got - want).abs().max()) <= 1e-3
+
+
+def test_logmel_features_sends_other_widths_to_the_rows_kernel(cuda):
+    """A config that is not ct_eligible (n_fft = 400) runs the rows kernel in
+    librosa mode on a CUDA tensor, never the plain version."""
+    from audiossl_tpu_torch.frontend import logmel_features
+
+    cfg = LogMelConfig(n_fft=400, hop=160)
+    w = torch.from_numpy((0.5 * np.random.default_rng(3).standard_normal((4, 15200))).astype(np.float32)).to(cuda)
+    before = dict(fused_stft.fused_rows.launches), fused_stft.log_mel_fused.launches
+    got = logmel_features(w, cfg)
+    torch.cuda.synchronize()
+    assert fused_stft.fused_rows.launches == {**before[0], "librosa": before[0]["librosa"] + 1}
+    assert fused_stft.log_mel_fused.launches == before[1]
+    want = log_mel(w, cfg)
     assert got.shape == want.shape and float((got - want).abs().max()) <= 1e-3
 
 

@@ -245,6 +245,24 @@ class TestFbank:
         bank, mel_t = tfb.fbank_constants(tfb.FbankConfig())
         assert bank.shape == (400, 2 * 257) and mel_t.shape == (257, 128) and not mel_t[-1].any()  # Nyquist column
 
+    def test_logmel_features_routes_other_widths_to_the_rows_kernel(self):
+        """n_fft = 400 is not ct_eligible: on a CUDA tensor logmel_features
+        launches the rows kernel in librosa mode (the dense design), whose
+        TPU counterpart is log_mel_fused. On the CPU it is the plain version;
+        both JAX functions agree with it."""
+        from audiossl_tpu_torch.frontend import logmel_features
+
+        cfg, jcfg = LogMelConfig(n_fft=400, hop=160), JaxLogMelConfig(n_fft=400, hop=160)
+        assert not fused_stft.ct_eligible(cfg) and not fused_stft.fft_width(fused_stft.rows_constants(cfg).n)
+        waves = _waves(2, n=8000)
+        before = dict(fused_stft.fused_rows.launches)
+        got = logmel_features(torch.from_numpy(waves), cfg).numpy()
+        assert fused_stft.fused_rows.launches == before  # no kernel launch on the CPU
+        for ref in (np.asarray(jax_log_mel(jnp.asarray(waves), jcfg)),
+                    np.asarray(pallas_stft.log_mel_fused(jnp.asarray(waves), jcfg, frames_per_tile=64, interpret=True))):
+            assert got.shape == ref.shape == (2, 64, 51)
+            assert np.abs(got - ref).max() <= self._ref_tol(ref)
+
     def test_fused_rows_wrappers_refuse_what_the_kernel_does_not_take(self):
         from audiossl_tpu_torch.frontend.fbank import FbankConfig
 
@@ -254,3 +272,101 @@ class TestFbank:
             fused_stft.fused_rows(torch.zeros((4, 400)), FbankConfig(), "kaldi")  # the kernel takes card tensors only
         with pytest.raises(ValueError, match="mode"):
             fused_stft.fused_rows_plain(torch.zeros((1, 400)), torch.zeros((400, 514)), torch.zeros((257, 128)), "htk")
+
+
+def _emulate_fft_rows(frames: np.ndarray, cfg, mode: str) -> np.ndarray:
+    """f32 NumPy model of csrc/fused_rows.cu's FFT design, from the
+    constants the wrapper hands it (fused_stft.rows_constants): window, pack
+    even/odd samples as M = N/2 complex points, radix-4 Stockham passes (a
+    radix-2 pass last where log2 M is odd) with the f32 twiddle table, the
+    split post-pass X[k] = E + W_N^k O, power, the bins below n_dense from
+    the dense design's arithmetic, each filter over its packed nonzero
+    weights, and the mode's log."""
+    c = fused_stft.rows_constants(cfg)
+    n, m = c.n, c.n // 2
+    tw = (c.twiddle[:, 0] + 1j * c.twiddle[:, 1]).astype(np.complex64)
+    x = np.zeros((frames.shape[0], n), np.float32)
+    x[:, : frames.shape[1]] = frames * c.window
+    z = (x[:, 0::2] + 1j * x[:, 1::2]).astype(np.complex64)
+
+    def stockham(z, ns, radix):
+        q = m // radix
+        j = np.arange(q)
+        k = j & (ns - 1)
+        a = [z[:, j + r * q] * (tw[r * k * (n // (radix * ns))] if r else 1) for r in range(radix)]
+        if radix == 4:
+            t0, t1, t2, t3 = a[0] + a[2], a[0] - a[2], a[1] + a[3], a[1] - a[3]
+            y = [t0 + t2, t1 - 1j * t3, t0 - t2, t1 + 1j * t3]
+        else:
+            y = [a[0] + a[1], a[0] - a[1]]
+        out = np.empty_like(z)
+        for r in range(radix):
+            out[:, (j - k) * radix + k + r * ns] = y[r]
+        return out.astype(np.complex64)
+
+    ns, passes = 1, []
+    while ns * 4 <= m:
+        z, ns = stockham(z, ns, 4), ns * 4
+        passes.append(4)
+    if ns < m:
+        z, ns = stockham(z, ns, 2), ns * 2
+        passes.append(2)
+    assert ns == m and passes == [4] * int(math.log2(m) // 2) + [2] * int(math.log2(m) % 2)
+    k = np.arange(m + 1)
+    zk, zc = z[:, k & (m - 1)], np.conj(z[:, (m - k) & (m - 1)])
+    spec = np.complex64(0.5) * (zk + zc) + tw[k] * ((zk - zc) * np.complex64(-0.5j))
+    power = (spec.real**2 + spec.imag**2).astype(np.float32)
+    # bins below n_dense: the dense design's arithmetic, an FMA chain over the
+    # taps against the window-folded bank (each step exact in float64, then rounded)
+    if c.n_dense:
+        acc = np.zeros((frames.shape[0], 2 * c.n_dense), np.float32)
+        cols = c.bank[:, np.r_[0 : c.n_dense, n // 2 + 1 : n // 2 + 1 + c.n_dense]].astype(np.float64)
+        for t in range(frames.shape[1]):
+            acc = (acc + frames[:, t : t + 1].astype(np.float64) * cols[t]).astype(np.float32)
+        power[:, : c.n_dense] = acc[:, : c.n_dense] ** 2 + acc[:, c.n_dense :] ** 2
+    mel = np.zeros((frames.shape[0], len(c.mel_range)), np.float32)
+    for i, (lo, hi) in enumerate(c.mel_range):
+        w = c.fb_packed[c.mel_off[i]: c.mel_off[i] + hi - lo]
+        p = power[:, lo:hi] + (np.float32(EPS64) if mode == "librosa" else np.float32(0))
+        mel[:, i] = p @ w
+    if mode == "librosa":
+        return np.log(mel + np.float32(EPS32))
+    return np.log(np.maximum(mel, np.float32(EPS32)))
+
+
+@pytest.mark.parametrize(
+    "kind,n",
+    [("kaldi", 16000), ("kaldi", 12345), ("librosa", 15200), ("librosa", 4000), ("librosa-512", 4000)],
+)
+def test_fft_rows_model_matches_plain_and_jax(kind, n):
+    """The FFT design (N = 512 for Kaldi's 400-sample rows, 1024 for librosa;
+    N = 512 with an odd log2(N/2), so a radix-2 pass) against the plain
+    version on the same frames and against the JAX package's fused rows
+    kernel in interpret mode, all within 1e-4 of max(1, max|ref|)."""
+    from audiossl_tpu.frontend.fbank import FbankConfig as JaxFbankConfig
+    from audiossl_tpu_torch.frontend import fbank as tfb
+    from audiossl_tpu_torch.frontend.stft import frame_signal
+
+    waves = _waves(2, n)
+    wt = torch.from_numpy(waves)
+    if kind == "kaldi":
+        cfg = tfb.FbankConfig()
+        frames = tfb.frame_rows(wt, cfg)
+        ref = np.asarray(pallas_stft.kaldi_fbank_fused(jnp.asarray(waves), JaxFbankConfig(), interpret=True))
+        mode, shape = "kaldi", (2, frames.shape[1], cfg.num_mel_bins)
+    else:
+        cfg = LogMelConfig() if kind == "librosa" else LogMelConfig(n_fft=512, hop=128, n_mels=40)
+        jcfg = JaxLogMelConfig(n_fft=cfg.n_fft, hop=cfg.hop, n_mels=cfg.n_mels)
+        frames = frame_signal(wt, cfg.n_fft, cfg.hop, cfg.center)
+        ref = np.asarray(pallas_stft.log_mel_fused(jnp.asarray(waves), jcfg, frames_per_tile=64, interpret=True))
+        ref = np.swapaxes(ref, -1, -2)
+        mode, shape = "librosa", (2, frames.shape[1], cfg.n_mels)
+    rows = frames.reshape(-1, frames.shape[-1]).contiguous()
+    c = fused_stft.rows_constants(cfg)
+    assert fused_stft.fft_width(c.n) and c.n == (512 if kind != "librosa" else 1024)
+    assert c.n_dense == (32 if kind == "kaldi" else 0)
+    got = _emulate_fft_rows(rows.numpy(), cfg, mode)
+    plain = fused_stft.fused_rows_plain(rows, torch.from_numpy(c.bank), torch.from_numpy(c.mel_t), mode).numpy()
+    for want in (plain, ref.reshape(-1, shape[-1])):
+        assert got.shape == want.shape == (shape[0] * shape[1], shape[2])
+        assert np.abs(got - want).max() <= TOL_JAX * max(1.0, float(np.abs(want).max()))
