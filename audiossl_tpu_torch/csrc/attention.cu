@@ -33,7 +33,8 @@
 // Two designs.
 //
 // f32 (the parity path): every product is f32 FFMA on f32 values, the
-// counterpart of the JAX package's HIGHEST path; no TF32. One block of 256 threads (8 warps). The forward stages k transposed
+// counterpart of the JAX package's HIGHEST path; no TF32. One block of 256
+// threads (8 warps). The forward (attn_fwd_kernel) stages k transposed
 // ([D][Lk | 1], odd stride: conflict-free both along keys and along D), its
 // q-tile transposed and the tile's bias rows in shared memory; a thread
 // computes the scores of one key for 8 query rows (float4 loads of the q
@@ -41,25 +42,36 @@
 // and a warp computes 4 (or fewer) output rows, lanes over D. The q-tile is
 // 32, 16 or 8 rows, whichever fits beside k (or v) and the score tile in the
 // 227 KB of shared memory; keys longer than that raise in the wrapper. The
-// dk/dv kernel takes 32 keys a block, one a lane. D <= 128. The forward runs
-// this design in bf16 too; in bf16 the backward takes D % 8 == 0 only
-// (every MViT and ViT head width) and raises for shapes its shared memory
-// does not hold.
+// dk/dv kernel takes 32 keys a block, one a lane. D <= 128. In bf16 the
+// forward keeps this kernel only where the tensor-core forward does not take
+// the shape (D % 8 != 0, or keys that do not fit its shared memory); the
+// bf16 backward takes D % 8 == 0 only (every MViT and ViT head width) and
+// raises for shapes its shared memory does not hold.
 //
-// bf16 backward (the SS-MAST path): mma.sync.m16n8k16 bf16 x bf16 -> f32 on
-// the tensor cores, operands from shared memory through ldmatrix (.trans
-// where the product reads a matrix along its rows), staged with cp.async; D
-// is zero-padded to 32, 64, 96 or 128, keys to 16 (a padded key gets p = 0
-// and ds = 0), queries are masked. In bf16 the JAX kernel rounds p and ds to
-// bf16 and accumulates in f32 (default MXU precision), which is what the
-// tensor cores compute; only the order of the sums changes.
-//   attn_bwd_dq_mma: one block of 4 warps (keys <= 128) or 8 per (b*h, 16
-//     query rows a warp), whose q and dO fragments stay in registers; k and
-//     v stay in shared memory. Two passes over the keys, 16 at a time: the
-//     row max, the row sum and rowsum(dp p), online (both sums rescaled as
-//     the max grows), then ds -> dbias (each lane owns the height or the
-//     width sums of one row: deterministic) and dq += round(ds) k with ds's
-//     C fragments re-used as the A operand.
+// bf16 (the SS-MAST path): mma.sync.m16n8k16 bf16 x bf16 -> f32 on the
+// tensor cores, operands from shared memory through ldmatrix (.trans where
+// the product reads a matrix along its rows), staged with cp.async; D is
+// zero-padded to 32, 64, 96 or 128, keys to 16 (a padded key scores -inf, so
+// p = 0 and ds = 0), queries are masked. In bf16 the JAX kernel computes p
+// in f32 over the whole row, rounds p and ds to bf16 and accumulates in f32
+// (default MXU precision), which is what the tensor cores compute; only the
+// order of the sums changes.
+//   attn_fwd_mma: one block of 4 warps (keys <= 128) or 8 per (b*h, 16 query
+//     rows a warp), whose qs fragments stay in registers; k and v stay in
+//     shared memory (v's copy lands while pass A runs). Two passes over the
+//     keys, 16 at a time: the row max and sum, online, then p = exp(s - m) /
+//     l rounded to bf16 (normalised before the rounding, as in JAX: a
+//     flash-style exp(s - m_running) rescaled after the product would round
+//     other values) and out += round(p) v with p's C fragments re-used as the
+//     A operand. Out goes through shared memory in 16-byte stores. At Lk =
+//     306 (D = 96) k, v, the q tile and the bias tile take 186 KB: one block
+//     of 8 warps an SM; at Lk = 78, 53 KB: four blocks of 4 warps.
+//   attn_bwd_dq_mma: the same block shape, with q and dO fragments in
+//     registers. Two passes over the keys, 16 at a time: the row max, the
+//     row sum and rowsum(dp p), online (both sums rescaled as the max grows),
+//     then ds -> dbias (each lane owns the height or the width sums of one
+//     row: deterministic) and dq += round(ds) k with ds's C fragments re-used
+//     as the A operand. Its pass A is the forward's pass A with dp beside it.
 //   attn_bwd_dkv_mma: one block of 4-8 warps per (b*h, 16 keys a warp,
 //     query split); dk and dv stay in registers across the loop over 32-row
 //     query tiles, whose q and dO are double-buffered with cp.async and whose
@@ -74,12 +86,14 @@
 // D = 96) the forward moves, e.g. at (BH, Lq, Lk) = (128, 1212, 78), 72.4 MB
 // of q, k, v, bias and out in bf16 (21.6 us at 3.35 TB/s) for 4.6 GFLOP of
 // products (4.7 us at 989 TFLOP/s bf16): bound by bytes (chip_smoke.py's
-// attention_bound computes it for every shape). Over one SS-MAST step the
-// backward kernels' bytes bound is 0.3864 ms (dq) and 0.4083 ms (dk/dv), their
-// products 70.7 and 94.3 GFLOP, 0.072 and 0.095 ms at the bf16 rate: bound by
-// bytes. The forward runs on the f32 pipe (67 TFLOP/s, 69 us for those
-// products) and rereads k and v from L2 for every q-tile; the same bf16 tiles
-// are the way closer.
+// attention_bound computes it for every shape). Over one SS-MAST step (48
+// forward launches) the forward moves 1.92 GB, 0.572 ms, for 94.3 GFLOP of
+// products, 0.095 ms at the bf16 rate (1.41 ms on the f32 FFMA pipe): bound
+// by bytes. The backward kernels' bytes bound is 0.3864 ms (dq) and 0.4083 ms
+// (dk/dv) a step, their products 70.7 and 94.3 GFLOP, 0.072 and 0.095 ms at
+// the bf16 rate: bound by bytes. The tensor-core kernels recompute the
+// scores once (the forward and dq) and reread k and v from L2 for every
+// block of query rows, which is where they spend their time beyond the bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -442,7 +456,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* 
     }
 }
 
-// ---------------------------------------------------------------- bf16 backward on tensor cores
+// ---------------------------------------------------------------- bf16 on tensor cores
 //
 // Fragments of mma.sync.m16n8k16 (PTX ISA), lane = 4 g + t: A (16 x 16,
 // row-major) a0 = (row g, cols 2t, 2t+1), a1 = (g + 8, same), a2 = (g, 2t + 8,
@@ -453,7 +467,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* 
 // of an ldmatrix land in eight different bank groups.
 
 constexpr int kPad = 8;        // bf16 elements of padding per shared-memory row
-constexpr int kDqKeysSmall = 128;  // dq kernel: 4 warps x 16 query rows per block up to these keys, else 8
+constexpr int kDqKeysSmall = 128;  // forward and dq: 4 warps x 16 query rows per block up to these keys, else 8
 constexpr int kDkvQ = 32;      // dk/dv kernel: query rows per step of its loop
 constexpr int kPrefetch = 8;   // dk/dv kernel: bias / statistics values a thread prefetches per step
 
@@ -541,17 +555,76 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-// Warps (16 query rows each) per block of the dq kernel: 4 for short keys,
-// where k and v are small and more blocks fit on an SM; 8 for long keys,
-// where one block fills the shared memory and should keep 8 warps busy.
-__host__ __device__ inline int dq_warps(int lk) { return lk <= kDqKeysSmall ? 4 : 8; }
+// Warps (16 query rows each) per block of the forward and the dq kernel: 4
+// for short keys, where k and v are small and more blocks fit on an SM; 8 for
+// long keys, where one block fills the shared memory and should keep 8 warps
+// busy.
+__host__ __device__ inline int mma_row_warps(int lk) { return lk <= kDqKeysSmall ? 4 : 8; }
+
+// The bias tile of `rows` query rows from q0 of head bh as f32 [rows][kb]
+// (zeros past lq), 8 loads in flight a thread, and each key's two bias
+// columns kidx[j] = (j / kw) | ((kh + j % kw) << 16) for j < lkp (0 past lk).
+__device__ __forceinline__ void stage_bias(float* bs, int* kidx, const __nv_bfloat16* __restrict__ bias, int bh, int lq,
+                                           int q0, int rows, int lk, int lkp, int kh, int kw) {
+    const int kb = kh + kw;
+    if (kb == 0) return;
+    const __nv_bfloat16* b = bias + (static_cast<long long>(bh) * lq + q0) * kb;
+    const int nb = rows * kb, nvalid = (lq - q0 < rows ? lq - q0 : rows) * kb;
+    for (int base = threadIdx.x; base < nb; base += 8 * blockDim.x) {
+        float r[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int idx = base + i * blockDim.x;
+            r[i] = idx < nvalid ? __bfloat162float(b[idx]) : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+            if (base + i * blockDim.x < nb) bs[base + i * blockDim.x] = r[i];
+    }
+    for (int j = threadIdx.x; j < lkp; j += blockDim.x) kidx[j] = j < lk ? (j / kw) | ((kh + j % kw) << 16) : 0;
+}
+
+// The scores of the 16 keys kc .. kc + 15 for a warp's rows g and g + 8 (C
+// fragments of two n-tiles): qs k^T from the warp's q fragments and k in
+// shared memory ([lkp][ld]), plus the decomposed bias from the rows brow[0]
+// and brow[1] of the bias tile; keys past lk score -inf.
+template <int KD>
+__device__ __forceinline__ void score_chunk(float (&s)[2][4], const unsigned (&qf)[KD][4], const __nv_bfloat16* ks, int ld,
+                                            int kc, int lk, int kb, const int* kidx, const float* const (&brow)[2],
+                                            int lane) {
+    const int t = lane & 3;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+    for (int st = 0; st < KD; ++st) {
+        unsigned b[4];
+        ldsm_x4(b, bt_addr(ks, ld, kc, st * 16, lane));
+        mma_bf16(s[0], qf[st], b[0], b[1]);
+        mma_bf16(s[1], qf[st], b[2], b[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int j = kc + 8 * n + 2 * t + (e & 1);
+            if (j >= lk) {
+                s[n][e] = __int_as_float(0xff800000);
+            } else if (kb > 0) {
+                const int ix = kidx[j];
+                const float* br = brow[e >> 1];
+                s[n][e] += br[ix & 0xffff] + br[ix >> 16];
+            }
+        }
+}
 
 // Shared memory of the dq kernel at head width dp = 16 KD: k and v [lkp][dp +
 // kPad], then one region that first holds the q and dO tiles [16 warps][dp +
 // kPad] and then, per warp, ds of a 16-key chunk [16][17] f32 and the dbias
 // sums [16][kb] f32; the bias tile [16 warps][kb] f32; each key's two bias columns.
 __host__ __device__ inline int dq_mma_smem(int lk, int dp, int kb) {
-    const int warps = dq_warps(lk);
+    const int warps = mma_row_warps(lk);
     const int lkp = round_up(lk, 16), ld = dp + kPad, rows = 16 * warps;
     const int tiles = 2 * 2 * rows * ld;
     const int scratch = 4 * warps * 16 * (17 + kb);
@@ -564,6 +637,125 @@ __host__ __device__ inline int dq_mma_smem(int lk, int dp, int kb) {
 __host__ __device__ inline int dkv_mma_smem(int warps, int dp, int kb) {
     const int ld = dp + kPad;
     return 2 * 2 * 16 * warps * ld + 2 * 2 * 2 * kDkvQ * ld + 2 * 4 * kDkvQ * (kb + 3);
+}
+
+// Shared memory of the forward at head width dp = 16 KD: k and v [lkp][dp +
+// kPad], the q tile [16 warps][dp + kPad] (each warp's rows then stage its
+// output), the bias tile [16 warps][kb] f32 and each key's two bias columns.
+__host__ __device__ inline int fwd_mma_smem(int lk, int dp, int kb) {
+    const int lkp = round_up(lk, 16), ld = dp + kPad, rows = 16 * mma_row_warps(lk);
+    return 2 * 2 * lkp * ld + 2 * rows * ld + round_up(4 * rows * kb, 16) + 4 * lkp;
+}
+
+// The forward, bf16 operands on the tensor cores. One block of WARPS warps
+// per (b*h, 16 WARPS query rows), a warp per 16 rows whose qs fragments stay
+// in registers; k and v stay in shared memory for the whole block (v's copy
+// lands while pass A runs). Each warp makes two passes over the keys in
+// chunks of 16: (A) the scores (bias added into the C fragments) -> the row
+// max and the row sum, online (the sum rescaled when the max grows); (B) the
+// scores again -> p = exp(s - m) / l, normalised before it is rounded to
+// bf16 as the JAX kernel rounds it, and out += round(p) v with p's C
+// fragments re-used as the A operand and v read through ldmatrix.trans. The
+// output goes out through shared memory in 16-byte stores.
+template <int KD, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+attn_fwd_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ bias, int lq, int lk, int d, int kh,
+             int kw, int tiles, __nv_bfloat16* __restrict__ out) {
+    constexpr int DP = 16 * KD, LD = DP + kPad, ROWS = 16 * WARPS;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int kb = kh + kw, lkp = round_up(lk, 16);
+    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+    __nv_bfloat16* vs = ks + lkp * LD;
+    __nv_bfloat16* qt = vs + lkp * LD;
+    float* bs = reinterpret_cast<float*>(qt + ROWS * LD);
+    int* kidx = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(bs) + round_up(4 * ROWS * kb, 16));
+    const int bh = blockIdx.x / tiles;
+    const int q0 = (blockIdx.x % tiles) * ROWS;
+    const long long kbase = static_cast<long long>(bh) * lk * d;
+    const long long qbase = static_cast<long long>(bh) * lq * d;
+
+    stage_rows(ks, LD, k + kbase, lk, 0, lkp, d, DP);
+    stage_rows(qt, LD, qs + qbase, lq, q0, ROWS, d, DP);
+    cp_async_commit();
+    stage_rows(vs, LD, v + kbase, lk, 0, lkp, d, DP);
+    cp_async_commit();
+    stage_bias(bs, kidx, bias, bh, lq, q0, ROWS, lk, lkp, kh, kw);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // k and q are in; v may still be on its way
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + warp * 16;
+    const bool active = r0 < lq;
+    unsigned qf[KD][4];
+#pragma unroll
+    for (int s = 0; s < KD; ++s) ldsm_x4(qf[s], a_addr(qt, LD, warp * 16, s * 16, lane));
+    const float* const brow[2] = {bs + (warp * 16 + g) * kb, bs + (warp * 16 + g + 8) * kb};
+
+    // (A) row max and row sum, online
+    float m[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)}, l[2] = {0.0f, 0.0f};
+    for (int kc = 0; active && kc < lkp; kc += 16) {
+        float s[2][4];
+        score_chunk<KD>(s, qf, ks, LD, kc, lk, kb, kidx, brow, lane);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float cm = quad_max(fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]), fmaxf(s[1][2 * h], s[1][2 * h + 1])));
+            const float mn = fmaxf(m[h], cm);
+            float sum = l[h] * expf(m[h] - mn);
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+                for (int e = 2 * h; e < 2 * h + 2; ++e) sum += expf(s[n][e] - mn);
+            m[h] = mn;
+            l[h] = sum;
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+    cp_async_wait_all();
+    __syncthreads();  // v is in
+    if (!active) return;
+
+    // (B) out = round(p) v
+    float acc[2 * KD][4];
+#pragma unroll
+    for (int n = 0; n < 2 * KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    for (int kc = 0; kc < lkp; kc += 16) {
+        float s[2][4];
+        score_chunk<KD>(s, qf, ks, LD, kc, lk, kb, kidx, brow, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - m[e >> 1]) / l[e >> 1];
+        unsigned a[4];
+        a_from_c(a, s[0], s[1]);
+#pragma unroll
+        for (int dn = 0; dn < KD; ++dn) {
+            unsigned b[4];
+            ldsm_x4_t(b, bn_addr(vs, LD, kc, dn * 16, lane));
+            mma_bf16(acc[2 * dn], a, b[0], b[1]);
+            mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
+        }
+    }
+
+    // out through the warp's own rows of the q tile, 16 bytes a store
+    __nv_bfloat16* ot = qt + warp * 16 * LD;
+#pragma unroll
+    for (int n = 0; n < 2 * KD; ++n) {
+        const int c = 8 * n + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(ot + g * LD + c) = __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+        *reinterpret_cast<__nv_bfloat162*>(ot + (g + 8) * LD + c) = __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+    }
+    __syncwarp();
+    const int chunks = d / 8;
+    for (int idx = lane; idx < 16 * chunks; idx += 32) {
+        const int r = idx / chunks, c = (idx - r * chunks) * 8;
+        if (r0 + r < lq)
+            *reinterpret_cast<uint4*>(out + qbase + static_cast<long long>(r0 + r) * d + c) =
+                *reinterpret_cast<const uint4*>(ot + r * LD + c);
+    }
 }
 
 // dq, dbias and the row statistics, bf16 operands on the tensor cores. One
@@ -601,22 +793,7 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __res
     stage_rows(qt, LD, qs + qbase, lq, q0, ROWS, d, DP);
     stage_rows(ot, LD, dout + qbase, lq, q0, ROWS, d, DP);
     cp_async_commit();
-    if (kb > 0) {  // the bias tile, 8 loads in flight a thread
-        const __nv_bfloat16* b = bias + (static_cast<long long>(bh) * lq + q0) * kb;
-        const int nb = ROWS * kb, nvalid = (lq - q0 < ROWS ? lq - q0 : ROWS) * kb;
-        for (int base = threadIdx.x; base < nb; base += 8 * blockDim.x) {
-            float r[8];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const int idx = base + i * blockDim.x;
-                r[i] = idx < nvalid ? __bfloat162float(b[idx]) : 0.0f;
-            }
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-                if (base + i * blockDim.x < nb) bs[base + i * blockDim.x] = r[i];
-        }
-        for (int j = threadIdx.x; j < lkp; j += blockDim.x) kidx[j] = j < lk ? (j / kw) | ((kh + j % kw) << 16) : 0;
-    }
+    stage_bias(bs, kidx, bias, bh, lq, q0, ROWS, lk, lkp, kh, kw);
     cp_async_wait_all();
     __syncthreads();
 
@@ -632,35 +809,8 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __res
     if (r0 >= lq) return;
     float* dsc = reinterpret_cast<float*>(region) + warp * 16 * (17 + kb);  // [16][17]
     float* bkt = dsc + 16 * 17;                                              // [16][kb]
-    const float* brow[2] = {bs + (warp * 16 + g) * kb, bs + (warp * 16 + g + 8) * kb};
-
-    // scores of the chunk's 16 keys for rows g, g + 8 (keys past lk: -inf)
-    auto scores = [&](float (&s)[2][4], int kc) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-        for (int st = 0; st < KD; ++st) {
-            unsigned b[4];
-            ldsm_x4(b, bt_addr(ks, LD, kc, st * 16, lane));
-            mma_bf16(s[0], qf[st], b[0], b[1]);
-            mma_bf16(s[1], qf[st], b[2], b[3]);
-        }
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int j = kc + 8 * n + 2 * t + (e & 1);
-                if (j >= lk) {
-                    s[n][e] = __int_as_float(0xff800000);
-                } else if (kb > 0) {
-                    const int ix = kidx[j];
-                    const float* br = brow[e >> 1];
-                    s[n][e] += br[ix & 0xffff] + br[ix >> 16];
-                }
-            }
-    };
+    const float* const brow[2] = {bs + (warp * 16 + g) * kb, bs + (warp * 16 + g + 8) * kb};
+    auto scores = [&](float (&s)[2][4], int kc) { score_chunk<KD>(s, qf, ks, LD, kc, lk, kb, kidx, brow, lane); };
     auto dps = [&](float (&p)[2][4], int kc) {
 #pragma unroll
         for (int n = 0; n < 2; ++n)
@@ -1031,6 +1181,11 @@ bool dkv_mma_fits(int lk, int d, int kb) {
     return kDkvQ * (kb + 3) <= kPrefetch * 32 * w && dkv_mma_smem(w, dp, kb) <= kSmemLimit;
 }
 
+bool fwd_mma_fits(int lk, int d, int kb) {
+    const int dp = mma_width(d);
+    return dp && fwd_mma_smem(lk, dp, kb) <= kSmemLimit;
+}
+
 bool dq_mma_fits(int lk, int d, int kb) {
     const int dp = mma_width(d);
     return dp && dq_mma_smem(lk, dp, kb) <= kSmemLimit;
@@ -1041,6 +1196,27 @@ int sm_count() {
     if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
         return 132;
     return sms;
+}
+
+template <int KD, int WARPS>
+int fwd_mma_launch_w(const void* qs, const void* k, const void* v, const void* bias, int bh, int lq, int lk, int d,
+                     int kh, int kw, void* out, cudaStream_t stream) {
+    const int smem = fwd_mma_smem(lk, 16 * KD, kh + kw);
+    const cudaError_t err = cudaFuncSetAttribute(attn_fwd_mma<KD, WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tiles = (lq + 16 * WARPS - 1) / (16 * WARPS);
+    using B = __nv_bfloat16;
+    attn_fwd_mma<KD, WARPS><<<bh * tiles, 32 * WARPS, smem, stream>>>(
+        static_cast<const B*>(qs), static_cast<const B*>(k), static_cast<const B*>(v), static_cast<const B*>(bias), lq,
+        lk, d, kh, kw, tiles, static_cast<B*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int KD>
+int fwd_mma_launch(const void* qs, const void* k, const void* v, const void* bias, int bh, int lq, int lk, int d,
+                   int kh, int kw, void* out, cudaStream_t stream) {
+    return mma_row_warps(lk) == 4 ? fwd_mma_launch_w<KD, 4>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, stream)
+                                  : fwd_mma_launch_w<KD, 8>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, stream);
 }
 
 template <int KD, int WARPS>
@@ -1061,7 +1237,7 @@ int dq_mma_launch_w(const void* qs, const void* k, const void* v, const void* bi
 template <int KD>
 int dq_mma_launch(const void* qs, const void* k, const void* v, const void* bias, const void* dout, int bh, int lq,
                   int lk, int d, int kh, int kw, float scale, void* dq, void* dbias, float* stats, cudaStream_t stream) {
-    return dq_warps(lk) == 4
+    return mma_row_warps(lk) == 4
                ? dq_mma_launch_w<KD, 4>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, stream)
                : dq_mma_launch_w<KD, 8>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, stream);
 }
@@ -1097,16 +1273,22 @@ int prepare(Kernel kernel, int smem) {
     return 0;
 }
 
+// Query rows per block of the FFMA forward (attn_fwd_kernel): 32, 16 or 8,
+// whichever fits in shared memory, else 0.
+template <typename T>
+int fwd_ffma_rows(int lk, int d, int kb) {
+    if (fwd_smem<T, 32>(lk, d, kb) <= kSmemLimit) return 32;
+    if (fwd_smem<T, 16>(lk, d, kb) <= kSmemLimit) return 16;
+    if (fwd_smem<T, 8>(lk, d, kb) <= kSmemLimit) return 8;
+    return 0;
+}
+
 template <typename T>
 int tile_rows(int which, int lk, int d, int kb) {
-    if (sizeof(T) == 2 && which == 1) return dq_mma_fits(lk, d, kb) ? 16 * dq_warps(lk) : 0;
+    if (sizeof(T) == 2 && which == 0 && fwd_mma_fits(lk, d, kb)) return 16 * mma_row_warps(lk);
+    if (sizeof(T) == 2 && which == 1) return dq_mma_fits(lk, d, kb) ? 16 * mma_row_warps(lk) : 0;
     if (sizeof(T) == 2 && which == 2) return dkv_mma_fits(lk, d, kb) ? kDkvQ : 0;
-    if (which == 0) {
-        if (fwd_smem<T, 32>(lk, d, kb) <= kSmemLimit) return 32;
-        if (fwd_smem<T, 16>(lk, d, kb) <= kSmemLimit) return 16;
-        if (fwd_smem<T, 8>(lk, d, kb) <= kSmemLimit) return 8;
-        return 0;
-    }
+    if (which == 0) return fwd_ffma_rows<T>(lk, d, kb);
     if (which == 1) {
         if (dq_smem<T, 32>(lk, d, kb) <= kSmemLimit) return 32;
         if (dq_smem<T, 16>(lk, d, kb) <= kSmemLimit) return 16;
@@ -1165,7 +1347,9 @@ bool bad_shape(int bh, int lq, int lk, int d, int kh, int kw) {
 
 // Query rows per block that kernel `which` (0 forward, 1 dq/dbias, 2 dk/dv)
 // takes for these keys, head width and bias width, in bf16 (1) or f32 (0);
-// 0 when the keys do not fit in shared memory.
+// 0 when the keys do not fit in shared memory. In bf16 the forward reports
+// attn_fwd_mma's rows (64 or 128) where it takes the shape, else the FFMA
+// kernel's.
 extern "C" int audiossl_attn_tile(int which, int lk, int d, int kb, int bf16) {
     return bf16 ? tile_rows<__nv_bfloat16>(which, lk, d, kb) : tile_rows<float>(which, lk, d, kb);
 }
@@ -1178,7 +1362,16 @@ extern "C" int audiossl_attn_fwd(const void* qs, const void* k, const void* v, c
                                  int lk, int d, int kh, int kw, int bf16, void* out, void* stream) {
     if (bad_shape(bh, lq, lk, d, kh, kw) || (bias == nullptr) != (kh + kw == 0)) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (audiossl_attn_tile(0, lk, d, kh + kw, bf16) * 2 + (bf16 ? 1 : 0)) {
+    if (bf16 && fwd_mma_fits(lk, d, kh + kw)) {
+        switch (mma_width(d) / 16) {
+            case 2: return fwd_mma_launch<2>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
+            case 4: return fwd_mma_launch<4>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
+            case 6: return fwd_mma_launch<6>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
+            case 8: return fwd_mma_launch<8>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
+    switch ((bf16 ? fwd_ffma_rows<__nv_bfloat16>(lk, d, kh + kw) : fwd_ffma_rows<float>(lk, d, kh + kw)) * 2 + (bf16 ? 1 : 0)) {
         case 64: return fwd_launch<float, 32>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
         case 32: return fwd_launch<float, 16>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
         case 16: return fwd_launch<float, 8>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);

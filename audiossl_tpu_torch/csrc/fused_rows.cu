@@ -37,7 +37,8 @@
 //     odd) between two re/im buffers of the warp's shared memory, separated
 //     by __syncwarp only. The split post-pass gives X[k] = E[k] + W_N^k O[k]
 //     for k = 0..M, E = (Z[k] + conj Z[M-k]) / 2, O = (Z[k] - conj Z[M-k]) / 2i,
-//     and the power. Bins below n_dense take the power of the dense
+//     and the power (the passes and the post-pass are fft_smem.cuh's, which
+//     log_mel.cu shares). Bins below n_dense take the power of the dense
 //     design's arithmetic instead (low_bins_kernel, one more launch before
 //     the FFT kernel, into a [rows, n_dense] scratch):
 //     a filter over one bin passes that bin's power on alone, and near a
@@ -65,6 +66,8 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_smem.cuh"
+
 namespace {
 
 constexpr float kEps64 = 2.220446049250313e-16f;    // np.finfo(np.float64).eps
@@ -83,52 +86,6 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // weights), then per warp two re/im buffer pairs of n / 2 points (4 x n / 2).
 __host__ __device__ inline int fft_smem_bytes(int win, int n, int nnz, int n_mels, int warps) {
     return 4 * (2 * n + round4(win) + round4(nnz) + round4(3 * n_mels) + warps * 2 * n);
-}
-
-// One pass of the Stockham FFT over the warp's m points: sub-transforms of
-// length ns become length ns * R. Reads (sr, si), writes (dr, di) in natural
-// order; tw[e] = W_n^e with n = 2m.
-template <int R>
-__device__ __forceinline__ void stockham_pass(const float* sr, const float* si, float* dr, float* di, int m, int ns,
-                                              const float2* tw, int lane) {
-    const int q = m / R;
-    const int step = 2 * m / (R * ns);  // W_{R ns}^{r k} = W_n^{r k step}
-    for (int j = lane; j < q; j += 32) {
-        const int k = j & (ns - 1);
-        float ar[R], ai[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            ar[r] = sr[j + r * q];
-            ai[r] = si[j + r * q];
-        }
-#pragma unroll
-        for (int r = 1; r < R; ++r) {
-            const float2 w = tw[r * k * step];
-            const float xr = ar[r] * w.x - ai[r] * w.y;
-            ai[r] = ar[r] * w.y + ai[r] * w.x;
-            ar[r] = xr;
-        }
-        const int o = (j - k) * R + k;
-        if (R == 4) {  // DFT_4 with W_4 = -i
-            const float t0r = ar[0] + ar[2], t0i = ai[0] + ai[2];
-            const float t1r = ar[0] - ar[2], t1i = ai[0] - ai[2];
-            const float t2r = ar[1] + ar[3], t2i = ai[1] + ai[3];
-            const float t3r = ar[1] - ar[3], t3i = ai[1] - ai[3];
-            dr[o] = t0r + t2r;
-            di[o] = t0i + t2i;
-            dr[o + ns] = t1r + t3i;
-            di[o + ns] = t1i - t3r;
-            dr[o + 2 * ns] = t0r - t2r;
-            di[o + 2 * ns] = t0i - t2i;
-            dr[o + 3 * ns] = t1r - t3i;
-            di[o + 3 * ns] = t1i + t3r;
-        } else {
-            dr[o] = ar[0] + ar[1];
-            di[o] = ai[0] + ai[1];
-            dr[o + ns] = ar[0] - ar[1];
-            di[o + ns] = ai[0] - ai[1];
-        }
-    }
 }
 
 __global__ void __launch_bounds__(32 * kFftWarps)
@@ -179,36 +136,9 @@ fft_rows_kernel(const float* __restrict__ frames, int rows, int win, int n, int 
             }
         }
         __syncwarp();
-        float *sr = buf0, *dr = buf1;
-        int ns = 1;
-        for (; ns * 4 <= m; ns *= 4) {
-            stockham_pass<4>(sr, sr + m, dr, dr + m, m, ns, tw, lane);
-            __syncwarp();
-            float* t = sr;
-            sr = dr;
-            dr = t;
-        }
-        if (ns < m) {
-            stockham_pass<2>(sr, sr + m, dr, dr + m, m, ns, tw, lane);
-            __syncwarp();
-            float* t = sr;
-            sr = dr;
-            dr = t;
-        }
-        // split post-pass: X[k] = E + W_n^k O, power into dr[0 .. m] (dr[m]
-        // is the first float of the pair's im half, no longer needed)
-        const float* si = sr + m;
-        float* pw = dr;
-        for (int k = lane; k <= m; k += 32) {
-            const int a = k & (m - 1), b = (m - k) & (m - 1);
-            const float zr = sr[a], zi = si[a], cr = sr[b], ci = -si[b];
-            const float er = 0.5f * (zr + cr), ei = 0.5f * (zi + ci);
-            const float orr = 0.5f * (zi - ci), oi = -0.5f * (zr - cr);
-            const float2 w = tw[k & (n - 1)];
-            const float xr = er + (w.x * orr - w.y * oi);
-            const float xi = ei + (w.x * oi + w.y * orr);
-            pw[k] = xr * xr + xi * xi;
-        }
+        const float* sr = fft_passes(buf0, buf1, m, tw, lane);
+        float* pw = sr == buf0 ? buf1 : buf0;
+        split_power(sr, pw, m, n, tw, lane);
         __syncwarp();
         // the first n_dense bins: the power the dense kernel wrote for this row
         for (int k = lane; k < n_dense; k += 32) pw[k] = dense_pw[row * n_dense + k];

@@ -2,10 +2,13 @@
 
 ``log_mel_fused`` (wave -> [B, n_mels, n_frames]) is the port of the TPU kernels
 ``audiossl_tpu/frontend/pallas_stft.py:log_mel_fused_ct2`` and
-``log_mel_fused_ct``: one hand-written Hopper kernel (csrc/log_mel.cu) covers
-the domains of both, i.e. every config with ``ct_eligible``. For a tensor on
-the CPU it computes the plain version (stft.log_mel); for a CUDA tensor it
-launches the kernel or raises.
+``log_mel_fused_ct``: one hand-written Hopper source (csrc/log_mel.cu) covers
+the domains of both, i.e. every config with ``ct_eligible``, in two designs
+(``log_mel_design``): a shared-memory FFT behind in-kernel framing where
+n_fft is a power of two (every config of the repo), the Cooley-Tukey
+128-point DFT for the other widths (768). For a tensor on the CPU it
+computes the plain version (stft.log_mel); for a CUDA tensor it launches
+the kernel or raises.
 
 The wrapper reflect-pads the wave (as the TPU ct2 wrapper does outside its
 kernel), builds the host-side constants once per (config, device), and
@@ -23,7 +26,8 @@ dense window-folded DFT for any other width. Framing (and for Kaldi DC
 removal and preemphasis) runs in plain torch before it. The plain version
 of that kernel is ``fused_rows_plain``; ``frontend.logmel_features``
 routes every CUDA log-mel that is not ``ct_eligible`` to
-``log_mel_dense_fused``.
+``log_mel_dense_fused``. Both FFT designs run the passes of
+csrc/fft_smem.cuh and take their constants from ``rows_constants``.
 """
 from __future__ import annotations
 
@@ -60,8 +64,24 @@ def ct2_eligible(cfg: LogMelConfig) -> bool:
     )
 
 
-def kernel_constants(cfg: LogMelConfig) -> tuple[np.ndarray, np.ndarray]:
-    """(consts float32, mel_range int32 [n_mels, 2]) in csrc/log_mel.cu's layout:
+def log_mel_design(cfg: LogMelConfig) -> str:
+    """Which design of csrc/log_mel.cu a ``ct_eligible`` config takes: "fft"
+    where n_fft is a power of two, else "cooley-tukey"."""
+    return "fft" if fft_width(cfg.n_fft) else "cooley-tukey"
+
+
+def kernel_constants(cfg: LogMelConfig) -> "RowsConstants":
+    """The FFT design's constants (numpy): ``rows_constants(cfg)``, the
+    layout fused_rows.cu's FFT design reads too: window [n_fft], twiddle
+    table [n_fft, 2], each filter's packed nonzero weights (``fb_packed``)
+    and where they start (``mel_off``), ``mel_range``, and for the bins
+    below ``n_dense`` (those of single-bin filters) the window-folded bank."""
+    return rows_constants(cfg)
+
+
+def ct_constants(cfg: LogMelConfig) -> tuple[np.ndarray, np.ndarray]:
+    """(consts float32, mel_range int32 [n_mels, 2]) in the Cooley-Tukey
+    design's layout (csrc/log_mel.cu, widths that are not a power of two):
 
     window [n_fft] | w2 [N2, R, 2] | tw [R, 128, 2] | w128 [128, 2] | fb [n_mels, n_bins]
 
@@ -83,25 +103,31 @@ def kernel_constants(cfg: LogMelConfig) -> tuple[np.ndarray, np.ndarray]:
     consts = np.concatenate(
         [padded_window(cfg).ravel(), w2.ravel(), tw.ravel(), w128.ravel(), fb.astype(np.float64).ravel()]
     ).astype(np.float32)
-    mel_range = np.zeros((cfg.n_mels, 2), np.int32)
-    for i, row in enumerate(fb):
-        nz = np.flatnonzero(row)
-        if nz.size:
-            mel_range[i] = (nz[0], nz[-1] + 1)
-    return consts, mel_range
+    return consts, _sparse_rows(fb.T)[1]
 
 
 def design_flops(cfg: LogMelConfig, n_frames_total: int) -> int:
-    """f32 operations this kernel's design does for ``n_frames_total`` frames
-    (an FMA counts two): the radix-N2 stage with its window multiply and
-    twiddle, the 128 complex multiply-adds of each of the n_fft/2 + 1 bins it
-    computes, the power, and the filterbank over each mel's nonzero range
-    plus the log's argument. This is what the design spends, not what the
-    function needs: an FFT needs far fewer operations per bin."""
+    """f32 operations csrc/log_mel.cu's design for ``cfg`` does for
+    ``n_frames_total`` frames (an FMA counts two). FFT design, per frame: the
+    window multiply, each radix-4 Stockham butterfly's three complex twiddle
+    multiplies and DFT_4 (34), each radix-2 butterfly (10), the split
+    post-pass and power (19 a bin), the dense bins' FMA chains, and the
+    filterbank over each mel's nonzero range plus the log's argument.
+    Cooley-Tukey design: the radix-N2 stage with its window multiply and
+    twiddle, the 128 complex multiply-adds of each of the n_fft/2 + 1 bins,
+    the power and the filterbank."""
     n = cfg.n_fft
-    n2, n_bins = n // 128, n // 2 + 1
+    n_bins = n // 2 + 1
+    if log_mel_design(cfg) == "fft":
+        c = kernel_constants(cfg)
+        m = n // 2
+        log_m = m.bit_length() - 1
+        fft = (log_m // 2) * (m // 4) * 34 + (log_m % 2) * (m // 2) * 10 + (m + 1) * 19
+        per_frame = n + fft + c.n_dense * (4 * n + 3) + 3 * len(c.fb_packed) + cfg.n_mels
+        return n_frames_total * per_frame
+    n2 = n // 128
     r_max = n2 // 2 + 1
-    _, mel_range = kernel_constants(cfg)
+    _, mel_range = ct_constants(cfg)
     nnz = int((mel_range[:, 1] - mel_range[:, 0]).sum())
     radix = r_max * 128 * (n2 * (1 + 4) + 6)
     dft = n_bins * (128 * 8 + 3)
@@ -110,20 +136,21 @@ def design_flops(cfg: LogMelConfig, n_frames_total: int) -> int:
 
 
 @functools.lru_cache(maxsize=16)
-def _device_constants(cfg: LogMelConfig, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    consts, mel_range = kernel_constants(cfg)
+def _ct_device_constants(cfg: LogMelConfig, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    consts, mel_range = ct_constants(cfg)
     return torch.from_numpy(consts).to(device), torch.from_numpy(mel_range).to(device)
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("log_mel")
-    lib.audiossl_log_mel.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.audiossl_log_mel.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.audiossl_log_mel_ct.argtypes = [p, i, i, i, i, i, i, p, p, p, p]
+    lib.audiossl_log_mel_ct.restype = i
+    lib.audiossl_log_mel_fft_warps.argtypes = [i, i, i, i]
+    lib.audiossl_log_mel_fft_warps.restype = i
+    lib.audiossl_log_mel_fft.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p, p, p, i, p, p]
+    lib.audiossl_log_mel_fft.restype = i
     return lib
 
 
@@ -152,13 +179,23 @@ def log_mel_fused(wave: torch.Tensor, cfg: LogMelConfig = LogMelConfig()) -> tor
     n_frames = 1 + (n - cfg.n_fft) // cfg.hop
     out = torch.empty((b, cfg.n_mels, n_frames), dtype=torch.float32, device=padded.device)
     if b:
-        consts, mel_range = _device_constants(cfg, padded.device)
+        lib = _lib()
         with torch.cuda.device(padded.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = _lib().audiossl_log_mel(
-                padded.data_ptr(), b, n, n_frames, cfg.n_fft, cfg.hop, cfg.n_mels,
-                consts.data_ptr(), mel_range.data_ptr(), out.data_ptr(), stream,
-            )
+            if log_mel_design(cfg) == "fft":
+                c = _rows_constants(cfg, padded.device)
+                nnz = c.fb_packed.numel()
+                if lib.audiossl_log_mel_fft_warps(cfg.n_fft, cfg.hop, nnz, cfg.n_mels) == 0:
+                    raise ValueError(f"n_fft={cfg.n_fft} at hop {cfg.hop} exceeds the log-mel kernel's shared memory")
+                err = lib.audiossl_log_mel_fft(
+                    padded.data_ptr(), b, n, n_frames, cfg.n_fft, cfg.hop, cfg.n_mels, nnz, c.window.data_ptr(),
+                    c.twiddle.data_ptr(), c.fb_packed.data_ptr(), c.mel_range.data_ptr(), c.mel_off.data_ptr(),
+                    c.bank.data_ptr(), c.n_dense, out.data_ptr(), stream)
+            else:
+                consts, mel_range = _ct_device_constants(cfg, padded.device)
+                err = lib.audiossl_log_mel_ct(
+                    padded.data_ptr(), b, n, n_frames, cfg.n_fft, cfg.hop, cfg.n_mels,
+                    consts.data_ptr(), mel_range.data_ptr(), out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"log-mel kernel launch failed: CUDA error {err}")
         log_mel_fused.launches += 1

@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, which ctypes loads; wrappers pass tensor pointers
 and PyTorch's current stream as integers. Libraries go to ``.torch_build/``
-at the repo root, named by a hash of the source and flags, and are built at
+at the repo root, named by a hash of the source, the local headers it
+includes (``#include "..."``, followed recursively) and the flags, and are built at
 first use (``load``), or all at once with one nvcc per source started
 together (``load_all``). Importing this module builds nothing.
 """
@@ -13,6 +14,7 @@ import ctypes
 import hashlib
 import logging
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,6 +31,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -42,11 +46,29 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA kernels cannot be built")
 
 
+def _source_files(src: str) -> list[str]:
+    """``src`` and every local header it includes, recursively, each once,
+    in the order first met (a quoted include resolves beside its includer)."""
+    files, todo = [], [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        with open(path) as f:
+            todo += [os.path.abspath(os.path.join(os.path.dirname(path), inc)) for inc in _INCLUDE.findall(f.read())]
+    return files
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where kernel ``name``'s library is built: named by a hash of its
+    source, its local headers and the nvcc flags, so that an edit to any of
+    them builds anew."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _source_files(os.path.join(CSRC, SOURCES[name])):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str) -> tuple[subprocess.Popen, str, str]:

@@ -20,8 +20,9 @@ of the same function beside it and a ``launches`` counter:
                                max, sum and rowsum(dp * p)
   ``rel_attention_bwd_dkv`` <- ``_bwd_kernel`` (dk, dv), from those row statistics
 
-In bf16 the two backward kernels run their products on the tensor cores
-(mma.sync); in f32 (the parity path) every kernel is f32 FFMA. A wrapper
+In bf16 the three kernels run their products on the tensor cores
+(mma.sync; the forward keeps its FFMA kernel for a head width that is not a
+multiple of 8); in f32 (the parity path) every kernel is f32 FFMA. A wrapper
 takes the plain version for a CPU tensor only; on a CUDA tensor it
 launches the kernel or raises. The kernels read the bias decomposed, so on
 CUDA ``expand`` must be ``rel_expand_matrix(kh, kw)`` (given as the pair

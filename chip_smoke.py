@@ -26,11 +26,18 @@ drives the port's main paths at full width with seeded weights:
   * the log-mel dispatcher (slice 4): ``frontend.logmel_features`` on a
     config that is not ``ct_eligible`` (n_fft = 400) launches the rows
     kernel in librosa mode once and matches the plain log_mel; each
-    attention backward kernel run twice gives the same bits.
+    attention kernel (the forward since slice 5) run twice gives the same
+    bits.
+
+Slice 5 redesigned the log-mel kernel (in-kernel framing in front of a
+shared-memory FFT, for every power-of-two n_fft) and the bf16 attention
+forward (tensor-core tiles); the checks above hold them as before, with
+log-mel cases at the narrow-filter widths (n_fft 256 with 64 mels, 1024
+with 128).
 
 It checks the outputs, times each kernel, its plain version and a library
-composition (the attention and rows kernels as CUDA graph replays), serving
-and training, and prints:
+composition (the log-mel, attention and rows kernels as CUDA graph
+replays), serving and training, and prints:
 
   * the card's name and power limit as nvidia-smi gives them;
   * one {"kernels": [...]} JSON line (launches on the main paths, error
@@ -181,21 +188,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     default = LogMelConfig()
+    # the narrow-filter widths and the Cooley-Tukey design draw from a
+    # generator of their own, so that the data of the phases after this one
+    # (drawn from rng) stays what it was before these cases were added
+    narrow = np.random.default_rng(1)
     cases = [
-        ("[256, 15200] hop 160", (SERVE_BATCH, CLIP), default),
-        ("[5, 12345] hop 160", (5, 12345), default),
-        ("[8, 15200] hop 100", (8, CLIP), LogMelConfig(hop=100)),
+        ("[256, 15200] hop 160", (SERVE_BATCH, CLIP), default, rng),
+        ("[5, 12345] hop 160", (5, 12345), default, rng),
+        ("[8, 15200] hop 100", (8, CLIP), LogMelConfig(hop=100), rng),
+        ("[8, 15200] n_fft 256 hop 64, 64 mels (single-bin filters)", (8, CLIP), LogMelConfig(n_fft=256, hop=64), narrow),
+        ("[8, 15200] 128 mels (two-bin filters)", (8, CLIP), LogMelConfig(n_mels=128), narrow),
+        ("[4, 15200] n_fft 768, 32 mels", (4, CLIP), LogMelConfig(n_fft=768, n_mels=32), narrow),
     ]
     kernel_err = 0.0
-    for label, shape, cfg in cases:
-        w = torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    for label, shape, cfg, gen in cases:
+        w = torch.from_numpy((0.5 * gen.standard_normal(shape)).astype(np.float32)).to(dev)
         got = fused_stft.log_mel_fused(w, cfg)
         want = log_mel(w, cfg)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got).all():
             raise RuntimeError(f"log-mel kernel {label}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
         err = float((got - want).abs().max())
-        print(f"log_mel kernel vs plain, {label}: max|d| = {err:.3e} (tol {TOL_KERNEL})")
+        print(f"log_mel kernel ({fused_stft.log_mel_design(cfg)} design) vs plain, {label}: max|d| = {err:.3e} "
+              f"(tol {TOL_KERNEL})")
         if not err <= TOL_KERNEL:
             raise RuntimeError(f"log-mel kernel disagrees with its plain version at {label}: {err}")
         kernel_err = max(kernel_err, err)
@@ -242,7 +257,8 @@ def main() -> int:
     if not err_cpu <= TOL_F32 * scale:
         raise RuntimeError(f"f32 serving on the card disagrees with the CPU path: {err_cpu}")
 
-    # phase 5: times at the serving shape, beside the card
+    # phase 5: times at the serving shape, beside the card, as CUDA graph
+    # replays (an eager loop at this size times the host)
     cfg = default
     w = torch.from_numpy((0.5 * rng.standard_normal((SERVE_BATCH, CLIP))).astype(np.float32)).to(dev)
     window = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
@@ -253,20 +269,20 @@ def main() -> int:
         return torch.log(torch.matmul(mfb, spec.real.square() + spec.imag.square() + EPS64) + EPS32)
 
     lib_err = float((library() - log_mel(w, cfg)).abs().max())
-    ms = cuda_ms(lambda: fused_stft.log_mel_fused(w, cfg))
-    plain_ms = cuda_ms(lambda: log_mel(w, cfg))
-    library_ms = cuda_ms(library)
+    ms = graph_ms(lambda: fused_stft.log_mel_fused(w, cfg))
+    plain_ms = graph_ms(lambda: log_mel(w, cfg))
+    library_ms = graph_ms(library)
     n_frames = cfg.num_frames(CLIP)
     flops = logmel_flops(cfg, SERVE_BATCH * n_frames, int(torch.count_nonzero(mfb)))
     design = fused_stft.design_flops(cfg, SERVE_BATCH * n_frames)
     nbytes = 4 * (SERVE_BATCH * CLIP + SERVE_BATCH * cfg.n_mels * n_frames)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print(f"[{card}] log-mel [256, 15200]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library (torch.stft) {library_ms:.4f} ms (max|d| vs plain {lib_err:.2e}); "
+    print(f"[{card}] log-mel [256, 15200], {fused_stft.log_mel_design(cfg)} design: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library (torch.stft) {library_ms:.4f} ms (max|d| vs plain {lib_err:.2e}); "
           f"bound {bound_ms:.4f} ms (function {flops / 1e9:.4f} GFLOP -> {t_ops:.4f} ms, "
           f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms); the kernel's design does "
-          f"{design / 1e9:.2f} GFLOP -> {design / PEAK_F32 * 1e3:.4f} ms")
+          f"{design / 1e9:.2f} GFLOP -> {design / PEAK_F32 * 1e3:.4f} ms; all CUDA graph replays")
 
     emb16 = enc.embedder
     with torch.inference_mode():
@@ -312,7 +328,7 @@ def main() -> int:
 
     # phase 11: the log-mel dispatcher on a config that is not ct_eligible,
     # counts from 0 (the rows kernel in librosa mode, the dense design); each
-    # attention backward kernel run twice gives the same bits
+    # attention kernel run twice gives the same bits
     dispatch = dispatcher_check(dev)
     attention_determinism(dev)
 
@@ -336,6 +352,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
+        "design": fused_stft.log_mel_design(cfg),
         "design_gflop": design / 1e9,
     }]
     for name, line in (("block1_fwd", 174), ("block1_bwd_sums", 216), ("block1_bwd_weight", 235)):
@@ -853,7 +870,7 @@ def dispatcher_check(dev) -> dict:
 
 
 def attention_determinism(dev) -> None:
-    """Each backward kernel twice on the same bf16 inputs at two MAST-B
+    """Each attention kernel twice on the same bf16 inputs at two MAST-B
     shapes (the dk/dv kernel splits its query rows at the first): the bits
     must be equal."""
     from audiossl_tpu_torch.ops import attention as A
@@ -862,16 +879,18 @@ def attention_determinism(dev) -> None:
         d = 96
         q, k, v, bias, do = attention_case(bh, lq, grid, None, d, torch.bfloat16, dev, seed=bh + lq)
         qs = A.scale_q(q, d**-0.5)
+        outs = [A.rel_attention_fwd(qs, k, v, bias, grid) for _ in range(2)]
         first = A.rel_attention_bwd_dq(qs, k, v, bias, grid, d**-0.5, do)
         second = A.rel_attention_bwd_dq(qs, k, v, bias, grid, d**-0.5, do)
         kv = [A.rel_attention_bwd_dkv(qs, k, v, bias, grid, do, first[2]) for _ in range(2)]
         torch.cuda.synchronize()
+        same_out = torch.equal(*outs)
         same_dq = all(torch.equal(a, b) for a, b in zip(first, second))
         same_dkv = all(torch.equal(a, b) for a, b in zip(*kv))
-        print(f"determinism [{bh}, {lq}, {grid[0] * grid[1]}] bf16: dq/dbias/stats equal bits {same_dq}, "
-              f"dk/dv equal bits {same_dkv}")
-        if not (same_dq and same_dkv):
-            raise RuntimeError(f"a backward attention kernel gave other bits on a second run at [{bh}, {lq}]")
+        print(f"determinism [{bh}, {lq}, {grid[0] * grid[1]}] bf16: out equal bits {same_out}, dq/dbias/stats equal "
+              f"bits {same_dq}, dk/dv equal bits {same_dkv}")
+        if not (same_out and same_dq and same_dkv):
+            raise RuntimeError(f"an attention kernel gave other bits on a second run at [{bh}, {lq}]")
 
 
 def ssmast_wavs(tmp: str, wav, n_rows: int) -> str:

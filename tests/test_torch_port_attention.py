@@ -128,3 +128,61 @@ def test_two_part_backward_matches_the_one_pass_formula():
     torch.testing.assert_close(dk, ds.transpose(1, 2) @ qs, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(dbias, ds @ e.T, rtol=1e-5, atol=1e-6)
     assert stats.shape == (2, 40, 3)
+
+
+def _fwd_tile_model(qs, k, v, bias, grid, chunk: int = 16):
+    """Torch (CPU, f32 arithmetic) model of the bf16 tensor-core forward
+    (csrc/attention.cu attn_fwd_mma) in its tile order: pass A over 16-key
+    chunks keeps the row max and the row sum online (the sum rescaled as the
+    max grows); pass B recomputes each chunk's scores, normalises p =
+    exp(s - m) / l, rounds it to bf16 and adds p v for the chunk with f32
+    sums; out is rounded to bf16. qs, k, v, bias are bf16."""
+    qf, kf, vf = qs.float(), k.float(), v.float()
+    lk = kf.shape[1]
+    be = bias.float() @ torch.from_numpy(attention.rel_expand_matrix(*grid)) if grid else None
+
+    def scores(kc):
+        s = qf @ kf[:, kc:kc + chunk].transpose(1, 2)
+        return s if be is None else s + be[..., kc:kc + chunk]
+
+    m = torch.full(qf.shape[:2], -torch.inf)
+    l = torch.zeros(qf.shape[:2])
+    for kc in range(0, lk, chunk):
+        s = scores(kc)
+        mn = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - mn) + torch.exp(s - mn[..., None]).sum(-1)
+        m = mn
+    out = torch.zeros_like(qf)
+    for kc in range(0, lk, chunk):
+        p = (torch.exp(scores(kc) - m[..., None]) / l[..., None]).to(torch.bfloat16).float()
+        out = out + p @ vf[:, kc:kc + chunk]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "bh,lq,grid,d",
+    [(3, 72, (5, 8), 24), (2, 78, (26, 3), 96), (2, 306, (51, 6), 96), (2, 64, None, 32)],
+)
+def test_bf16_forward_tile_model_matches_jax_and_plain(bh, lq, grid, d):
+    """The tensor-core forward's two-pass tile order (the no-bias case with
+    40 keys: a ragged last chunk) against JAX's fused_rel_attention(f32=False)
+    in interpret mode and the plain forward, all in bf16, within 2 bf16 ulps
+    of max|ref|."""
+    lk = grid[0] * grid[1] if grid else 40
+    q, k, v, bias, _ = _case(bh, lq, lk, d, sum(grid) if grid else None, seed=lq + d)
+    scale = d**-0.5
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    tb = lambda a: torch.from_numpy(np.array(bf(a).astype(jnp.float32))).to(torch.bfloat16)
+    if grid:
+        ref_j = jax_fused(bf(q), bf(k), bf(v), bf(bias), jnp.asarray(jax_expand(*grid)), scale, False, True)
+    else:
+        ref_j = jax_fused(bf(q), bf(k), bf(v), None, None, scale, False, True)
+    qs = attention.scale_q(tb(q), scale)
+    tbias = tb(bias) if grid else None
+    got = _fwd_tile_model(qs, tb(k), tb(v), tbias, grid)
+    plain = attention.attention_fwd_plain(qs, tb(k), tb(v), tbias, grid)
+    assert got.dtype == plain.dtype == torch.bfloat16
+    ulp = lambda a: 2.0 ** (np.floor(np.log2(np.abs(a).max())) - 7)
+    for ref in (np.asarray(ref_j.astype(jnp.float32)), plain.float().numpy()):
+        assert got.shape == ref.shape == (bh, lq, d)
+        assert np.abs(got.float().numpy() - ref).max() <= 2 * ulp(ref)

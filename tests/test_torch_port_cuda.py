@@ -34,6 +34,8 @@ def cuda():
         (LogMelConfig(n_fft=768, n_mels=32), (2, 4000)),
         (LogMelConfig(n_fft=2048, hop=512, n_mels=128), (2, 16000)),
         (LogMelConfig(center=False), (2, 15200)),
+        (LogMelConfig(n_fft=256, hop=64, n_mels=64), (3, 15200)),  # single-bin filters: the dense low bins
+        (LogMelConfig(n_mels=128), (3, 15200)),  # two-bin filters
     ],
 )
 def test_log_mel_kernel_matches_plain(cuda, cfg, shape):
@@ -214,6 +216,30 @@ def test_attention_backward_bf16_tensor_core_kernels(cuda, bh, lq, grid):
         assert got.dtype == want.dtype and got.shape == want.shape and torch.isfinite(got.float()).all(), name
         ref = float(want.float().abs().max())
         assert float((got.float() - want.float()).abs().max()) <= 4 * _bf16_ulp(ref), name
+
+
+@pytest.mark.parametrize("bh,lq,grid", MAST_BWD_SHAPES)
+def test_attention_forward_bf16_tensor_core_kernel(cuda, bh, lq, grid):
+    """The bf16 forward (the tensor-core design, 64 or 128 query rows a
+    block) at every MAST-B shape, a ragged Lq and the no-bias mode against
+    its plain version within 2 bf16 ulps of max|ref|; one launch a call, and
+    two runs bit for bit."""
+    from audiossl_tpu_torch.ops import attention as A
+
+    d = 96
+    q, k, v, bias, _ = _attn_inputs(bh, lq, grid, d, torch.bfloat16, cuda, seed=lq + 1)
+    qs = A.scale_q(q, d**-0.5)
+    assert A._lib().audiossl_attn_tile(0, k.shape[1], d, sum(grid) if grid else 0, 1) in (64, 128)
+    before = A.rel_attention_fwd.launches
+    runs = [A.rel_attention_fwd(qs, k, v, bias, grid) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert A.rel_attention_fwd.launches == before + 2
+    assert torch.equal(runs[0], runs[1])
+    want = A.attention_fwd_plain(qs, k, v, bias, grid)
+    got = runs[0]
+    assert got.dtype == want.dtype and got.shape == want.shape and torch.isfinite(got.float()).all()
+    ref = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2 * _bf16_ulp(ref)
 
 
 def test_attention_function_on_the_card_matches_cpu(cuda):

@@ -1,8 +1,8 @@
 """The port's log-mel frontend (audiossl_tpu_torch.frontend) against the JAX
 package: the plain log_mel against the XLA log_mel and the ct2/ct Pallas
-kernels in interpret mode, the kernel wrapper's CPU path, the kernel's
-Cooley-Tukey constants and bin mapping (emulated in NumPy), and the librosa
-oracle. All on the CPU, inputs made by numpy from a seed."""
+kernels in interpret mode, the kernel wrapper's CPU path, NumPy models of
+the kernel's two designs (the FFT behind in-kernel framing; the
+Cooley-Tukey constants and bin mapping), and the librosa oracle. All on the CPU, inputs made by numpy from a seed."""
 import math
 
 import jax.numpy as jnp
@@ -53,12 +53,14 @@ class TestConstants:
 
 
 def _emulate_kernel(waves, cfg):
-    """NumPy (float64) model of csrc/log_mel.cu: the radix-N2 stage over the
+    """NumPy (float64) model of csrc/log_mel.cu's Cooley-Tukey design (the
+    widths that are not a power of two; the algorithm holds for every
+    n_fft % 256 == 0): the radix-N2 stage over the
     window-applied frames, the W_n^{m r} twiddle, the 128-point DFT for
     residues r <= N2/2, the kernel's bin mapping (direct bin, or the mirror
     n_fft - k for 1 <= r < N2/2; each bin written once), then power + EPS64,
     the filterbank over each mel's nonzero range, + EPS32 and log."""
-    consts, mel_range = fused_stft.kernel_constants(cfg)
+    consts, mel_range = fused_stft.ct_constants(cfg)
     c = consts.astype(np.float64)
     n, n2 = cfg.n_fft, cfg.n_fft // 128
     r_max, half = n2 // 2 + 1, cfg.n_fft // 2
@@ -370,3 +372,73 @@ def test_fft_rows_model_matches_plain_and_jax(kind, n):
     for want in (plain, ref.reshape(-1, shape[-1])):
         assert got.shape == want.shape == (shape[0] * shape[1], shape[2])
         assert np.abs(got - want).max() <= TOL_JAX * max(1.0, float(np.abs(want).max()))
+
+
+def _emulate_fft_log_mel(waves: np.ndarray, cfg: LogMelConfig, tile: int = 16) -> np.ndarray:
+    """f32 NumPy model of csrc/log_mel.cu's FFT design: the wrapper's reflect
+    pad, then per (clip, tile of ``tile`` frames) the staged sample span,
+    (tile - 1) * hop + n_fft samples with zeros past the wave, each frame of
+    the tile read from the span at f * hop, then the FFT schedule the kernel
+    shares with the rows kernel (_emulate_fft_rows in librosa mode: window,
+    even/odd packing, Stockham passes, split post-pass, power, the bins below
+    n_dense from the window-folded bank, packed mel, log) -> [B, n_mels, n_frames]."""
+    wt = torch.from_numpy(waves)
+    padded = (reflect_pad(wt, cfg.n_fft) if cfg.center else wt).numpy()
+    b, n = padded.shape
+    n_frames = 1 + (n - cfg.n_fft) // cfg.hop
+    span = (tile - 1) * cfg.hop + cfg.n_fft
+    frames = np.empty((b, n_frames, cfg.n_fft), np.float32)
+    for frame0 in range(0, n_frames, tile):
+        staged = np.zeros((b, span), np.float32)
+        piece = padded[:, frame0 * cfg.hop: frame0 * cfg.hop + span]
+        staged[:, : piece.shape[1]] = piece
+        for f in range(min(tile, n_frames - frame0)):
+            frames[:, frame0 + f] = staged[:, f * cfg.hop: f * cfg.hop + cfg.n_fft]
+    rows = _emulate_fft_rows(frames.reshape(-1, cfg.n_fft), cfg, "librosa")
+    return rows.reshape(b, n_frames, cfg.n_mels).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize(
+    "cfg,n",
+    [
+        (LogMelConfig(), 15200),
+        (LogMelConfig(hop=100), 8000),
+        (LogMelConfig(n_fft=512, hop=128, n_mels=40), 4000),
+        (LogMelConfig(n_fft=2048, hop=512, n_mels=128), 16000),
+        (LogMelConfig(n_fft=256, hop=64, n_mels=64), 4000),
+        (LogMelConfig(n_mels=128), 8000),
+    ],
+)
+def test_fft_log_mel_model_matches_plain_and_jax(cfg, n):
+    """The log-mel kernel's FFT design (every power-of-two n_fft) against the
+    plain log_mel and against JAX's log_mel_fused_ct2 in interpret mode
+    (log_mel_fused_ct where the hop is not ct2_eligible), within
+    1e-4 * max(1, max|ref|). At n_fft 256 with 64 mels the lowest filters
+    pass one bin alone; those bins come from the dense arithmetic."""
+    assert fused_stft.log_mel_design(cfg) == "fft"
+    c = fused_stft.kernel_constants(cfg)
+    widths = c.mel_range[:, 1] - c.mel_range[:, 0]
+    assert c.n_dense == (32 if (widths == 1).any() else 0) and (c.n_dense > 0) == (cfg.n_fft == 256)
+    waves = _waves(2, n=n)
+    got = _emulate_fft_log_mel(waves, cfg)
+    jcfg = JaxLogMelConfig(n_fft=cfg.n_fft, hop=cfg.hop, n_mels=cfg.n_mels)
+    if fused_stft.ct2_eligible(cfg):
+        jax_ref = pallas_stft.log_mel_fused_ct2(jnp.asarray(waves), jcfg, interpret=True, split=True)
+    else:
+        jax_ref = pallas_stft.log_mel_fused_ct(jnp.asarray(waves), jcfg, frames_per_tile=128, interpret=True)
+    for want in (_port(waves, cfg), np.asarray(jax_ref)):
+        assert got.shape == want.shape == (2, cfg.n_mels, cfg.num_frames(n))
+        assert np.abs(got - want).max() <= TOL_JAX * max(1.0, float(np.abs(want).max()))
+
+
+def test_log_mel_designs_and_design_flops():
+    """Power-of-two widths take the FFT design, 768 the Cooley-Tukey one;
+    at the serving shape the FFT design does about 0.83 GFLOP (the function
+    needs 0.76), the Cooley-Tukey design about 13.7."""
+    assert [fused_stft.log_mel_design(LogMelConfig(n_fft=n)) for n in (256, 512, 768, 1024, 2048)] == [
+        "fft", "fft", "cooley-tukey", "fft", "fft"]
+    frames = 256 * LogMelConfig().num_frames(15200)
+    fft = fused_stft.design_flops(LogMelConfig(), frames)
+    assert 0.8e9 < fft < 0.86e9
+    consts, mel_range = fused_stft.ct_constants(LogMelConfig(n_fft=768, n_mels=32))
+    assert consts.dtype == np.float32 and mel_range.shape == (32, 2)
