@@ -11,10 +11,12 @@ Hopper (``csrc/``, built at first use by ``kernels.py``). Each kernel has a
 plain PyTorch version beside it; a wrapper takes the plain version only for
 a tensor on the CPU, and on a CUDA tensor launches the kernel or raises.
 
-Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining):
+Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining,
+the downstream probe with AST):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
-  data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches
+  data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches,
+                      labelled and class-balanced
   data/augment.py     RunningNorm, MixupBYOLA ring bank, RandomResizeCrop,
                       SpecMask and precomputed-norm views
   frontend/           log-mel and Kaldi fbank: plain versions + the Hopper
@@ -22,14 +24,20 @@ Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining):
   ops/                windowing, running norm, bicubic crop-resize, masking,
                       block 1 (conv-BN-ReLU-pool) with its three Hopper
                       kernels, rel-pos attention with its three Hopper kernels
+  ops/tokens.py       PatchDrop (AST)
   models/audiontt.py  AudioNTT2020Task6, eval and training paths
   models/mvit.py      MViTv2; models/mast.py: MAST and MASTWithHead
+  models/ast.py       AST (plain ViT), its attention on the same kernels
   models/heads.py     Barlow projector and loss
-  models/convert.py   flax variables -> reference state_dicts (AudioNTT, MAST)
-  objectives/         DeLoRes-S, SS-MAST (MoCo queue, EMA key encoder)
+  models/convert.py   flax variables -> reference state_dicts (AudioNTT, MAST, AST)
+  objectives/         DeLoRes-S, SS-MAST (MoCo queue, EMA key encoder);
+                      unfused.py: cross_entropy
   train/              optimizers, train step, checkpoints, loop
   train_upstream.py   pretraining CLI
-  downstream/model.py DownstreamModel (AudioNTT encoder)
+  downstream/         DownstreamModel (AudioNTT, AST), the LAPE task registry,
+                      the linear probe / fine-tune
+  train_downstream.py downstream probe CLI
+  utils/metrics.py    AverageMeter, Accuracy
   serve/export.py     waveform -> embedding serving, artifact, CLI
 """
 from __future__ import annotations

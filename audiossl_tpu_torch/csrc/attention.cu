@@ -35,18 +35,24 @@
 // f32 (the parity path): every product is f32 FFMA on f32 values, the
 // counterpart of the JAX package's HIGHEST path; no TF32. One block of 256
 // threads (8 warps). The forward (attn_fwd_kernel) stages k transposed
-// ([D][Lk | 1], odd stride: conflict-free both along keys and along D), its
+// ([D][keys | 1], odd stride: conflict-free both along keys and along D), its
 // q-tile transposed and the tile's bias rows in shared memory; a thread
 // computes the scores of one key for 8 query rows (float4 loads of the q
 // tile), a warp takes the softmax of a row, the buffer of k is reused for v,
 // and a warp computes 4 (or fewer) output rows, lanes over D. The q-tile is
-// 32, 16 or 8 rows, whichever fits beside k (or v) and the score tile in the
-// 227 KB of shared memory; keys longer than that raise in the wrapper. The
-// dk/dv kernel takes 32 keys a block, one a lane. D <= 128. In bf16 the
-// forward keeps this kernel only where the tensor-core forward does not take
-// the shape (D % 8 != 0, or keys that do not fit its shared memory); the
-// bf16 backward takes D % 8 == 0 only (every MViT and ViT head width) and
-// raises for shapes its shared memory does not hold.
+// 32, 16 or 8 rows (dq: 16 or 8). Where every key fits beside the score
+// tile, k and v stay resident (one chunk); where they do not (AST-base: 1214
+// keys), they pass through the buffer 64 keys at a time while the score tile
+// [rows][Lk | 1] stays whole, so the softmax still sees whole rows and the
+// sums keep their order: the same bits either way. The dq kernel does the same with a dp
+// tile beside the scores. Both take the bias mode too; their limit is the
+// score tiles (at D <= 128 and 8 rows: over 6,000 keys forward, 3,000 dq). The
+// dk/dv kernel takes 32 keys a block, one a lane, and streams the queries,
+// so its fit does not depend on Lk. D <= 128. In bf16 the forward keeps this
+// kernel only where no tensor-core forward takes the shape (D % 8 != 0, or a
+// bias with keys that do not fit its shared memory); the bf16 backward takes
+// D % 8 == 0 only (every MViT and ViT head width) and raises for a bias whose
+// keys its shared memory does not hold.
 //
 // bf16 (the SS-MAST path): mma.sync.m16n8k16 bf16 x bf16 -> f32 on the
 // tensor cores, operands from shared memory through ldmatrix (.trans where
@@ -59,8 +65,8 @@
 //   attn_fwd_mma: one block of 4 warps (keys <= 128) or 8 per (b*h, 16 query
 //     rows a warp), whose qs fragments stay in registers; k and v stay in
 //     shared memory (v's copy lands while pass A runs). Two passes over the
-//     keys, 16 at a time: the row max and sum, online, then p = exp(s - m) /
-//     l rounded to bf16 (normalised before the rounding, as in JAX: a
+//     keys, 16 at a time: the row max and sum, online, then p = exp(s - m) *
+//     (1 / l) rounded to bf16 (normalised before the rounding, as in JAX: a
 //     flash-style exp(s - m_running) rescaled after the product would round
 //     other values) and out += round(p) v with p's C fragments re-used as the
 //     A operand. Out goes through shared memory in 16-byte stores. At Lk =
@@ -72,6 +78,12 @@
 //     then ds -> dbias (each lane owns the height or the width sums of one
 //     row: deterministic) and dq += round(ds) k with ds's C fragments re-used
 //     as the A operand. Its pass A is the forward's pass A with dp beside it.
+//   attn_fwd_mma_stream, attn_bwd_dq_mma_stream: the no-bias mode (AST) at
+//     every key length. The same passes, but k (and v) come through shared
+//     memory 64 keys a stage, double-buffered with cp.async, while the qs
+//     (and dO) fragments stay in registers; shared memory does not grow
+//     with Lk. The resident kernels above take the bias mode only, and keep
+//     their limit.
 //   attn_bwd_dkv_mma: one block of 4-8 warps per (b*h, 16 keys a warp,
 //     query split); dk and dv stay in registers across the loop over 32-row
 //     query tiles, whose q and dO are double-buffered with cp.async and whose
@@ -94,6 +106,9 @@
 // the bf16 rate: bound by bytes. The tensor-core kernels recompute the
 // scores once (the forward and dq) and reread k and v from L2 for every
 // block of query rows, which is where they spend their time beyond the bound.
+// At AST-base's shape, (BH, L, D) = (384, 1214, 64) with no bias, the
+// products bound all three: the forward's 144.9 GFLOP take 0.1465 ms at the
+// bf16 rate against 0.0713 ms for its 238.7 MB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -187,16 +202,12 @@ __device__ void softmax_rows(float* s, int ld, int n, float* stats) {
     }
 }
 
-// acc[i][u] = sum_j p[r][j] * b[j][c] for the rows r = warp + 8 i and the
+// acc[i][u] += sum_j p[r][j] * b[j][c] for the rows r = warp + 8 i and the
 // columns c = lane + 32 u; b is [nj][d] natural; with ROUND p is rounded to T
 // first.
 template <typename T, int TQ, bool ROUND, typename TB>
 __device__ void rows_times(const float* p, int ldp, const TB* b, int nj, int d, float (&acc)[TQ / kWarps][4]) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-    for (int i = 0; i < TQ / kWarps; ++i)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[i][u] = 0.0f;
     for (int j = 0; j < nj; ++j) {
         float bv[4];
 #pragma unroll
@@ -235,15 +246,19 @@ __device__ void load_rows(const T* __restrict__ src, int lq, int q0, int w, floa
     }
 }
 
-template <typename T, int TQ>
-__host__ __device__ inline int fwd_smem(int lk, int d, int kb) {
-    return align16(static_cast<long long>(sizeof(T)) * d * odd(lk)) + 4 * d * TQ + 4 * TQ * odd(lk) + align16(4LL * TQ * kb);
+// Shared memory of the FFMA forward and dq kernels with `ck` keys a chunk:
+// the chunk buffer (k transposed [d][ck | 1], or v or k natural), the q (or
+// dO) tile, the whole score tile (and dq's dp tile) [TQ][lk | 1], the bias
+// tile and dq's row statistics.
+template <typename T>
+__host__ __device__ inline int fwd_smem(int tq, int lk, int ck, int d, int kb) {
+    return align16(static_cast<long long>(sizeof(T)) * d * odd(ck)) + 4 * d * tq + 4 * tq * odd(lk) + align16(4LL * tq * kb);
 }
 
-template <typename T, int TQ>
-__host__ __device__ inline int dq_smem(int lk, int d, int kb) {
-    return align16(static_cast<long long>(sizeof(T)) * d * odd(lk)) + 4 * d * TQ + 8 * TQ * odd(lk) + align16(4LL * TQ * kb) +
-           8 * TQ;
+template <typename T>
+__host__ __device__ inline int dq_smem(int tq, int lk, int ck, int d, int kb) {
+    return align16(static_cast<long long>(sizeof(T)) * d * odd(ck)) + 4 * d * tq + 8 * tq * odd(lk) + align16(4LL * tq * kb) +
+           8 * tq;
 }
 
 template <typename T>
@@ -251,15 +266,21 @@ __host__ __device__ inline int dkv_smem(int d, int kb) {
     return 4 * (2 * d * kTK + 2 * d * kTQ2 + 2 * kTQ2 * kTK) + align16(4LL * kTQ2 * kb) + 12 * kTQ2;
 }
 
+// The FFMA forward. Keys pass through shared memory `ck` at a time (ck = lk
+// where they all fit: k and v resident, as the forward was first built);
+// the score tile stays whole, so the softmax sees whole rows. Chunks are
+// taken in key order and every sum keeps its order, so the result does not
+// depend on ck.
 template <typename T, int TQ>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ bias, int lq, int lk, int d, int kh, int kw, int tiles, T* __restrict__ out) {
+                const T* __restrict__ bias, int lq, int lk, int d, int kh, int kw, int tiles, int ck,
+                T* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int kb = kh + kw;
-    const int ldk = odd(lk);
-    T* kv = reinterpret_cast<T*>(smem);
-    float* qt = reinterpret_cast<float*>(smem + align16(static_cast<long long>(sizeof(T)) * d * ldk));
+    const int ldk = odd(lk), ldc = odd(ck);
+    T* kv = reinterpret_cast<T*>(smem);  // the chunk: k^T [d][ldc], then v [ck][d]
+    float* qt = reinterpret_cast<float*>(smem + align16(static_cast<long long>(sizeof(T)) * d * ldc));
     float* s = qt + d * TQ;
     float* bs = s + TQ * ldk;
     const int bh = blockIdx.x / tiles;
@@ -267,18 +288,25 @@ attn_fwd_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* __re
     const long long kbase = static_cast<long long>(bh) * lk * d;
     const long long qbase = static_cast<long long>(bh) * lq * d;
 
-    load_transposed(k + kbase, lk, d, kv, ldk);
     load_rows<T, TQ, true>(qs + qbase, lq, q0, d, qt);
     if (bias != nullptr) load_rows<T, TQ, false>(bias + static_cast<long long>(bh) * lq * kb, lq, q0, kb, bs);
-    __syncthreads();
-    score_tile<8, TQ>(qt, kv, ldk, lk, 0, d, bias != nullptr ? bs : nullptr, kb, kh, kw, s, ldk);
+    for (int j0 = 0; j0 < lk; j0 += ck) {
+        const int nj = min(ck, lk - j0);
+        __syncthreads();  // the previous chunk is done with
+        load_transposed(k + kbase + static_cast<long long>(j0) * d, nj, d, kv, ldc);
+        __syncthreads();
+        score_tile<8, TQ>(qt, kv, ldc, nj, j0, d, bias != nullptr ? bs : nullptr, kb, kh, kw, s + j0, ldk);
+    }
     __syncthreads();
     softmax_rows<T, TQ, true>(s, ldk, lk, nullptr);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < lk * d; idx += kThreads) kv[idx] = v[kbase + idx];
-    __syncthreads();
-    float acc[TQ / kWarps][4];
-    rows_times<T, TQ, false>(s, ldk, kv, lk, d, acc);
+    float acc[TQ / kWarps][4] = {};
+    for (int j0 = 0; j0 < lk; j0 += ck) {
+        const int nj = min(ck, lk - j0);
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < nj * d; idx += kThreads) kv[idx] = v[kbase + static_cast<long long>(j0) * d + idx];
+        __syncthreads();
+        rows_times<T, TQ, false>(s + j0, ldk, kv, nj, d, acc);
+    }
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
     for (int i = 0; i < TQ / kWarps; ++i) {
@@ -292,16 +320,19 @@ attn_fwd_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* __re
     }
 }
 
+// The FFMA dq kernel, keys `ck` at a time as the forward: k^T chunks -> the
+// scores, the softmax over whole rows, v^T chunks -> dp, ds in place of dp,
+// dbias, then k chunks -> dq.
 template <typename T, int TQ>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ bias, const T* __restrict__ dout, int lq, int lk, int d, int kh, int kw,
-                   int tiles, float scale, T* __restrict__ dq, T* __restrict__ dbias, float* __restrict__ stats) {
+                   int tiles, int ck, float scale, T* __restrict__ dq, T* __restrict__ dbias, float* __restrict__ stats) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int kb = kh + kw;
-    const int ldk = odd(lk);
+    const int ldk = odd(lk), ldc = odd(ck);
     T* kv = reinterpret_cast<T*>(smem);
-    float* qt = reinterpret_cast<float*>(smem + align16(static_cast<long long>(sizeof(T)) * d * ldk));
+    float* qt = reinterpret_cast<float*>(smem + align16(static_cast<long long>(sizeof(T)) * d * ldc));
     float* s = qt + d * TQ;
     float* g = s + TQ * ldk;
     float* bs = g + TQ * ldk;
@@ -312,18 +343,26 @@ attn_bwd_dq_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* _
     const long long qbase = static_cast<long long>(bh) * lq * d;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-    load_transposed(k + kbase, lk, d, kv, ldk);
     load_rows<T, TQ, true>(qs + qbase, lq, q0, d, qt);
     if (bias != nullptr) load_rows<T, TQ, false>(bias + static_cast<long long>(bh) * lq * kb, lq, q0, kb, bs);
-    __syncthreads();
-    score_tile<8, TQ>(qt, kv, ldk, lk, 0, d, bias != nullptr ? bs : nullptr, kb, kh, kw, s, ldk);
+    for (int j0 = 0; j0 < lk; j0 += ck) {
+        const int nj = min(ck, lk - j0);
+        __syncthreads();
+        load_transposed(k + kbase + static_cast<long long>(j0) * d, nj, d, kv, ldc);
+        __syncthreads();
+        score_tile<8, TQ>(qt, kv, ldc, nj, j0, d, bias != nullptr ? bs : nullptr, kb, kh, kw, s + j0, ldk);
+    }
     __syncthreads();
     softmax_rows<T, TQ, false>(s, ldk, lk, st);  // p, f32
     __syncthreads();
-    load_transposed(v + kbase, lk, d, kv, ldk);
     load_rows<T, TQ, true>(dout + qbase, lq, q0, d, qt);
-    __syncthreads();
-    score_tile<8, TQ>(qt, kv, ldk, lk, 0, d, static_cast<const float*>(nullptr), 0, 0, 1, g, ldk);  // dp
+    for (int j0 = 0; j0 < lk; j0 += ck) {
+        const int nj = min(ck, lk - j0);
+        __syncthreads();
+        load_transposed(v + kbase + static_cast<long long>(j0) * d, nj, d, kv, ldc);
+        __syncthreads();
+        score_tile<8, TQ>(qt, kv, ldc, nj, j0, d, static_cast<const float*>(nullptr), 0, 0, 1, g + j0, ldk);  // dp
+    }
     __syncthreads();
     for (int r = warp; r < TQ; r += kWarps) {  // ds = p (dp - rowsum(dp p)), in place of dp
         const float* p = s + r * ldk;
@@ -356,10 +395,14 @@ attn_bwd_dq_kernel(const T* __restrict__ qs, const T* __restrict__ k, const T* _
             dbias[(static_cast<long long>(bh) * lq + q) * kb + e] = from_f<T>(sum);
         }
     }
-    for (int idx = threadIdx.x; idx < lk * d; idx += kThreads) kv[idx] = k[kbase + idx];
-    __syncthreads();
-    float acc[TQ / kWarps][4];
-    rows_times<T, TQ, true>(g, ldk, kv, lk, d, acc);
+    float acc[TQ / kWarps][4] = {};
+    for (int j0 = 0; j0 < lk; j0 += ck) {
+        const int nj = min(ck, lk - j0);
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < nj * d; idx += kThreads) kv[idx] = k[kbase + static_cast<long long>(j0) * d + idx];
+        __syncthreads();
+        rows_times<T, TQ, true>(g + j0, ldk, kv, nj, d, acc);
+    }
 #pragma unroll
     for (int i = 0; i < TQ / kWarps; ++i) {
         const int row = q0 + warp + kWarps * i;
@@ -619,6 +662,24 @@ __device__ __forceinline__ void score_chunk(float (&s)[2][4], const unsigned (&q
         }
 }
 
+// dp = dO v^T for the 16 keys kc .. kc + 15 (C fragments of two n-tiles),
+// from the warp's dO fragments and v in shared memory ([keys][ld]).
+template <int KD>
+__device__ __forceinline__ void dp_chunk(float (&p)[2][4], const unsigned (&of)[KD][4], const __nv_bfloat16* vs, int ld,
+                                         int kc, int lane) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[n][e] = 0.0f;
+#pragma unroll
+    for (int st = 0; st < KD; ++st) {
+        unsigned b[4];
+        ldsm_x4(b, bt_addr(vs, ld, kc, st * 16, lane));
+        mma_bf16(p[0], of[st], b[0], b[1]);
+        mma_bf16(p[1], of[st], b[2], b[3]);
+    }
+}
+
 // Shared memory of the dq kernel at head width dp = 16 KD: k and v [lkp][dp +
 // kPad], then one region that first holds the q and dO tiles [16 warps][dp +
 // kPad] and then, per warp, ds of a 16-key chunk [16][17] f32 and the dbias
@@ -653,7 +714,7 @@ __host__ __device__ inline int fwd_mma_smem(int lk, int dp, int kb) {
 // lands while pass A runs). Each warp makes two passes over the keys in
 // chunks of 16: (A) the scores (bias added into the C fragments) -> the row
 // max and the row sum, online (the sum rescaled when the max grows); (B) the
-// scores again -> p = exp(s - m) / l, normalised before it is rounded to
+// scores again -> p = exp(s - m) (1 / l), normalised before it is rounded to
 // bf16 as the JAX kernel rounds it, and out += round(p) v with p's C
 // fragments re-used as the A operand and v read through ldmatrix.trans. The
 // output goes out through shared memory in 16-byte stores.
@@ -716,7 +777,9 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restri
     __syncthreads();  // v is in
     if (!active) return;
 
-    // (B) out = round(p) v
+    // (B) out = round(p) v, p = exp(s - m) times 1 / l: one division a row
+    // (a division in the loop calls its slow path, whose frame spilled at D = 64)
+    const float rl[2] = {1.0f / l[0], 1.0f / l[1]};
     float acc[2 * KD][4];
 #pragma unroll
     for (int n = 0; n < 2 * KD; ++n)
@@ -728,7 +791,7 @@ attn_fwd_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restri
 #pragma unroll
         for (int n = 0; n < 2; ++n)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - m[e >> 1]) / l[e >> 1];
+            for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - m[e >> 1]) * rl[e >> 1];
         unsigned a[4];
         a_from_c(a, s[0], s[1]);
 #pragma unroll
@@ -811,19 +874,7 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __res
     float* bkt = dsc + 16 * 17;                                              // [16][kb]
     const float* const brow[2] = {bs + (warp * 16 + g) * kb, bs + (warp * 16 + g + 8) * kb};
     auto scores = [&](float (&s)[2][4], int kc) { score_chunk<KD>(s, qf, ks, LD, kc, lk, kb, kidx, brow, lane); };
-    auto dps = [&](float (&p)[2][4], int kc) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) p[n][e] = 0.0f;
-#pragma unroll
-        for (int st = 0; st < KD; ++st) {
-            unsigned b[4];
-            ldsm_x4(b, bt_addr(vs, LD, kc, st * 16, lane));
-            mma_bf16(p[0], of[st], b[0], b[1]);
-            mma_bf16(p[1], of[st], b[2], b[3]);
-        }
-    };
+    auto dps = [&](float (&p)[2][4], int kc) { dp_chunk<KD>(p, of, vs, LD, kc, lane); };
 
     // (A) row max, row sum and rowsum(dp p), online
     float m[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)}, l[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f};
@@ -850,11 +901,12 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __res
             u[h] = dot;
         }
     }
-    float delta[2];
+    float delta[2], rl[2];  // one division a row, as in the forward
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
         l[h] = quad_sum(l[h]);
-        delta[h] = quad_sum(u[h]) / l[h];
+        rl[h] = 1.0f / l[h];
+        delta[h] = quad_sum(u[h]) * rl[h];
     }
 
     // (B) ds -> dbias and dq
@@ -874,7 +926,7 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __res
         for (int n = 0; n < 2; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const float p = expf(s[n][e] - m[e >> 1]) / l[e >> 1];
+                const float p = expf(s[n][e] - m[e >> 1]) * rl[e >> 1];
                 ds[n][e] = p * (ds[n][e] - delta[e >> 1]);
             }
         if (kb > 0) {
@@ -934,6 +986,278 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __res
     if (kb > 0 && r0 + own < lq) {
         __nv_bfloat16* out = dbias + (static_cast<long long>(bh) * lq + r0 + own) * kb;
         for (int e = width ? kh : 0; e < (width ? kb : kh); ++e) out[e] = __float2bfloat16(bkt[own * kb + e]);
+    }
+}
+
+// ---------------------------------------------------------------- streamed over keys (no bias)
+//
+// The no-bias forward and dq (AST; at AST-base's 1214 keys, D = 64, k and v
+// alone would take 175 KB of shared memory) keep the resident kernels' two
+// passes and their 16-key arithmetic but take the keys through shared memory
+// kChunk at a time, double-buffered with cp.async: one sequence of 2 x
+// chunks stages, pass A's then pass B's, the next stage's copy in flight
+// while the block computes the current one. Shared memory does not grow with
+// Lk, so they take any key length. A padded key scores -inf in every chunk,
+// as in the resident kernels; a 16-key step past the chunk's last key is
+// skipped. Each key's scores, and every sum, are the resident kernels' in
+// the same order. Every bf16 no-bias call comes here; the decomposed bias
+// mode keeps the resident kernels (and their shared-memory limit).
+
+constexpr int kChunk = 64;        // keys a stage of the streamed kernels
+constexpr int kStreamWarps = 8;   // warps (16 query rows each) a block of the streamed kernels
+
+// Shared memory of the streamed kernels at head width dp: k and v, two
+// buffers each [kChunk][dp + kPad], and the q tile (dq: q and dO tiles)
+// [16 kStreamWarps][dp + kPad], bf16.
+__host__ __device__ inline int fwd_stream_smem(int dp) {
+    return 2 * (2 * 2 * kChunk + 16 * kStreamWarps) * (dp + kPad);
+}
+__host__ __device__ inline int dq_stream_smem(int dp) {
+    return 2 * (2 * 2 * kChunk + 2 * 16 * kStreamWarps) * (dp + kPad);
+}
+
+// The forward, streamed: attn_fwd_mma's passes over kChunk-key stages.
+template <int KD>
+__global__ void __launch_bounds__(32 * kStreamWarps)
+attn_fwd_mma_stream(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, int lq, int lk, int d, int tiles,
+                    __nv_bfloat16* __restrict__ out) {
+    constexpr int DP = 16 * KD, LD = DP + kPad, ROWS = 16 * kStreamWarps, CK = kChunk;
+    extern __shared__ __align__(16) unsigned char smem[];
+    __nv_bfloat16* kbuf = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][CK][LD]
+    __nv_bfloat16* vbuf = kbuf + 2 * CK * LD;                       // [2][CK][LD]
+    __nv_bfloat16* qt = vbuf + 2 * CK * LD;                         // [ROWS][LD]
+    const int bh = blockIdx.x / tiles;
+    const int q0 = (blockIdx.x % tiles) * ROWS;
+    const long long kbase = static_cast<long long>(bh) * lk * d;
+    const long long qbase = static_cast<long long>(bh) * lq * d;
+    const int chunks = (lk + CK - 1) / CK, stages = 2 * chunks;
+    // stage i < chunks: k of chunk i (pass A); else k and v of chunk i - chunks (pass B); buffer i & 1
+    auto stage = [&](int i) {
+        const int c = i < chunks ? i : i - chunks;
+        stage_rows(kbuf + (i & 1) * CK * LD, LD, k + kbase, lk, c * CK, CK, d, DP);
+        if (i >= chunks) stage_rows(vbuf + (i & 1) * CK * LD, LD, v + kbase, lk, c * CK, CK, d, DP);
+        cp_async_commit();
+    };
+    stage_rows(qt, LD, qs + qbase, lq, q0, ROWS, d, DP);
+    stage(0);
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + warp * 16;
+    const bool active = r0 < lq;
+    const float* const brow[2] = {nullptr, nullptr};
+    unsigned qf[KD][4];
+    float m[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)}, l[2] = {0.0f, 0.0f}, rl[2];
+    float acc[2 * KD][4];
+#pragma unroll
+    for (int n = 0; n < 2 * KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+    for (int i = 0; i < stages; ++i) {
+        cp_async_wait_all();
+        __syncthreads();  // stage i is in; every warp is done with the buffer stage i + 1 fills
+        if (i == 0) {
+#pragma unroll
+            for (int s = 0; s < KD; ++s) ldsm_x4(qf[s], a_addr(qt, LD, warp * 16, s * 16, lane));
+        }
+        if (i + 1 < stages) stage(i + 1);
+        if (i == chunks) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) rl[h] = 1.0f / quad_sum(l[h]);
+        }
+        if (!active) continue;
+        const int c = i < chunks ? i : i - chunks;
+        const int valid = min(CK, lk - c * CK);
+        const __nv_bfloat16* ks = kbuf + (i & 1) * CK * LD;
+        if (i < chunks) {  // (A) row max and row sum, online
+            for (int kc = 0; kc < valid; kc += 16) {
+                float s[2][4];
+                score_chunk<KD>(s, qf, ks, LD, kc, valid, 0, nullptr, brow, lane);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float cm = quad_max(fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]), fmaxf(s[1][2 * h], s[1][2 * h + 1])));
+                    const float mn = fmaxf(m[h], cm);
+                    float sum = l[h] * expf(m[h] - mn);
+#pragma unroll
+                    for (int n = 0; n < 2; ++n)
+#pragma unroll
+                        for (int e = 2 * h; e < 2 * h + 2; ++e) sum += expf(s[n][e] - mn);
+                    m[h] = mn;
+                    l[h] = sum;
+                }
+            }
+        } else {  // (B) out += round(p) v
+            const __nv_bfloat16* vs = vbuf + (i & 1) * CK * LD;
+            for (int kc = 0; kc < valid; kc += 16) {
+                float s[2][4];
+                score_chunk<KD>(s, qf, ks, LD, kc, valid, 0, nullptr, brow, lane);
+#pragma unroll
+                for (int n = 0; n < 2; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) s[n][e] = expf(s[n][e] - m[e >> 1]) * rl[e >> 1];
+                unsigned a[4];
+                a_from_c(a, s[0], s[1]);
+#pragma unroll
+                for (int dn = 0; dn < KD; ++dn) {
+                    unsigned b[4];
+                    ldsm_x4_t(b, bn_addr(vs, LD, kc, dn * 16, lane));
+                    mma_bf16(acc[2 * dn], a, b[0], b[1]);
+                    mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
+                }
+            }
+        }
+    }
+    if (!active) return;
+
+    // out through the warp's own rows of the q tile, 16 bytes a store
+    __nv_bfloat16* ot = qt + warp * 16 * LD;
+#pragma unroll
+    for (int n = 0; n < 2 * KD; ++n) {
+        const int c = 8 * n + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(ot + g * LD + c) = __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+        *reinterpret_cast<__nv_bfloat162*>(ot + (g + 8) * LD + c) = __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+    }
+    __syncwarp();
+    const int dchunks = d / 8;
+    for (int idx = lane; idx < 16 * dchunks; idx += 32) {
+        const int r = idx / dchunks, c = (idx - r * dchunks) * 8;
+        if (r0 + r < lq)
+            *reinterpret_cast<uint4*>(out + qbase + static_cast<long long>(r0 + r) * d + c) =
+                *reinterpret_cast<const uint4*>(ot + r * LD + c);
+    }
+}
+
+// dq and the row statistics, streamed: attn_bwd_dq_mma's passes (no bias)
+// over kChunk-key stages, each stage bringing that chunk's k and v.
+template <int KD>
+__global__ void __launch_bounds__(32 * kStreamWarps)
+attn_bwd_dq_mma_stream(const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout, int lq, int lk,
+                       int d, int tiles, float scale, __nv_bfloat16* __restrict__ dq, float* __restrict__ stats) {
+    constexpr int DP = 16 * KD, LD = DP + kPad, ROWS = 16 * kStreamWarps, CK = kChunk;
+    extern __shared__ __align__(16) unsigned char smem[];
+    __nv_bfloat16* kbuf = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][CK][LD]
+    __nv_bfloat16* vbuf = kbuf + 2 * CK * LD;                       // [2][CK][LD]
+    __nv_bfloat16* qt = vbuf + 2 * CK * LD;                         // [ROWS][LD]
+    __nv_bfloat16* ot = qt + ROWS * LD;                             // [ROWS][LD]
+    const int bh = blockIdx.x / tiles;
+    const int q0 = (blockIdx.x % tiles) * ROWS;
+    const long long kbase = static_cast<long long>(bh) * lk * d;
+    const long long qbase = static_cast<long long>(bh) * lq * d;
+    const int chunks = (lk + CK - 1) / CK, stages = 2 * chunks;
+    auto stage = [&](int i) {  // k and v of chunk i % chunks into buffer i & 1
+        const int c = i < chunks ? i : i - chunks;
+        stage_rows(kbuf + (i & 1) * CK * LD, LD, k + kbase, lk, c * CK, CK, d, DP);
+        stage_rows(vbuf + (i & 1) * CK * LD, LD, v + kbase, lk, c * CK, CK, d, DP);
+        cp_async_commit();
+    };
+    stage_rows(qt, LD, qs + qbase, lq, q0, ROWS, d, DP);
+    stage_rows(ot, LD, dout + qbase, lq, q0, ROWS, d, DP);
+    stage(0);
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + warp * 16;
+    const bool active = r0 < lq;
+    const float* const brow[2] = {nullptr, nullptr};
+    unsigned qf[KD][4], of[KD][4];
+    float m[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)}, l[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f};
+    float delta[2] = {0.0f, 0.0f}, rl[2] = {0.0f, 0.0f};
+    float acc[2 * KD][4];
+#pragma unroll
+    for (int n = 0; n < 2 * KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+    for (int i = 0; i < stages; ++i) {
+        cp_async_wait_all();
+        __syncthreads();
+        if (i == 0) {
+#pragma unroll
+            for (int s = 0; s < KD; ++s) {
+                ldsm_x4(qf[s], a_addr(qt, LD, warp * 16, s * 16, lane));
+                ldsm_x4(of[s], a_addr(ot, LD, warp * 16, s * 16, lane));
+            }
+        }
+        if (i + 1 < stages) stage(i + 1);
+        if (i == chunks) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                l[h] = quad_sum(l[h]);
+                rl[h] = 1.0f / l[h];
+                delta[h] = quad_sum(u[h]) * rl[h];
+            }
+        }
+        if (!active) continue;
+        const int c = i < chunks ? i : i - chunks;
+        const int valid = min(CK, lk - c * CK);
+        const __nv_bfloat16* ks = kbuf + (i & 1) * CK * LD;
+        const __nv_bfloat16* vs = vbuf + (i & 1) * CK * LD;
+        for (int kc = 0; kc < valid; kc += 16) {
+            float s[2][4], dp[2][4];
+            score_chunk<KD>(s, qf, ks, LD, kc, valid, 0, nullptr, brow, lane);
+            dp_chunk<KD>(dp, of, vs, LD, kc, lane);
+            if (i < chunks) {  // (A) row max, row sum and rowsum(dp p), online
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float cm = quad_max(fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]), fmaxf(s[1][2 * h], s[1][2 * h + 1])));
+                    const float mn = fmaxf(m[h], cm);
+                    const float r = expf(m[h] - mn);
+                    float sum = l[h] * r, dot = u[h] * r;
+#pragma unroll
+                    for (int n = 0; n < 2; ++n)
+#pragma unroll
+                        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+                            const float x = expf(s[n][e] - mn);
+                            sum += x;
+                            dot = fmaf(dp[n][e], x, dot);
+                        }
+                    m[h] = mn;
+                    l[h] = sum;
+                    u[h] = dot;
+                }
+            } else {  // (B) ds, dq += round(ds) k
+#pragma unroll
+                for (int n = 0; n < 2; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float p = expf(s[n][e] - m[e >> 1]) * rl[e >> 1];
+                        dp[n][e] = p * (dp[n][e] - delta[e >> 1]);
+                    }
+                unsigned a[4];
+                a_from_c(a, dp[0], dp[1]);
+#pragma unroll
+                for (int dn = 0; dn < KD; ++dn) {
+                    unsigned b[4];
+                    ldsm_x4_t(b, bn_addr(ks, LD, kc, dn * 16, lane));
+                    mma_bf16(acc[2 * dn], a, b[0], b[1]);
+                    mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
+                }
+            }
+        }
+    }
+    if (!active) return;
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int q = r0 + g + 8 * h;
+        if (q >= lq) continue;
+#pragma unroll
+        for (int n = 0; n < 2 * KD; ++n) {
+            const int c = 8 * n + 2 * t;
+            if (c < d) {
+                const float x0 = round_to<__nv_bfloat16>(acc[n][2 * h]) * scale;
+                const float x1 = round_to<__nv_bfloat16>(acc[n][2 * h + 1]) * scale;
+                *reinterpret_cast<__nv_bfloat162*>(dq + qbase + static_cast<long long>(q) * d + c) =
+                    __floats2bfloat162_rn(x0, x1);
+            }
+        }
+        if (t == 0) {
+            float* out = stats + (static_cast<long long>(bh) * lq + q) * 3;
+            out[0] = m[h];
+            out[1] = l[h];
+            out[2] = delta[h];
+        }
     }
 }
 
@@ -1181,14 +1505,16 @@ bool dkv_mma_fits(int lk, int d, int kb) {
     return kDkvQ * (kb + 3) <= kPrefetch * 32 * w && dkv_mma_smem(w, dp, kb) <= kSmemLimit;
 }
 
+// The resident tensor-core forward and dq take the bias mode where its keys
+// fit; the no-bias mode goes to the streamed kernels at every key length.
 bool fwd_mma_fits(int lk, int d, int kb) {
     const int dp = mma_width(d);
-    return dp && fwd_mma_smem(lk, dp, kb) <= kSmemLimit;
+    return kb > 0 && dp && fwd_mma_smem(lk, dp, kb) <= kSmemLimit;
 }
 
 bool dq_mma_fits(int lk, int d, int kb) {
     const int dp = mma_width(d);
-    return dp && dq_mma_smem(lk, dp, kb) <= kSmemLimit;
+    return kb > 0 && dp && dq_mma_smem(lk, dp, kb) <= kSmemLimit;
 }
 
 int sm_count() {
@@ -1273,54 +1599,79 @@ int prepare(Kernel kernel, int smem) {
     return 0;
 }
 
-// Query rows per block of the FFMA forward (attn_fwd_kernel): 32, 16 or 8,
-// whichever fits in shared memory, else 0.
+constexpr int kChunkF = 64;  // keys a chunk of the FFMA forward and dq where not all keys fit
+
+struct FfmaPlan {
+    int rows, chunk;  // query rows a block (0: the shape does not fit) and keys a chunk
+};
+
+// Launch shape of the FFMA forward (which = 0) or dq kernel (1): every key
+// resident (chunk = lk) at the most query rows that fit (forward 32, 16 or
+// 8; dq 16 or 8: at 32 rows ptxas spilled it); else kChunkF-key chunks, where
+// only the whole score tile grows with Lk.
 template <typename T>
-int fwd_ffma_rows(int lk, int d, int kb) {
-    if (fwd_smem<T, 32>(lk, d, kb) <= kSmemLimit) return 32;
-    if (fwd_smem<T, 16>(lk, d, kb) <= kSmemLimit) return 16;
-    if (fwd_smem<T, 8>(lk, d, kb) <= kSmemLimit) return 8;
-    return 0;
+FfmaPlan ffma_plan(int which, int lk, int d, int kb) {
+    const int chunks[2] = {lk, lk < kChunkF ? lk : kChunkF}, rows[3] = {32, 16, 8};
+    for (int ck : chunks)
+        for (int tq : rows)
+            if (which == 0 ? fwd_smem<T>(tq, lk, ck, d, kb) <= kSmemLimit
+                           : tq < 32 && dq_smem<T>(tq, lk, ck, d, kb) <= kSmemLimit)
+                return {tq, ck};
+    return {0, 0};
 }
+
+// The streamed tensor-core kernels take the no-bias mode at any key length.
+bool stream_mma_takes(int d, int kb) { return kb == 0 && mma_width(d) != 0; }
 
 template <typename T>
 int tile_rows(int which, int lk, int d, int kb) {
     if (sizeof(T) == 2 && which == 0 && fwd_mma_fits(lk, d, kb)) return 16 * mma_row_warps(lk);
-    if (sizeof(T) == 2 && which == 1) return dq_mma_fits(lk, d, kb) ? 16 * mma_row_warps(lk) : 0;
-    if (sizeof(T) == 2 && which == 2) return dkv_mma_fits(lk, d, kb) ? kDkvQ : 0;
-    if (which == 0) return fwd_ffma_rows<T>(lk, d, kb);
-    if (which == 1) {
-        if (dq_smem<T, 32>(lk, d, kb) <= kSmemLimit) return 32;
-        if (dq_smem<T, 16>(lk, d, kb) <= kSmemLimit) return 16;
-        if (dq_smem<T, 8>(lk, d, kb) <= kSmemLimit) return 8;
-        return 0;
+    if (sizeof(T) == 2 && which == 0 && stream_mma_takes(d, kb)) return 16 * kStreamWarps;
+    if (sizeof(T) == 2 && which == 1) {
+        if (dq_mma_fits(lk, d, kb)) return 16 * mma_row_warps(lk);
+        return stream_mma_takes(d, kb) ? 16 * kStreamWarps : 0;
     }
+    if (sizeof(T) == 2 && which == 2) return dkv_mma_fits(lk, d, kb) ? kDkvQ : 0;
+    if (which < 2) return ffma_plan<T>(which, lk, d, kb).rows;
     return dkv_smem<T>(d, kb) <= kSmemLimit ? kTQ2 : 0;
 }
 
 template <typename T, int TQ>
 int fwd_launch(const void* qs, const void* k, const void* v, const void* bias, int bh, int lq, int lk, int d,
-               int kh, int kw, void* out, cudaStream_t stream) {
-    const int smem = fwd_smem<T, TQ>(lk, d, kh + kw);
+               int kh, int kw, int ck, void* out, cudaStream_t stream) {
+    const int smem = fwd_smem<T>(TQ, lk, ck, d, kh + kw);
     const int err = prepare(attn_fwd_kernel<T, TQ>, smem);
     if (err) return err;
     const int tiles = (lq + TQ - 1) / TQ;
     attn_fwd_kernel<T, TQ><<<bh * tiles, kThreads, smem, stream>>>(
         static_cast<const T*>(qs), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(bias),
-        lq, lk, d, kh, kw, tiles, static_cast<T*>(out));
+        lq, lk, d, kh, kw, tiles, ck, static_cast<T*>(out));
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fwd_ffma(const void* qs, const void* k, const void* v, const void* bias, int bh, int lq, int lk, int d, int kh,
+             int kw, void* out, cudaStream_t s) {
+    const FfmaPlan p = ffma_plan<T>(0, lk, d, kh + kw);
+    switch (p.rows) {
+        case 32: return fwd_launch<T, 32>(qs, k, v, bias, bh, lq, lk, d, kh, kw, p.chunk, out, s);
+        case 16: return fwd_launch<T, 16>(qs, k, v, bias, bh, lq, lk, d, kh, kw, p.chunk, out, s);
+        case 8: return fwd_launch<T, 8>(qs, k, v, bias, bh, lq, lk, d, kh, kw, p.chunk, out, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 template <typename T, int TQ>
 int dq_launch(const void* qs, const void* k, const void* v, const void* bias, const void* dout, int bh, int lq,
-              int lk, int d, int kh, int kw, float scale, void* dq, void* dbias, float* stats, cudaStream_t stream) {
-    const int smem = dq_smem<T, TQ>(lk, d, kh + kw);
+              int lk, int d, int kh, int kw, int ck, float scale, void* dq, void* dbias, float* stats,
+              cudaStream_t stream) {
+    const int smem = dq_smem<T>(TQ, lk, ck, d, kh + kw);
     const int err = prepare(attn_bwd_dq_kernel<T, TQ>, smem);
     if (err) return err;
     const int tiles = (lq + TQ - 1) / TQ;
     attn_bwd_dq_kernel<T, TQ><<<bh * tiles, kThreads, smem, stream>>>(
         static_cast<const T*>(qs), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(bias),
-        static_cast<const T*>(dout), lq, lk, d, kh, kw, tiles, scale, static_cast<T*>(dq), static_cast<T*>(dbias),
+        static_cast<const T*>(dout), lq, lk, d, kh, kw, tiles, ck, scale, static_cast<T*>(dq), static_cast<T*>(dbias),
         stats);
     return static_cast<int>(cudaGetLastError());
 }
@@ -1339,6 +1690,34 @@ int dkv_launch(const void* qs, const void* k, const void* v, const void* bias, c
     return static_cast<int>(cudaGetLastError());
 }
 
+template <int KD>
+int fwd_stream_launch(const void* qs, const void* k, const void* v, int bh, int lq, int lk, int d, void* out,
+                      cudaStream_t stream) {
+    const int smem = fwd_stream_smem(16 * KD);
+    const int err = prepare(attn_fwd_mma_stream<KD>, smem);
+    if (err) return err;
+    const int tiles = (lq + 16 * kStreamWarps - 1) / (16 * kStreamWarps);
+    using B = __nv_bfloat16;
+    attn_fwd_mma_stream<KD><<<bh * tiles, 32 * kStreamWarps, smem, stream>>>(
+        static_cast<const B*>(qs), static_cast<const B*>(k), static_cast<const B*>(v), lq, lk, d, tiles,
+        static_cast<B*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int KD>
+int dq_stream_launch(const void* qs, const void* k, const void* v, const void* dout, int bh, int lq, int lk, int d,
+                     float scale, void* dq, float* stats, cudaStream_t stream) {
+    const int smem = dq_stream_smem(16 * KD);
+    const int err = prepare(attn_bwd_dq_mma_stream<KD>, smem);
+    if (err) return err;
+    const int tiles = (lq + 16 * kStreamWarps - 1) / (16 * kStreamWarps);
+    using B = __nv_bfloat16;
+    attn_bwd_dq_mma_stream<KD><<<bh * tiles, 32 * kStreamWarps, smem, stream>>>(
+        static_cast<const B*>(qs), static_cast<const B*>(k), static_cast<const B*>(v), static_cast<const B*>(dout), lq,
+        lk, d, tiles, scale, static_cast<B*>(dq), stats);
+    return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_shape(int bh, int lq, int lk, int d, int kh, int kw) {
     return bh <= 0 || lq <= 0 || lk <= 0 || d <= 0 || d > kMaxD || kh < 0 || kw < 0 || (kh + kw > 0 && kh * kw != lk);
 }
@@ -1347,9 +1726,10 @@ bool bad_shape(int bh, int lq, int lk, int d, int kh, int kw) {
 
 // Query rows per block that kernel `which` (0 forward, 1 dq/dbias, 2 dk/dv)
 // takes for these keys, head width and bias width, in bf16 (1) or f32 (0);
-// 0 when the keys do not fit in shared memory. In bf16 the forward reports
-// attn_fwd_mma's rows (64 or 128) where it takes the shape, else the FFMA
-// kernel's.
+// 0 when the shape does not fit in shared memory. In bf16 the forward and dq
+// report the tensor-core kernels' rows (resident with a bias: 64 or 128;
+// streamed without: 128) where they take the shape; the forward else reports
+// the FFMA kernel's.
 extern "C" int audiossl_attn_tile(int which, int lk, int d, int kb, int bf16) {
     return bf16 ? tile_rows<__nv_bfloat16>(which, lk, d, kb) : tile_rows<float>(which, lk, d, kb);
 }
@@ -1371,15 +1751,17 @@ extern "C" int audiossl_attn_fwd(const void* qs, const void* k, const void* v, c
             default: return static_cast<int>(cudaErrorInvalidValue);
         }
     }
-    switch ((bf16 ? fwd_ffma_rows<__nv_bfloat16>(lk, d, kh + kw) : fwd_ffma_rows<float>(lk, d, kh + kw)) * 2 + (bf16 ? 1 : 0)) {
-        case 64: return fwd_launch<float, 32>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
-        case 32: return fwd_launch<float, 16>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
-        case 16: return fwd_launch<float, 8>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
-        case 65: return fwd_launch<__nv_bfloat16, 32>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
-        case 33: return fwd_launch<__nv_bfloat16, 16>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
-        case 17: return fwd_launch<__nv_bfloat16, 8>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16 && stream_mma_takes(d, kh + kw)) {
+        switch (mma_width(d) / 16) {
+            case 2: return fwd_stream_launch<2>(qs, k, v, bh, lq, lk, d, out, s);
+            case 4: return fwd_stream_launch<4>(qs, k, v, bh, lq, lk, d, out, s);
+            case 6: return fwd_stream_launch<6>(qs, k, v, bh, lq, lk, d, out, s);
+            case 8: return fwd_stream_launch<8>(qs, k, v, bh, lq, lk, d, out, s);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
     }
+    return bf16 ? fwd_ffma<__nv_bfloat16>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s)
+                : fwd_ffma<float>(qs, k, v, bias, bh, lq, lk, d, kh, kw, out, s);
 }
 
 // dout [bh, lq, d]; writes dq [bh, lq, d] (times `scale`), dbias [bh, lq, kh + kw]
@@ -1389,8 +1771,7 @@ extern "C" int audiossl_attn_bwd_dq(const void* qs, const void* k, const void* v
                                     void* dbias, float* stats, void* stream) {
     if (bad_shape(bh, lq, lk, d, kh, kw) || (bias == nullptr) != (kh + kw == 0)) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (bf16) {
-        if (!dq_mma_fits(lk, d, kh + kw)) return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16 && dq_mma_fits(lk, d, kh + kw)) {
         switch (mma_width(d) / 16) {
             case 2: return dq_mma_launch<2>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
             case 4: return dq_mma_launch<4>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
@@ -1399,10 +1780,20 @@ extern "C" int audiossl_attn_bwd_dq(const void* qs, const void* k, const void* v
             default: return static_cast<int>(cudaErrorInvalidValue);
         }
     }
-    switch (audiossl_attn_tile(1, lk, d, kh + kw, 0)) {
-        case 32: return dq_launch<float, 32>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
-        case 16: return dq_launch<float, 16>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
-        case 8: return dq_launch<float, 8>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, scale, dq, dbias, stats, s);
+    if (bf16) {
+        if (!stream_mma_takes(d, kh + kw)) return static_cast<int>(cudaErrorInvalidValue);
+        switch (mma_width(d) / 16) {
+            case 2: return dq_stream_launch<2>(qs, k, v, dout, bh, lq, lk, d, scale, dq, stats, s);
+            case 4: return dq_stream_launch<4>(qs, k, v, dout, bh, lq, lk, d, scale, dq, stats, s);
+            case 6: return dq_stream_launch<6>(qs, k, v, dout, bh, lq, lk, d, scale, dq, stats, s);
+            case 8: return dq_stream_launch<8>(qs, k, v, dout, bh, lq, lk, d, scale, dq, stats, s);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
+    const FfmaPlan p = ffma_plan<float>(1, lk, d, kh + kw);
+    switch (p.rows) {
+        case 16: return dq_launch<float, 16>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, p.chunk, scale, dq, dbias, stats, s);
+        case 8: return dq_launch<float, 8>(qs, k, v, bias, dout, bh, lq, lk, d, kh, kw, p.chunk, scale, dq, dbias, stats, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

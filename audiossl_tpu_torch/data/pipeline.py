@@ -14,14 +14,22 @@ consuming thread, so the batches do not depend on the number of workers.
 After each batch ``position`` holds (epoch, next batch, window-rng state),
 which a checkpoint stores so that a resumed run continues the same stream.
 
-Not ported (ROADMAP.md Queue 1, item 1): tar-shard rows, ``host_shard``,
-``balanced`` sampling, labelled manifests and the native C++ loader.
+Labelled manifests (the downstream probe's) name their file and label
+columns; ids come from ``labels_map`` or, as in JAX, from the sorted set of
+the labels. ``balanced`` draws the epoch's order with replacement, each clip
+weighted by the inverse of its class's count, from ``default_rng(seed +
+epoch)`` as the JAX loader does. Eval loaders take ``shuffle=False`` and
+``drop_last=False``.
+
+Not ported (ROADMAP.md Queue 1, item 5): tar-shard rows, ``host_shard`` and
+the native C++ loader.
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
 import logging
+import os
 from typing import Any, Iterator
 
 import numpy as np
@@ -32,13 +40,15 @@ from audiossl_tpu_torch.ops.windowing import extract_window_np
 
 log = logging.getLogger("audiossl_tpu_torch.data")
 
-_TODO = "is not ported yet (ROADMAP.md Queue 1, item 1: host data)"
+_TODO = "is not ported yet (ROADMAP.md Queue 1, item 5: host data)"
 PREFETCH_BATCHES = 4
 
 
 class ManifestLoader:
-    """Iterates (waves [B, L], None) batches from a CSV with a ``files`` column
-    (the reference upstream dataset, src/dataset/upstream_dataset.py:50-88)."""
+    """Iterates (waves [B, L], labels [B] int64 or None) batches from a CSV:
+    the reference upstream dataset's ``files`` column
+    (src/dataset/upstream_dataset.py:50-88), or a labelled manifest's file
+    and label columns."""
 
     def __init__(
         self,
@@ -47,31 +57,45 @@ class ManifestLoader:
         clip_samples: int,
         sample_rate: int = 16000,
         labeled: bool = False,
+        shuffle: bool = True,
         drop_last: bool = True,
         seed: int = 0,
         num_workers: int = 8,
+        file_col: str = "files",
+        label_col: str = "label",
+        labels_map: dict | None = None,
+        path_prefix: str | None = None,
         wire_dtype: str = "float32",
         host_shard: tuple[int, int] | None = None,
         on_error: str = "raise",
         balanced: bool = False,
     ):
-        if labeled:
-            raise NotImplementedError(f"a labelled manifest {_TODO}")
         if host_shard is not None:
             raise NotImplementedError(f"host_shard {_TODO}")
-        if balanced:
-            raise NotImplementedError(f"balanced sampling {_TODO}")
         if on_error not in ("raise", "zeros"):
             raise ValueError(f"on_error must be 'raise' or 'zeros', got {on_error!r}")
         if wire_dtype not in ("float32", "int16"):
             raise ValueError(f"wire_dtype must be 'float32' or 'int16', got {wire_dtype!r}")
         self.df = csv_path.reset_index(drop=True) if isinstance(csv_path, pd.DataFrame) else pd.read_csv(csv_path)
-        self.files = self.df["files"].tolist()
+        self.files = self.df[file_col].tolist()
+        if path_prefix:
+            self.files = [os.path.join(path_prefix, f) for f in self.files]
         if any(f.endswith(".tar") or "::" in f for f in self.files):
             raise NotImplementedError(f"tar-shard manifest rows {_TODO}")
+        self.labels = None
+        if labeled:  # the train split's ids are reused for valid and test (train_downstream.py:59)
+            self.label_to_id = labels_map or {lab: i for i, lab in enumerate(sorted(set(self.df[label_col])))}
+            self.labels = np.asarray([self.label_to_id[lab] for lab in self.df[label_col]], np.int64)
+        self.balanced = balanced
+        if balanced:  # inverse class frequency, with replacement (moco_dataset.py:154-166)
+            if self.labels is None:
+                raise ValueError("balanced=True requires a labeled manifest")
+            w = 1.0 / np.bincount(self.labels)[self.labels]
+            self.balanced_p = w / w.sum()
         self.batch_size = batch_size
         self.clip_samples = clip_samples
         self.sample_rate = sample_rate
+        self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.num_workers = num_workers
@@ -107,21 +131,31 @@ class ManifestLoader:
             out = np.clip(out * 32768.0, -32768, 32767).astype(np.int16)
         return out
 
+    def epoch_order(self, epoch: int) -> np.ndarray:
+        """The clips of ``epoch`` in order: a weighted draw (balanced), a
+        shuffle, or the manifest's own order."""
+        if self.balanced:
+            n = len(self.files)
+            return np.random.default_rng(self.seed + epoch).choice(n, size=n, replace=True, p=self.balanced_p)
+        order = np.arange(len(self.files))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        return order
+
     def epoch(self, epoch: int = 0, start: int = 0, rng_state: dict | None = None) -> Iterator:
         """Batches ``start`` .. of ``epoch``; ``rng_state`` is the window-rng
         state a checkpoint saved at ``start`` (``position``)."""
-        order = np.arange(len(self.files))
-        np.random.default_rng(self.seed + epoch).shuffle(order)
+        order = self.epoch_order(epoch)
         n_batches = len(self)
         rng = np.random.default_rng((self.seed, epoch))
         if rng_state is not None:
             rng.bit_generator.state = rng_state
         batch_idx = lambda b: order[b * self.batch_size : (b + 1) * self.batch_size]
 
-        def finish(b: int, waves: list) -> tuple[np.ndarray, None]:
+        def finish(b: int, waves: list) -> tuple[np.ndarray, np.ndarray | None]:
             batch = self._window(waves, rng)
             self.position = {"epoch": epoch, "batch": b + 1, "rng": rng.bit_generator.state}
-            return batch, None
+            return batch, None if self.labels is None else self.labels[batch_idx(b)]
 
         if self.num_workers <= 1:
             for b in range(start, n_batches):

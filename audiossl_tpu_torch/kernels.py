@@ -35,6 +35,10 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
 
 def nvcc() -> str:
     """Path of nvcc: $CUDA_HOME/bin, else PATH, else /usr/local/cuda/bin."""
@@ -84,7 +88,35 @@ def _finish_build(name: str, proc: subprocess.Popen, tmp: str, path: str) -> Non
     if proc.returncode != 0:
         raise RuntimeError(f"CUDA kernel build of {SOURCES[name]} failed (nvcc exit {proc.returncode}):\n{out}")
     os.replace(tmp, path)
+    with open(f"{path}.log", "w") as f:
+        f.write(out)
     log.info("built %s:\n%s", SOURCES[name], out.strip())
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas's register and spill report) of the build of
+    kernel ``name``'s current library, kept beside it; empty if not built."""
+    path = f"{library_path(name)}.log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def ptxas_report(out: str) -> dict[str, dict[str, int]]:
+    """{kernel (mangled name): {registers, stack, spill_stores, spill_loads}}
+    from nvcc's ``-Xptxas -v`` output."""
+    report: dict[str, dict[str, int]] = {}
+    name = None
+    for line in out.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            name = m.group(1)
+            report[name] = {}
+        elif name and (m := _PTXAS_FRAME.search(line)):
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        elif name and (m := _PTXAS_REGS.search(line)):
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

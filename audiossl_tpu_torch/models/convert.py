@@ -18,6 +18,11 @@ loads into ``models.audiontt.AudioNTT2020Task6`` with ``strict=True``.
 ``projection_from_flax`` takes the projector's params and batch_stats; its
 output loads into ``models.heads.MLPProjector``.
 
+``ast_from_flax`` is the inverse of ``ast_to_torch`` into the port's own
+time-major AST (timm naming, the flax q / k / v Dense layers fused into one
+head-major ``qkv``); ``ast_reference_layout`` writes the reference's
+freq-major order from it, which is what ``ast_to_torch`` writes.
+
 ``mast_from_flax`` is the port's copy of ``mast_to_torch``: MAST trunk
 variables -> the reference's flat ``blocks.{i}`` MViTv2 state_dict, which
 runs freq-major. The port's MViT runs time-major, as the JAX module does;
@@ -149,3 +154,57 @@ def mast_with_head_from_flax(params_numpy: Mapping[str, Any]) -> dict[str, torch
     sd["mlp_fc1.weight"] = _t(np.asarray(params_numpy["mlp_fc1"]["kernel"]).T)
     sd["mlp_fc1.bias"] = _t(params_numpy["mlp_fc1"]["bias"])
     return sd
+
+
+def ast_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``ASTEncoder`` flax variables -> the port's ``models.ast.ASTEncoder``
+    state_dict: time-major like the JAX module (the patch conv's kernel
+    [C, 1, time, freq], the positional embedding row-major over (time,
+    freq)), in timm's names."""
+    params = variables_numpy["params"]
+    sd: dict[str, torch.Tensor] = {
+        # HWIO (time, freq, 1, C) -> OIHW (C, 1, time, freq)
+        "patch_embed.proj.weight": _t(np.transpose(np.asarray(params["patch_embed"]["kernel"]), (3, 2, 0, 1))),
+        "patch_embed.proj.bias": _t(params["patch_embed"]["bias"]),
+        "cls_token": _t(params["cls_token"]),
+        "dist_token": _t(params["dist_token"]),
+        "pos_embed": _t(params["pos_embed"]),
+        "norm.weight": _t(params["norm"]["scale"]),
+        "norm.bias": _t(params["norm"]["bias"]),
+    }
+    heads_out = lambda k: np.asarray(k).reshape(np.shape(k)[0], -1).T  # [D_in, H, Dh] -> [H * Dh, D_in]
+    i = 0
+    while f"block{i}" in params:
+        blk, b = params[f"block{i}"], f"blocks.{i}"
+        attn = blk["MultiHeadDotProductAttention_0"]
+        sd[f"{b}.attn.qkv.weight"] = _t(np.concatenate([heads_out(attn[n]["kernel"]) for n in ("query", "key", "value")]))
+        sd[f"{b}.attn.qkv.bias"] = _t(np.concatenate([np.asarray(attn[n]["bias"]).reshape(-1) for n in ("query", "key", "value")]))
+        out = np.asarray(attn["out"]["kernel"])  # [H, Dh, D]
+        sd[f"{b}.attn.proj.weight"] = _t(out.reshape(-1, out.shape[-1]).T)
+        sd[f"{b}.attn.proj.bias"] = _t(attn["out"]["bias"])
+        for j, norm in enumerate(("norm1", "norm2")):
+            sd[f"{b}.{norm}.weight"] = _t(blk[f"LayerNorm_{j}"]["scale"])
+            sd[f"{b}.{norm}.bias"] = _t(blk[f"LayerNorm_{j}"]["bias"])
+        for j, fc in enumerate(("fc1", "fc2")):
+            sd[f"{b}.mlp.{fc}.weight"] = _t(np.asarray(blk[f"Dense_{j}"]["kernel"]).T)
+            sd[f"{b}.mlp.{fc}.bias"] = _t(blk[f"Dense_{j}"]["bias"])
+        i += 1
+    if i == 0:
+        raise KeyError("no transformer blocks found (expected params['block0'])")
+    return sd
+
+
+def ast_reference_layout(sd: Mapping[str, torch.Tensor], grid_ft: tuple[int, int]) -> dict[str, torch.Tensor]:
+    """The port's time-major AST state_dict -> the reference's freq-major one
+    (``ast_to_torch``'s output): the patch conv's kernel [C, 1, freq, time],
+    and the positional embedding's grid tokens reordered from (time, freq) to
+    (freq, time); ``grid_ft`` is the (freq, time) patch grid."""
+    f, t = grid_ft
+    out = dict(sd)
+    out["patch_embed.proj.weight"] = sd["patch_embed.proj.weight"].transpose(-1, -2).contiguous()
+    pos = sd["pos_embed"]
+    if pos.shape[1] - 2 != f * t:
+        raise ValueError(f"grid_ft {grid_ft} != {pos.shape[1] - 2} grid tokens")
+    grid = pos[:, 2:].reshape(1, t, f, -1).transpose(1, 2).reshape(1, f * t, -1)
+    out["pos_embed"] = torch.cat([pos[:, :2], grid], dim=1).contiguous()
+    return out

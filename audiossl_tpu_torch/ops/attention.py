@@ -22,7 +22,14 @@ of the same function beside it and a ``launches`` counter:
 
 In bf16 the three kernels run their products on the tensor cores
 (mma.sync; the forward keeps its FFMA kernel for a head width that is not a
-multiple of 8); in f32 (the parity path) every kernel is f32 FFMA. A wrapper
+multiple of 8); in f32 (the parity path) every kernel is f32 FFMA. In bf16
+the no-bias forward and dq (AST) always stream the keys through shared
+memory in chunks and take any key length; with a bias they keep k and v
+resident, and the dq has that limit (MAST-B's keys, 306 at most, fit). In
+f32 the forward and dq stream the keys where they do not fit beside the
+tiles (AST-base's 1214 keys), with or without a bias, up to over 3,000 keys
+(the whole score rows stay in shared memory). ``_tile_or_raise`` names the
+limit of a shape that does not fit. A wrapper
 takes the plain version for a CPU tensor only; on a CUDA tensor it
 launches the kernel or raises. The kernels read the bias decomposed, so on
 CUDA ``expand`` must be ``rel_expand_matrix(kh, kw)`` (given as the pair
@@ -188,10 +195,14 @@ def _tile_or_raise(which: int, q, k, kb: int) -> None:
     bf16 = int(q.dtype == torch.bfloat16)
     if bf16 and which > 0 and d % 8:
         raise ValueError(f"the bf16 backward kernels take head widths that are a multiple of 8, got {d}")
-    if _lib().audiossl_attn_tile(which, lk, d, kb, bf16) == 0:
-        limit = max((n for n in range(1, 4097) if _lib().audiossl_attn_tile(which, n, d, kb, bf16)), default=0)
+    tile = lambda n: _lib().audiossl_attn_tile(which, n, d, kb, bf16)
+    if tile(lk) == 0:
+        lo, hi = 0, lk  # the fit shrinks as the keys grow: the largest n that fits
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if tile(mid) else (lo, mid)
         raise ValueError(f"{lk} keys do not fit the attention kernel's shared memory (at D={d}, "
-                         f"{q.dtype}, the limit is {limit} keys)")
+                         f"{q.dtype}, the limit is {lo} keys)")
 
 
 def _ptr(t):

@@ -35,9 +35,21 @@ forward (tensor-core tiles); the checks above hold them as before, with
 log-mel cases at the narrow-filter widths (n_fft 256 with 64 mels, 1024
 with 128).
 
+  * the downstream probe and AST-base (slice 6): the linear probe
+    (``train_downstream --freeze``) on the DeLoRes-S run's checkpoint at
+    configs/downstream.yaml as it stands; the attention kernels at
+    AST-base's (384, 1214, 64) with no bias (the forward and dq streamed
+    over keys), a ragged 1500 and 64 n + 1 keys; AST-base fine-tuning
+    through ``train_downstream`` at 128 mels x 1025 frames, B=32, 3 steps
+    and one eval batch; an f32 AST-tiny step at 1214 tokens on the card
+    against the CPU. The build's ptxas report must show no attention
+    kernel spilling, the log-mel kernel is held at both paths' shapes, and
+    the f32 DeLoRes-S step gate runs 12 batches.
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (the log-mel, attention and rows kernels as CUDA graph
-replays), serving and training, and prints:
+replays; the attention at MAST-B's shapes and at AST-base's), serving and
+training (DeLoRes-S, SS-MAST, the AST-base fine-tune), and prints:
 
   * the card's name and power limit as nvidia-smi gives them;
   * one {"kernels": [...]} JSON line (launches on the main paths, error
@@ -54,6 +66,7 @@ import json
 import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -73,16 +86,24 @@ TOL_F32 = 1e-3  # f32 on the card vs the CPU path, relative to max(1, max|cpu|)
 TOL_B1_F32 = 1e-5  # forward, f32: kernel vs plain, relative to max(1, max|plain|)
 TOL_B1_SUMS = 1e-5  # backward passes: kernel vs plain, relative to max|plain|
 TOL_B1_GRAD = 1e-4  # dW, dbias, dgamma, dbeta of FusedBlock1: card vs CPU, relative
-# f32 training step at B=8, card vs CPU on the same views: the loss, relative;
-# all gradients as one vector, relative in norm; the worst single tensor,
-# max|d| / max|ref|. At B=8 the gradients are not continuous at round-off
-# (ReLU and max-pool routings flip, BatchNorm over 8 clips amplifies each
-# flip): f32_step_check prints how far the CPU's own gradients move when
-# the views change by 1e-6 relative; the per-tensor bound catches a wrong
-# layer, not round-off
+# f32 training step, card vs CPU on the same views, over STEP_BATCHES batches
+# of B=8: the loss, relative, in every batch; all gradients as one vector,
+# relative in norm, and each tensor in norm, relative to its own norm (+ 1e-2
+# of the largest); the worst element of each tensor, max|d| / max|ref|. A
+# ReLU, max-pool or temporal-max routing that flips at round-off moves this
+# model's f32 gradients by up to 1e-2 in norm at any batch size (measured
+# on the CPU alone at B = 8 to 256), in some batches and not others: a flip is
+# a chance event of one batch, a fault of the port shows in every batch, or in
+# most. So at least STEP_PASS batches must pass every gradient bound at once,
+# and every batch the loss (continuous); f32_step_check shows that a gradient
+# scaled by 1 + 1e-2 fails, in every batch or in two of three. (The flips
+# showed in 4-8 of 12 batches of B = 8 on the CPU, in 3 of 12 on the card.)
 TOL_STEP_LOSS = 1e-5
 TOL_STEP = 1e-3
 TOL_STEP_TENSOR = 5e-2
+STEP_BATCHES = 12
+STEP_PASS = STEP_BATCHES // 2
+STEP_FAULT = 1e-2
 TRAIN_STEPS = 3
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor
 # FLOP/s, bf16 dense tensor FLOP/s
@@ -182,6 +203,7 @@ def main() -> int:
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     for name, seconds in kernels.load_all().items():
         print(f"build: {kernels.SOURCES[name]} built and loaded in {seconds:.1f} s")
+    ptxas_check(kernels)
 
     # phase 3: the kernel against its plain version, both f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -192,6 +214,10 @@ def main() -> int:
     # generator of their own, so that the data of the phases after this one
     # (drawn from rng) stays what it was before these cases were added
     narrow = np.random.default_rng(1)
+    # the shapes of the two downstream paths (the AST-base fine-tune, 1025
+    # frames at 128 mels; the AudioNTT probe, 101 frames), from generators of
+    # their own as well
+    ast_gen, probe_gen = np.random.default_rng(2), np.random.default_rng(3)
     cases = [
         ("[256, 15200] hop 160", (SERVE_BATCH, CLIP), default, rng),
         ("[5, 12345] hop 160", (5, 12345), default, rng),
@@ -199,6 +225,9 @@ def main() -> int:
         ("[8, 15200] n_fft 256 hop 64, 64 mels (single-bin filters)", (8, CLIP), LogMelConfig(n_fft=256, hop=64), narrow),
         ("[8, 15200] 128 mels (two-bin filters)", (8, CLIP), LogMelConfig(n_mels=128), narrow),
         ("[4, 15200] n_fft 768, 32 mels", (4, CLIP), LogMelConfig(n_fft=768, n_mels=32), narrow),
+        (f"[{AST_BATCH}, {AST_CLIP}] 128 mels (the AST-base fine-tune)", (AST_BATCH, AST_CLIP),
+         LogMelConfig(n_mels=128), ast_gen),
+        ("[32, 16000] (the AudioNTT probe)", (32, 16000), default, probe_gen),
     ]
     kernel_err = 0.0
     for label, shape, cfg, gen in cases:
@@ -310,6 +339,8 @@ def main() -> int:
     pretrain = pre["pretrain"]
     with tempfile.TemporaryDirectory() as tmp:
         counts = training_run(pretrain, pool, wav, tmp, dev)
+        # the linear probe on the run's checkpoint (downstream.yaml as it stands), counts from 0
+        probe_counts = audiontt_probe_run(tmp, wav, dev)
     step_err = f32_step_check(pretrain, pool, dev)
 
     # phase 8: times at the training shape, beside the card
@@ -337,7 +368,20 @@ def main() -> int:
     rows_t = rows_times(dev, card)
     ssmast_train_times(dev, card, pool)
 
-    # phase 13: the kernel line
+    # phase 13: the AST slice: the attention kernels at AST-base's 1214 tokens
+    # (the streamed designs) against their plain versions, equal bits twice;
+    # the AST-base fine-tune through train_downstream, counts from 0; an f32
+    # AST-tiny step on the card against the CPU
+    ast_err = ast_attention_checks(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ast_counts = ast_finetune_run(tmp, wav, dev)
+    ast_step_err = ast_f32_step_check(dev)
+
+    # phase 14: times at AST-base's shape, beside the card
+    ast_times = ast_attention_times(dev, card)
+    ast_train_times(dev, card)
+
+    # phase 15: the kernel line
     entries = [{
         "name": "log_mel_fused",
         "route": "cuda",
@@ -346,6 +390,8 @@ def main() -> int:
         "also_replaces": ["audiossl_tpu/frontend/pallas_stft.py:292"],
         "launches": launches,
         "train_launches": counts["log_mel_fused"],
+        "probe_launches": probe_counts["log_mel_fused"],
+        "ast_launches": ast_counts["log_mel_fused"],
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -362,6 +408,7 @@ def main() -> int:
             "source": "audiossl_tpu_torch/csrc/block1.cu",
             "replaces": f"audiossl_tpu/ops/block1.py:{line}",
             "launches": counts[name],
+            "probe_launches": probe_counts[name],
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -372,9 +419,11 @@ def main() -> int:
             "source": "audiossl_tpu_torch/csrc/attention.cu",
             "replaces": "audiossl_tpu/ops/attention.py:" + ("88" if name == "rel_attention_fwd" else "95"),
             "launches": mast_counts[name],
-            "max_abs_err": attn_err[name],
+            "ast_launches": ast_counts[name],
+            "max_abs_err": max(attn_err[name], ast_err[name]),
             **attn_times[name],
             "times_are": "summed over the 24 blocks of one SS-MAST step at B=64, bf16",
+            "ast": ast_times[name],
         })
     for name, line in (("fused_rows_kaldi", 533), ("fused_rows_librosa", 99)):
         entries.append({
@@ -388,7 +437,7 @@ def main() -> int:
             **rows_t[name],
         })
     print(json.dumps({"kernels": entries, "block1_grad_rel_err": grad_errs, "f32_step_rel_err": step_err,
-                      "ssmast_f32_step_rel_err": mast_step_err}))
+                      "ssmast_f32_step_rel_err": mast_step_err, "ast_f32_step_rel_err": ast_step_err}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -539,13 +588,17 @@ def training_run(pre, pool, wav, tmp, dev) -> dict[str, int]:
 
 
 def f32_step_check(pre, pool, dev, b: int = 8) -> dict[str, float]:
-    """One f32 DeLoRes-S step at full width on the card against the same step
-    on the CPU plain path, from the same weights, waves and draws: the views
-    (frontend and augmentation) are compared, then the loss and every
-    gradient on the same views. The loss and gradients are compared on the
-    CPU's views because at B=8 the gradients are not continuous at the
-    views' round-off; to show how far, the CPU's gradients are also taken
-    on its views changed by 1e-6 relative."""
+    """f32 DeLoRes-S steps at full width on the card against the same steps on
+    the CPU plain path, from the same weights, waves and draws, on
+    STEP_BATCHES batches of ``b`` clips: the views (frontend and augmentation)
+    are compared, then the loss and every gradient on the CPU's views. At
+    least STEP_PASS batches must pass every gradient bound at once (a routing
+    flip at round-off is a chance event of a batch; a fault shows in all of
+    them, or in most), the view and loss bounds every batch. Then the gate is
+    shown to refuse the card's gradients with one tensor scaled by 1 +
+    STEP_FAULT in every batch (block 1's conv weight, BN scale and BN shift,
+    and two later layers), and block 1's conv weight scaled so in two batches
+    of three only."""
     import copy
 
     from audiossl_tpu_torch import no_tf32
@@ -560,55 +613,89 @@ def f32_step_check(pre, pool, dev, b: int = 8) -> dict[str, float]:
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
     n_frames = frontend.num_frames(CLIP)
     init = init_objective("delores_s", cfg, seed=0).train()
-    card_obj, cpu_obj, noisy_obj = copy.deepcopy(init).to(dev), copy.deepcopy(init), copy.deepcopy(init)
-    waves = torch.from_numpy(pool[:b])
-    views = []
-    for d in (dev, torch.device("cpu")):
-        state = pipeline.init_state(frontend.n_mels, n_frames, d)
-        draws = pipeline.sample_draws(state, b, frontend.n_mels, n_frames, torch.Generator().manual_seed(5))
-        draws = tuple(type(v)(*(t.to(d) if t is not None else None for t in v)) for v in draws)
-        views.append(prepare_views(pipeline, frontend, "mean_var", state, waves.to(d), draws)[1:])
-    view_err = max(float((c.cpu() - r).abs().max()) / max(1.0, float(r.abs().max())) for c, r in zip(*views))
-    print(f"f32 step B={b}: views (log-mel kernel, RunningNorm, mixup, crop) card vs CPU: "
-          f"max|d| / max(1, max|ref|) = {view_err:.3e} (tol {TOL_F32})")
-    if not view_err <= TOL_F32:
-        raise RuntimeError(f"the views on the card disagree with the CPU path: {view_err}")
-    noise = torch.Generator().manual_seed(7)
-    noisy = [v * (1.0 + 1e-6 * torch.randn(v.shape, generator=noise)) for v in views[1]]
-    results = []
-    for obj, d, vs in ((card_obj, dev, views[1]), (cpu_obj, torch.device("cpu"), views[1]),
-                       (noisy_obj, torch.device("cpu"), noisy)):
-        with no_tf32():
-            loss = obj.loss(*(v.to(d) for v in vs))
-            loss.backward()
-        results.append((loss.item(), {n: p.grad.cpu() for n, p in obj.named_parameters()}))
-    (loss_card, g_card), (loss_cpu, g_cpu), (_, g_noisy) = results
-    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    runs = []  # per batch: view error, (loss, gradients) on the card and on the CPU
+    for k in range(STEP_BATCHES):
+        waves = torch.from_numpy(pool[k * b:(k + 1) * b])
+        views = []
+        for d in (dev, torch.device("cpu")):
+            state = pipeline.init_state(frontend.n_mels, n_frames, d)
+            draws = pipeline.sample_draws(state, b, frontend.n_mels, n_frames, torch.Generator().manual_seed(5 + k))
+            draws = tuple(type(v)(*(t.to(d) if t is not None else None for t in v)) for v in draws)
+            views.append(prepare_views(pipeline, frontend, "mean_var", state, waves.to(d), draws)[1:])
+        view_err = max(float((c.cpu() - r).abs().max()) / max(1.0, float(r.abs().max())) for c, r in zip(*views))
+        results = []
+        for d in (dev, torch.device("cpu")):
+            obj = copy.deepcopy(init).to(d)
+            with no_tf32():
+                loss = obj.loss(*(v.to(d) for v in views[1]))
+                loss.backward()
+            results.append((loss.item(), {n: p.grad.cpu() for n, p in obj.named_parameters()}))
+        runs.append((view_err, *results))
     flat = lambda g: torch.cat([v.flatten() for v in g.values()])
 
-    def compare(g):
-        # per tensor, |d| / (max|ref| + 1e-2 * the largest gradient): the second
-        # term covers the round-off of exactly-zero gradients (conv biases before
-        # batch-statistics BN), as the CPU parity test holds them
-        rels = {n: float((g[n] - ref).abs().max()) / (float(ref.abs().max()) + 1e-2 * scale) for n, ref in g_cpu.items()}
-        return rels, float((flat(g) - flat(g_cpu)).norm() / flat(g_cpu).norm())
+    def errors(g, ref):
+        """(all gradients in norm, {tensor: in norm}, {tensor: worst element}) of g against ref."""
+        largest = max(float(v.norm()) for v in ref.values())
+        scale = max(float(v.abs().max()) for v in ref.values())
+        # the exactly-zero gradients (conv biases before batch-statistics BN) are
+        # round-off on both sides, ~1e-7 of the largest in norm: 1e-3 of the
+        # largest in norm covers them and is below every other tensor (the
+        # smallest, ~7e-3, would still show a 1e-2 fault at 8.7e-3)
+        norm = {n: float((g[n] - r).norm()) / (float(r.norm()) + 1e-3 * largest) for n, r in ref.items()}
+        elem = {n: float((g[n] - r).abs().max()) / (float(r.abs().max()) + 1e-2 * scale) for n, r in ref.items()}
+        return float((flat(g) - flat(ref)).norm() / flat(ref).norm()), norm, elem
 
-    rels, grad_err = compare(g_card)
-    tensor_err = max(rels.values())
-    noise_rels, noise_norm = compare(g_noisy)
-    print(f"f32 step B={b}, the CPU alone on its views changed by 1e-6 relative: gradients move by "
-          f"{noise_norm:.3e} in norm, the worst tensor by {max(noise_rels.values()):.3e}")
-    for name in sorted(rels, key=rels.get, reverse=True)[:3]:
-        print(f"  f32 step gradient {name}: max|ref| {float(g_cpu[name].abs().max()):.3e}, "
-              f"max|d| {float((g_card[name] - g_cpu[name]).abs().max()):.3e}, relative {rels[name]:.3e}")
-    print(f"f32 step B={b}, card vs CPU plain path on the same views: loss {loss_card:.7e} vs {loss_cpu:.7e} "
-          f"(relative {loss_err:.3e}, tol {TOL_STEP_LOSS}); gradients |g_card - g_cpu| / |g_cpu| over all "
-          f"parameters {grad_err:.3e} (tol {TOL_STEP}); largest per-tensor error {tensor_err:.3e} (tol {TOL_STEP_TENSOR})")
-    if not (loss_err <= TOL_STEP_LOSS and grad_err <= TOL_STEP and tensor_err <= TOL_STEP_TENSOR):
-        raise RuntimeError(f"the f32 training step on the card disagrees with the CPU path: {loss_err}, {grad_err}, {tensor_err}")
-    return {"views": view_err, "loss": loss_err, "gradients": grad_err, "worst_tensor": tensor_err,
-            "cpu_1e-6_views_gradients": noise_norm, "cpu_1e-6_views_worst_tensor": max(noise_rels.values())}
+    def gate(fault: str | None = None, spared=()) -> tuple[bool, dict]:
+        """Whether STEP_PASS batches pass every gradient bound at once, with
+        ``fault``'s card gradient scaled by 1 + STEP_FAULT in every batch but
+        those in ``spared``; the batches' errors and the best of each bound."""
+        per_batch = []
+        for k, (_, (_, g_card), (_, g_cpu)) in enumerate(runs):
+            if fault is not None and k not in spared:
+                g_card = dict(g_card, **{fault: g_card[fault] * (1.0 + STEP_FAULT)})
+            per_batch.append(errors(g_card, g_cpu))
+        names = list(runs[0][2][1])
+        passing = sum(1 for w, t, e in per_batch
+                      if w <= TOL_STEP and max(t.values()) <= TOL_STEP and max(e.values()) <= TOL_STEP_TENSOR)
+        best = {"gradients": min(w for w, _, _ in per_batch),
+                "tensor_norm": {n: min(t[n] for _, t, _ in per_batch) for n in names},
+                "tensor_worst": {n: min(e[n] for _, _, e in per_batch) for n in names}}
+        return passing >= STEP_PASS, dict(best, per_batch=per_batch, passing=passing)
+
+    view_errs = [r[0] for r in runs]
+    loss_errs = [abs(card[0] - cpu[0]) / abs(cpu[0]) for _, card, cpu in runs]
+    ok, best = gate()
+    worst_tensor = max(best["tensor_norm"], key=best["tensor_norm"].get)
+    print(f"f32 step B={b}, {STEP_BATCHES} batches, views (log-mel kernel, RunningNorm, mixup, crop) card vs CPU: "
+          f"worst max|d| / max(1, max|ref|) = {max(view_errs):.3e} (tol {TOL_F32}); losses relative, worst "
+          f"{max(loss_errs):.3e} (tol {TOL_STEP_LOSS})")
+    print("f32 step per batch, gradients in norm / worst tensor in norm / worst element: "
+          + "; ".join(f"{w:.2e} / {max(t.values()):.2e} / {max(e.values()):.2e}" for w, t, e in best["per_batch"]))
+    print(f"f32 step, the best batch for each bound: gradients in norm {best['gradients']:.3e} (tol {TOL_STEP}); "
+          f"each tensor in norm, worst {worst_tensor} {best['tensor_norm'][worst_tensor]:.3e} (tol {TOL_STEP}); "
+          f"worst element {max(best['tensor_worst'].values()):.3e} (tol {TOL_STEP_TENSOR}); "
+          f"batches passing every bound: {best['passing']}/{STEP_BATCHES} (at least {STEP_PASS})")
+    if not (max(view_errs) <= TOL_F32 and max(loss_errs) <= TOL_STEP_LOSS and ok):
+        raise RuntimeError(f"the f32 training step on the card disagrees with the CPU path: views {max(view_errs)}, "
+                           f"losses {max(loss_errs)}, {best['passing']} of {STEP_BATCHES} batches passing every "
+                           f"gradient bound (at least {STEP_PASS})")
+    block1_weight = "encoder.features_1.0.weight"
+    faults = [(name, ()) for name in (block1_weight, "encoder.features_1.1.weight", "encoder.features_1.1.bias",
+                                      "encoder.fc.0.weight", "projector.projector.3.weight")]
+    faults.append((block1_weight, tuple(range(0, STEP_BATCHES, 3))))  # spares one batch in three
+    caught = {}
+    for name, spared in faults:
+        passed, fb = gate(name, spared)
+        where = f"in {STEP_BATCHES - len(spared)} of {STEP_BATCHES} batches" if spared else "in every batch"
+        caught[f"{name} {where}"] = fb["passing"]
+        print(f"f32 step gate with the card's {name} gradient scaled by 1 + {STEP_FAULT} {where}: best batch "
+              f"{fb['tensor_norm'][name]:.3e} in norm (tol {TOL_STEP}); {fb['passing']}/{STEP_BATCHES} batches "
+              f"passing every bound: {'refused' if not passed else 'PASSED'}")
+        if passed:
+            raise RuntimeError(f"the f32 step gate does not catch {name}'s gradient scaled by 1 + {STEP_FAULT} {where}")
+    return {"views": max(view_errs), "loss": max(loss_errs), "gradients": best["gradients"],
+            "worst_tensor_norm": best["tensor_norm"][worst_tensor], "worst_element": max(best["tensor_worst"].values()),
+            "batches_passing": best["passing"], "injected_faults_batches_passing": caught}
 
 
 def block1_times(dev, card) -> dict[str, dict]:
@@ -769,11 +856,61 @@ def attention_case(bh, lq, grid, lk, d, dtype, dev, seed):
     return t(bh, lq, d), t(bh, lk, d), t(bh, lk, d), bias, t(bh, lq, d)
 
 
+def check_attention(label, bh, lq, grid, lk, d, dtype, dev, seed, errs, twice=False) -> None:
+    """The three attention kernels against their plain versions on one case
+    (the dk/dv kernel on the kernel's own row statistics), within the
+    TOL_ATT_* bounds; with ``twice``, a second run must give the same bits.
+    The largest |error| of each kernel goes into ``errs``."""
+    from audiossl_tpu_torch.ops import attention as A
+
+    q, k, v, bias, do = attention_case(bh, lq, grid, lk, d, dtype, dev, seed=seed)
+    scale = d**-0.5
+    qs = A.scale_q(q, scale)
+    runs = []
+    for _ in range(2 if twice else 1):
+        out = A.rel_attention_fwd(qs, k, v, bias, grid)
+        dq, dbias, stats = A.rel_attention_bwd_dq(qs, k, v, bias, grid, scale, do)
+        dk, dv = A.rel_attention_bwd_dkv(qs, k, v, bias, grid, do, stats)
+        torch.cuda.synchronize()
+        runs.append([out, dq, dk, dv, stats] + ([dbias] if grid else []))
+    if twice:
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"determinism {label} {str(dtype)[6:]}: forward, dq, dk/dv equal bits on a second run: {same}")
+        if not same:
+            raise RuntimeError(f"an attention kernel gave other bits on a second run at {label} {dtype}")
+    out, dq, dk, dv, stats = runs[0][:5]
+    dbias = runs[0][5] if grid else None
+    want_dq, want_dbias, want_stats = A.attention_bwd_dq_plain(qs, k, v, bias, grid, scale, do)
+    want_dk, want_dv = A.attention_bwd_dkv_plain(qs, k, v, bias, grid, do, stats)  # the kernel's own inputs
+    pairs = [("rel_attention_fwd", "out", out, A.attention_fwd_plain(qs, k, v, bias, grid)),
+             ("rel_attention_bwd_dq", "dq", dq, want_dq), ("rel_attention_bwd_dkv", "dk", dk, want_dk),
+             ("rel_attention_bwd_dkv", "dv", dv, want_dv)]
+    if grid:
+        pairs.append(("rel_attention_bwd_dq", "dbias", dbias, want_dbias))
+    torch.cuda.synchronize()
+    stat_err = float((stats - want_stats).abs().max() / want_stats.abs().max())
+    if not stat_err <= 1e-5:
+        raise RuntimeError(f"rel_attention_bwd_dq's row statistics disagree at {label} {dtype}: {stat_err}")
+    for name, what, got, want in pairs:
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"{name} {what} {label}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+        err, ref = float((got - want).abs().max()), float(want.abs().max())
+        grad = what != "out"
+        if dtype == torch.float32:
+            tol = (TOL_ATT_GRAD_F32 if grad else TOL_ATT_F32) * max(1.0, ref)
+        else:
+            tol = (TOL_ATT_GRAD_BF16_ULPS if grad else TOL_ATT_BF16_ULPS) * bf16_ulp(ref)
+        print(f"{name} {what} kernel vs plain, {label} {str(dtype)[6:]}: max|d| = {err:.3e} "
+              f"(tol {tol:.3e}, max|plain| {ref:.3e})")
+        if not err <= tol:
+            raise RuntimeError(f"{name} ({what}) disagrees with its plain version at {label} {dtype}: {err} > {tol}")
+        errs[name] = max(errs[name], err)
+
+
 def attention_checks(dev) -> dict[str, float]:
     """The three attention kernels against their plain versions, f32 and
     bf16, at two MAST-B shapes, a ragged one and the no-bias mode (AST)."""
-    from audiossl_tpu_torch.ops import attention as A
-
     cases = [
         ("MAST-B block 0 [128, 1212, 78] 26x3", 128, 1212, (26, 3), None, 96),
         ("MAST-B block 2 [256, 306, 306] 51x6", 256, 306, (51, 6), None, 96),
@@ -783,38 +920,7 @@ def attention_checks(dev) -> dict[str, float]:
     errs = dict.fromkeys(ATTN_KERNELS, 0.0)
     for i, (label, bh, lq, grid, lk, d) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, bias, do = attention_case(bh, lq, grid, lk, d, dtype, dev, seed=i)
-            scale = d**-0.5
-            qs = A.scale_q(q, scale)
-            out = A.rel_attention_fwd(qs, k, v, bias, grid)
-            dq, dbias, stats = A.rel_attention_bwd_dq(qs, k, v, bias, grid, scale, do)
-            dk, dv = A.rel_attention_bwd_dkv(qs, k, v, bias, grid, do, stats)
-            want_dq, want_dbias, want_stats = A.attention_bwd_dq_plain(qs, k, v, bias, grid, scale, do)
-            want_dk, want_dv = A.attention_bwd_dkv_plain(qs, k, v, bias, grid, do, stats)  # the kernel's own inputs
-            pairs = [("rel_attention_fwd", "out", out, A.attention_fwd_plain(qs, k, v, bias, grid)),
-                     ("rel_attention_bwd_dq", "dq", dq, want_dq), ("rel_attention_bwd_dkv", "dk", dk, want_dk),
-                     ("rel_attention_bwd_dkv", "dv", dv, want_dv)]
-            if grid:
-                pairs.append(("rel_attention_bwd_dq", "dbias", dbias, want_dbias))
-            torch.cuda.synchronize()
-            stat_err = float((stats - want_stats).abs().max() / want_stats.abs().max())
-            if not stat_err <= 1e-5:
-                raise RuntimeError(f"rel_attention_bwd_dq's row statistics disagree at {label} {dtype}: {stat_err}")
-            for name, what, got, want in pairs:
-                got, want = got.float(), want.float()
-                if got.shape != want.shape or not torch.isfinite(got).all():
-                    raise RuntimeError(f"{name} {what} {label}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
-                err, ref = float((got - want).abs().max()), float(want.abs().max())
-                grad = what != "out"
-                if dtype == torch.float32:
-                    tol = (TOL_ATT_GRAD_F32 if grad else TOL_ATT_F32) * max(1.0, ref)
-                else:
-                    tol = (TOL_ATT_GRAD_BF16_ULPS if grad else TOL_ATT_BF16_ULPS) * bf16_ulp(ref)
-                print(f"{name} {what} kernel vs plain, {label} {str(dtype)[6:]}: max|d| = {err:.3e} "
-                      f"(tol {tol:.3e}, max|plain| {ref:.3e})")
-                if not err <= tol:
-                    raise RuntimeError(f"{name} ({what}) disagrees with its plain version at {label} {dtype}: {err} > {tol}")
-                errs[name] = max(errs[name], err)
+            check_attention(label, bh, lq, grid, lk, d, dtype, dev, i, errs)
     return errs
 
 
@@ -1233,6 +1339,351 @@ def ssmast_train_times(dev, card, pool) -> None:
     print(f"[{card}] SS-MAST training profile, 2 steps: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
           f"({busy / wall_us:.1%}); {len(kernels_us)} kernels; by device time per step:")
     for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {us / 2e3:9.4f} ms  {us / busy:6.1%}  {name[:110]}")
+
+
+# ---------------------------------------------------------------- the build's ptxas report
+
+
+def ptxas_check(kernels) -> None:
+    """Registers and spills of every attention kernel instantiation, from
+    ptxas's report of the library's build; any spill fails the run."""
+    report = kernels.ptxas_report(kernels.build_log("attention"))
+    if not report:
+        raise RuntimeError("no ptxas report of attention.cu's build")
+    spilled = []
+    rows = []
+    for name, r in report.items():
+        label = name
+        if m := re.search(r"(\d+)(attn_\w+)", name):  # the mangled name: length, name, template arguments
+            n = int(m.group(1))
+            kname, tail = m.group(2)[:n], m.group(2)[n:]
+            tmpl = tail.split("Ev")[0] if tail.startswith("I") else ""
+            args = (["bf16"] if "bfloat16" in tmpl else ["f32"] if tmpl.startswith("If") else [])
+            args += re.findall(r"Li(\d+)E", tmpl)
+            label = f"{kname}<{','.join(args)}>" if args else kname
+        rows.append(f"{label} {r.get('registers')} regs, {r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} B spilled")
+        if r.get("spill_stores") or r.get("spill_loads"):
+            spilled.append(label)
+    print(f"ptxas, attention.cu ({len(report)} kernels): " + "; ".join(rows))
+    if spilled:
+        raise RuntimeError(f"attention kernels spill registers: {spilled}")
+
+
+# ---------------------------------------------------------------- the downstream probe and AST-base (slice 6)
+
+AST_CLIP = 163840  # 10.24 s at 16 kHz: 1025 log-mel frames, AST-base's 101 x 12 patches + cls + dist = 1214 tokens
+AST_BATCH = 32  # configs/downstream.yaml's run.batch_size
+AST_SHAPE = (384, 1214, 64)  # the attention of one AST-base block at B=32: 12 heads of 64
+AST_DEPTH = 12  # attention launches of each kernel per step (blocks)
+# f32 AST-tiny step, card vs CPU: the MAST-tiny check's bounds
+TOL_AST_LOSS, TOL_AST_GRAD = TOL_MAST_LOSS, TOL_MAST_GRAD
+
+
+def write_labelled(tmp: str, name: str, files: list[str], labels: list[str], n_train: int, n_test: int) -> tuple[str, str]:
+    """``wav,label`` train and test CSVs of ``n_train`` and ``n_test`` rows
+    cycling over the files."""
+    paths = []
+    for split, n in (("train", n_train), ("test", n_test)):
+        paths.append(os.path.join(tmp, f"{name}_{split}.csv"))
+        with open(paths[-1], "w") as f:
+            f.write("wav,label\n" + "".join(f"{files[r % len(files)]},{labels[r % len(files)]}\n" for r in range(n)))
+    return paths[0], paths[1]
+
+
+def probe_counts_check(what: str, counts: dict[str, int], per_step: dict[str, int], per_eval: dict[str, int],
+                       steps: int, evals: int) -> None:
+    for name, n in counts.items():
+        want = per_step.get(name, 0) * steps + per_eval.get(name, 0) * evals
+        if n != want:
+            raise RuntimeError(f"{what}: {name} launched {n} times in {steps} steps and {evals} eval batches, expected "
+                               f"{per_step.get(name, 0)} a step and {per_eval.get(name, 0)} an eval batch")
+
+
+def audiontt_probe_run(tmp: str, wav, dev) -> dict[str, int]:
+    """The linear probe (train_downstream --freeze) on the DeLoRes-S run's
+    checkpoint at configs/downstream.yaml as it stands (AudioNTT, d 2048,
+    64 mels, 1 s clips, B=32), one epoch: 2 steps and one eval batch on the
+    run's 16 training WAVs labelled by pitch (4 classes). Per step and per
+    eval batch the log-mel kernel launches once; 1 s gives 101 frames, which
+    the fused block 1 does not take (it needs an even frame count: the JAX
+    package's rule), so block 1 runs cuDNN and its kernels launch 0 times."""
+    from audiossl_tpu_torch.frontend import fused_stft
+    from audiossl_tpu_torch.ops import block1
+    from audiossl_tpu_torch.train_downstream import main as downstream_main
+
+    files = [os.path.join(tmp, f"train{i}.wav") for i in range(16)]  # write_manifest's sines, rising in pitch
+    train_csv, test_csv = write_labelled(tmp, "probe", files, [f"pitch{i // 4}" for i in range(16)], 64, 32)
+    wrappers = {"log_mel_fused": fused_stft.log_mel_fused, "block1_fwd": block1.block1_fwd,
+                "block1_bwd_sums": block1.block1_bwd_sums, "block1_bwd_weight": block1.block1_bwd_weight}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = downstream_main(["--task", "probe", "--train_csv", train_csv, "--test_csv", test_csv, "--checkpoint",
+                              os.path.join(tmp, "delores_s_chkp"), "--freeze", "--epochs", "1",
+                              "--exp_dir", os.path.join(tmp, "exp")])
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"probe: train_downstream --freeze on the DeLoRes-S checkpoint (AudioNTT-2048, 64 mels, 1 s, B=32), "
+          f"{len(result['losses'])} steps + 1 eval batch in {time.perf_counter() - t0:.1f} s; losses {result['losses']}; "
+          f"test accuracy {result['history']}; launches {counts}")
+    if len(result["losses"]) != 2 or not all(math.isfinite(v) for v in result["losses"] + result["history"]):
+        raise RuntimeError(f"the AudioNTT probe gave losses {result['losses']} and accuracy {result['history']}")
+    probe_counts_check("the AudioNTT probe", counts, {"log_mel_fused": 1}, {"log_mel_fused": 1}, 2, 1)
+    return counts
+
+
+def ast_wavs(tmp: str, wav) -> tuple[list[str], list[str]]:
+    """8 synthetic 10.5 s WAVs, two of each of 4 classes: the class's tone
+    and its third harmonic in noise, pitch rising with the class."""
+    rng = np.random.default_rng(41)
+    t = np.arange(int(10.5 * 16000)) / 16000.0
+    files, labels = [], []
+    for i in range(8):
+        c = i % 4
+        f0 = 180.0 * 2 ** (c / 1.5) * (1.0 + 0.01 * (i // 4))
+        x = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 3 * f0 * t) + 0.03 * rng.standard_normal(t.size)
+        files.append(os.path.join(tmp, f"ast{i}.wav"))
+        wav.write_wav(files[-1], x.astype(np.float32))
+        labels.append(f"tone{c}")
+    return files, labels
+
+
+def ast_config(tmp: str) -> tuple[dict, str]:
+    """configs/downstream.yaml with only base_encoder.type AST, model_size
+    base, input.n_mels 128 and run.duration 10.24, written to ``tmp``."""
+    import yaml
+
+    from audiossl_tpu_torch import config as cfgmod
+
+    config = cfgmod.load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "downstream.yaml"))
+    config["downstream"]["base_encoder"].update(type="AST", model_size="base")
+    config["downstream"]["input"]["n_mels"] = 128
+    config["run"]["duration"] = 10.24
+    path = os.path.join(tmp, "ast_downstream.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return config, path
+
+
+def ast_finetune_run(tmp: str, wav, dev) -> dict[str, int]:
+    """AST-base fine-tuning through train_downstream (the CLI's main, in this
+    process so that the launch counts can be read) at AST's published input:
+    ast_config, B=32, seeded random weights, one epoch of 3 steps on
+    synthetic labelled WAVs, then one eval batch. Per step 1 log-mel launch
+    and 12 / 12 / 12 attention launches; per eval batch 1 log-mel and 12
+    forward launches. Returns the launch counts of the run."""
+    from audiossl_tpu_torch.frontend import fused_stft
+    from audiossl_tpu_torch.ops import attention as A
+    from audiossl_tpu_torch.train_downstream import main as downstream_main
+
+    config, cfg_path = ast_config(tmp)
+    files, labels = ast_wavs(tmp, wav)
+    steps, evals = 3, 1
+    train_csv, test_csv = write_labelled(tmp, "ast", files, labels, steps * AST_BATCH, evals * AST_BATCH)
+    wrappers = {"log_mel_fused": fused_stft.log_mel_fused, **{name: getattr(A, name) for name in ATTN_KERNELS}}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    # --encoder AST as well: the CLI's --encoder (default AudioNTT2020Task6) overrides the config, as in JAX
+    result = downstream_main(["--task", "ast", "--train_csv", train_csv, "--test_csv", test_csv, "-c", cfg_path,
+                              "--encoder", "AST", "--epochs", "1", "--exp_dir", os.path.join(tmp, "exp")])
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"AST-base fine-tune: train_downstream, 128 mels x 1025 frames (1214 tokens), B={AST_BATCH}, f32 trunk with "
+          f"bf16 attention operands, {len(result['losses'])} steps + {evals} eval batch in {time.perf_counter() - t0:.1f} s "
+          f"(set-up and loading included); losses {result['losses']}; test accuracy {result['history']}; launches {counts}")
+    if len(result["losses"]) != steps or not all(math.isfinite(v) for v in result["losses"] + result["history"]):
+        raise RuntimeError(f"the AST fine-tune gave losses {result['losses']} and accuracy {result['history']}")
+    per_step = {"log_mel_fused": 1, **dict.fromkeys(ATTN_KERNELS, AST_DEPTH)}
+    per_eval = {"log_mel_fused": 1, "rel_attention_fwd": AST_DEPTH}
+    probe_counts_check("the AST-base fine-tune", counts, per_step, per_eval, steps, evals)
+    return counts
+
+
+def ast_attention_checks(dev) -> dict[str, float]:
+    """The attention kernels with no bias where the keys do not fit in shared
+    memory (the streamed designs), f32 and bf16, against their plain
+    versions: AST-base's (384, 1214, 64), equal bits twice there; a ragged
+    1500; keys one past a multiple of the 64-key chunk."""
+    cases = [("AST-base [384, 1214, 1214] D=64", 384, 1214, 1214), ("ragged [24, 1500, 1500] D=64", 24, 1500, 1500),
+             ("64 n + 1 keys [6, 1217, 1217] D=64", 6, 1217, 1217)]
+    errs = dict.fromkeys(ATTN_KERNELS, 0.0)
+    for i, (label, bh, lq, lk) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_attention(label, bh, lq, None, lk, 64, dtype, dev, 100 + i, errs, twice=i == 0)
+    return errs
+
+
+def ast_f32_step_check(dev) -> dict[str, float]:
+    """One f32 AST-tiny step (depth 12, the 128 x 1025 input: 1214 tokens,
+    past the resident f32 kernels' 799 / 719 keys at D = 64, so the streamed
+    f32 forward and dq run; attention operands f32) on the card against the
+    CPU's plain path, from the same weights and views; the loss is a fixed
+    random projection of the embedding. The MAST-tiny check's method and
+    bounds; the CPU's gradients are also taken on the views changed by 1e-6
+    relative, to show its own sensitivity."""
+    import copy
+
+    from audiossl_tpu_torch.models.ast import ASTEncoder
+    from audiossl_tpu_torch.ops import attention as A
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        init = ASTEncoder(128, AST_CLIP // 160 + 1, "tiny", attention_dtype=torch.float32).train()
+    rng = np.random.default_rng(51)
+    views = torch.from_numpy(rng.standard_normal((2, 1, 128, AST_CLIP // 160 + 1)).astype(np.float32))
+    proj = torch.from_numpy(rng.standard_normal((2, 192)).astype(np.float32))
+    noisy = views * (1.0 + 1e-6 * torch.randn(views.shape, generator=torch.Generator().manual_seed(7)))
+    plans = [A._lib().audiossl_attn_tile(which, 1214, 64, 0, 0) for which in range(3)]
+    results = []
+    for d, v in ((dev, views), (torch.device("cpu"), views), (torch.device("cpu"), noisy)):
+        model = copy.deepcopy(init).to(d)
+        before = [getattr(A, name).launches for name in ATTN_KERNELS]
+        loss = (model(v.to(d)) * proj.to(d)).sum()
+        loss.backward()
+        launched = [getattr(A, name).launches - n for name, n in zip(ATTN_KERNELS, before)]
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}, launched))
+    (loss_card, g_card, launched), (loss_cpu, g_cpu, _), (_, g_noisy, _) = results
+    if launched != [AST_DEPTH] * 3:
+        raise RuntimeError(f"the f32 AST-tiny step launched the attention kernels {launched} times, expected 12 each")
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+
+    def compare(g):
+        rels = {n: float((g[n] - ref).abs().max()) / (float(ref.abs().max()) + 1e-2 * largest) for n, ref in g_cpu.items()}
+        flat = lambda gs: torch.cat([v.flatten() for v in gs.values()])
+        return rels, float((flat(g) - flat(g_cpu)).norm() / flat(g_cpu).norm())
+
+    rels, norm_err = compare(g_card)
+    noise_rels, noise_norm = compare(g_noisy)
+    worst = max(rels, key=rels.get)
+    print(f"f32 AST-tiny step (1214 tokens, f32 attention: rows per block forward / dq / dk-dv {plans}; launches "
+          f"{launched}), the CPU alone on its views changed by 1e-6 relative: gradients move {noise_norm:.3e} in norm, "
+          f"the worst tensor {max(noise_rels.values()):.3e}")
+    print(f"f32 AST-tiny step, card vs CPU plain path on the same views: loss {loss_card:.7e} vs {loss_cpu:.7e} "
+          f"(relative {loss_err:.3e}, tol {TOL_AST_LOSS}); gradients {norm_err:.3e} in norm; worst tensor {worst} "
+          f"{rels[worst]:.3e} (tol {TOL_AST_GRAD})")
+    if not (loss_err <= TOL_AST_LOSS and rels[worst] <= TOL_AST_GRAD):
+        raise RuntimeError(f"the f32 AST-tiny step on the card disagrees with the CPU path: {loss_err}, {rels[worst]}")
+    return {"loss": loss_err, "gradients_norm": norm_err, "worst_tensor": rels[worst],
+            "cpu_1e-6_views_gradients": noise_norm, "cpu_1e-6_views_worst_tensor": max(noise_rels.values())}
+
+
+def ast_attention_times(dev, card) -> dict[str, dict]:
+    """Each attention kernel at AST-base's (384, 1214, 64), bf16, no bias: ms
+    per launch and per step (12 launches), its plain version, the bound, and
+    the library yardstick, scaled_dot_product_attention with no mask (its
+    forward; the graph of forward and backward less the forward's for the
+    backward kernels); all CUDA graph replays."""
+    import torch.nn.functional as F
+
+    from audiossl_tpu_torch.ops import attention as A
+
+    bh, l, d = AST_SHAPE
+    q, k, v, _, do = attention_case(bh, l, None, l, d, torch.bfloat16, dev, seed=131)
+    scale = d**-0.5
+    qs = A.scale_q(q, scale)
+    _, _, stats = A.rel_attention_bwd_dq(qs, k, v, None, None, scale, do)
+    four = lambda t: t.view(AST_BATCH, bh // AST_BATCH, l, d)  # [B, H, L, D] for SDPA
+    ql, kl, vl = (four(t).clone().requires_grad_() for t in (q, k, v))
+
+    def library_fwd_bwd():
+        out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        return torch.autograd.grad(out, (ql, kl, vl), four(do))
+
+    lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(four(q), four(k), four(v), scale=scale))
+    lib_bwd = graph_ms(library_fwd_bwd) - lib_fwd
+    fns = {
+        "rel_attention_fwd": (lambda: A.rel_attention_fwd(qs, k, v, None, None),
+                              lambda: A.attention_fwd_plain(qs, k, v, None, None), lib_fwd),
+        "rel_attention_bwd_dq": (lambda: A.rel_attention_bwd_dq(qs, k, v, None, None, scale, do),
+                                 lambda: A.attention_bwd_dq_plain(qs, k, v, None, None, scale, do), lib_bwd),
+        "rel_attention_bwd_dkv": (lambda: A.rel_attention_bwd_dkv(qs, k, v, None, None, do, stats),
+                                  lambda: A.attention_bwd_dkv_plain(qs, k, v, None, None, do, stats), lib_bwd),
+    }
+    out = {}
+    for name, (kernel, plain, lib_ms) in fns.items():
+        ms, plain_ms = graph_ms(kernel), graph_ms(plain, iters=5)
+        bound, t_bytes, t_ops = attention_bound(name, bh, l, l, d, 0, 2)
+        print(f"[{card}] {name} AST-base [{bh}, {l}, {l}] D={d} bf16, no bias, {AST_DEPTH} a step: kernel {ms:.4f} ms "
+              f"({AST_DEPTH * ms:.4f} a step), plain {plain_ms:.4f} ms, library (SDPA, no mask"
+              f"{', forward' if name == 'rel_attention_fwd' else ', its whole backward'}) {lib_ms:.4f} ms; bound "
+              f"{bound:.4f} ms (bytes {t_bytes:.4f}, products {t_ops:.4f} at the bf16 rate; {bound * AST_DEPTH:.4f} a step)")
+        out[name] = {"shape": list(AST_SHAPE), "launches_per_step": AST_DEPTH, "ms": ms, "ms_per_step": AST_DEPTH * ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": lib_ms}
+    return out
+
+
+def ast_train_times(dev, card) -> None:
+    """train_clips_per_sec of the AST-base fine-tune (ast_config, B=32) on
+    device-resident waves: the median of 3 windows of 3 steps on the host
+    clock; the step split by CUDA events (mean of 3 steps); the profiler's
+    device busy share over 2 steps."""
+    from audiossl_tpu_torch.downstream import probe
+    from audiossl_tpu_torch.frontend.stft import LogMelConfig
+    from audiossl_tpu_torch.objectives.unfused import cross_entropy
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config, _ = ast_config(tmp)
+    mel_cfg = LogMelConfig(n_mels=128)
+    model = probe.build_model(config, 4, mel_cfg.num_frames(AST_CLIP)).to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=float(config["run"]["lr"]))
+    rng = np.random.default_rng(61)
+    waves = torch.from_numpy((0.3 * rng.standard_normal((AST_BATCH, AST_CLIP))).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 4, AST_BATCH)).to(dev)
+    step = lambda: probe.probe_step(model, opt, mel_cfg, waves, labels)
+    for _ in range(2):
+        loss = step()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            loss = step()
+        torch.cuda.synchronize()
+        rates.append(3 * AST_BATCH / (time.perf_counter() - t0))
+    if not math.isfinite(loss.item()):
+        raise RuntimeError(f"AST fine-tune loss became {loss.item()}")
+    names = ("log-mel", "forward + loss", "backward", "Adam")
+    parts = dict.fromkeys(names, 0.0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    for _ in range(3):
+        ev[0].record()
+        feats = probe.features(waves, mel_cfg)
+        ev[1].record()
+        loss = cross_entropy(model(feats), labels)
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for name, e0, e1 in zip(names, ev[:-1], ev[1:]):
+            parts[name] += e0.elapsed_time(e1) / 3
+    print(f"[{card}] AST-base fine-tune B={AST_BATCH}, 128 x 1025 (1214 tokens), f32 trunk, bf16 attention: "
+          f"train_clips_per_sec {float(np.median(rates)):.1f} (median of windows {[round(r, 1) for r in rates]}); "
+          f"step split " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            loss = step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = sum(kernels_us.values())
+    if not busy:
+        print(f"[{card}] AST fine-tune profile: no device time recorded (not measured)")
+        return
+    print(f"[{card}] AST fine-tune profile, 2 steps: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+          f"({busy / wall_us:.1%}); {len(kernels_us)} kernels; by device time per step:")
+    for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 2e3:9.4f} ms  {us / busy:6.1%}  {name[:110]}")
 
 

@@ -135,8 +135,8 @@ def _fwd_tile_model(qs, k, v, bias, grid, chunk: int = 16):
     (csrc/attention.cu attn_fwd_mma) in its tile order: pass A over 16-key
     chunks keeps the row max and the row sum online (the sum rescaled as the
     max grows); pass B recomputes each chunk's scores, normalises p =
-    exp(s - m) / l, rounds it to bf16 and adds p v for the chunk with f32
-    sums; out is rounded to bf16. qs, k, v, bias are bf16."""
+    exp(s - m) * (1 / l), rounds it to bf16 and adds p v for the chunk with
+    f32 sums; out is rounded to bf16. qs, k, v, bias are bf16."""
     qf, kf, vf = qs.float(), k.float(), v.float()
     lk = kf.shape[1]
     be = bias.float() @ torch.from_numpy(attention.rel_expand_matrix(*grid)) if grid else None
@@ -154,7 +154,7 @@ def _fwd_tile_model(qs, k, v, bias, grid, chunk: int = 16):
         m = mn
     out = torch.zeros_like(qf)
     for kc in range(0, lk, chunk):
-        p = (torch.exp(scores(kc) - m[..., None]) / l[..., None]).to(torch.bfloat16).float()
+        p = (torch.exp(scores(kc) - m[..., None]) * (1.0 / l)[..., None]).to(torch.bfloat16).float()
         out = out + p @ vf[:, kc:kc + chunk]
     return out.to(torch.bfloat16)
 
@@ -186,3 +186,80 @@ def test_bf16_forward_tile_model_matches_jax_and_plain(bh, lq, grid, d):
     for ref in (np.asarray(ref_j.astype(jnp.float32)), plain.float().numpy()):
         assert got.shape == ref.shape == (bh, lq, d)
         assert np.abs(got.float().numpy() - ref).max() <= 2 * ulp(ref)
+
+
+def _stream_steps(lk: int, chunk: int = 64, step: int = 16):
+    """The (start, stop) key ranges of the streamed kernels' 16-key steps: the
+    keys go through shared memory ``chunk`` at a time, and a step past the
+    chunk's last key is skipped (a step's keys past Lk score -inf)."""
+    for c0 in range(0, lk, chunk):
+        valid = min(chunk, lk - c0)
+        for kc in range(0, valid, step):
+            yield c0 + kc, c0 + min(kc + step, valid)
+
+
+def _stream_models(qs, k, v, do, scale, chunk: int = 64):
+    """Torch (CPU, f32 arithmetic) models of the streamed bf16 kernels
+    (attn_fwd_mma_stream, attn_bwd_dq_mma_stream; no bias) in their order:
+    the keys in ``chunk``-key stages of 16-key steps; pass A keeps the row max
+    and sum (and dq's rowsum(dp p)) online, pass B normalises p = exp(s - m) *
+    (1 / l) and rounds p (forward) or ds = p (dp - delta) (dq) to bf16 before
+    the product, with f32 sums. Returns (out, dq, [m, l, delta]) in bf16 /
+    f32 as the kernels write them."""
+    qf, kf, vf, dof = qs.float(), k.float(), v.float(), do.float()
+    m = torch.full(qf.shape[:2], -torch.inf)
+    l = torch.zeros(qf.shape[:2])
+    u = torch.zeros(qf.shape[:2])
+    steps = list(_stream_steps(k.shape[1], chunk))
+    for a, b in steps:  # (A)
+        s = qf @ kf[:, a:b].transpose(1, 2)
+        dp = dof @ vf[:, a:b].transpose(1, 2)
+        mn = torch.maximum(m, s.amax(-1))
+        r = torch.exp(m - mn)
+        e = torch.exp(s - mn[..., None])
+        l, u, m = l * r + e.sum(-1), u * r + (dp * e).sum(-1), mn
+    rl = 1.0 / l
+    delta = u * rl
+    out, dq = torch.zeros_like(qf), torch.zeros_like(qf)
+    for a, b in steps:  # (B)
+        p = torch.exp(qf @ kf[:, a:b].transpose(1, 2) - m[..., None]) * rl[..., None]
+        out = out + p.to(torch.bfloat16).float() @ vf[:, a:b]
+        ds = p * (dof @ vf[:, a:b].transpose(1, 2) - delta[..., None])
+        dq = dq + ds.to(torch.bfloat16).float() @ kf[:, a:b]
+    dq = (dq.to(torch.bfloat16).float() * scale).to(torch.bfloat16)
+    return out.to(torch.bfloat16), dq, torch.stack([m, l, delta], -1)
+
+
+def test_stream_steps_cover_every_key_once():
+    for lk in (1, 16, 63, 64, 65, 129, 1214, 1217):
+        keys = [j for a, b in _stream_steps(lk) for j in range(a, b)]
+        assert keys == list(range(lk))
+    assert list(_stream_steps(129))[-1] == (128, 129)  # a last chunk of one key
+
+
+@pytest.mark.parametrize("bh,lq,lk", [(2, 150, 129), (3, 70, 200), (1, 40, 1214)])
+def test_streamed_tile_models_match_jax_and_plain(bh, lq, lk):
+    """The streamed forward's and dq's chunk order (64-key stages: at 129 keys
+    a last stage of one key; at 1214, AST-base's key length) against JAX's
+    fused_rel_attention(f32=False) in interpret mode and the plain versions,
+    all in bf16: out within 2 and dq within 4 bf16 ulps of max|ref|, the row
+    statistics within 1e-5."""
+    d = 64
+    q, k, v, _, do = _case(bh, lq, lk, d, None, seed=lk)
+    scale = d**-0.5
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    tb = lambda a: torch.from_numpy(np.array(bf(a).astype(jnp.float32))).to(torch.bfloat16)
+    f = lambda q, k, v: jax_fused(q, k, v, None, None, scale, False, True)
+    out_j, vjp = jax.vjp(f, bf(q), bf(k), bf(v))
+    dq_j = vjp(bf(do))[0]
+    qs = attention.scale_q(tb(q), scale)
+    out, dq, stats = _stream_models(qs, tb(k), tb(v), tb(do), scale)
+    plain_out = attention.attention_fwd_plain(qs, tb(k), tb(v), None, None)
+    plain_dq, _, plain_stats = attention.attention_bwd_dq_plain(qs, tb(k), tb(v), None, None, scale, tb(do))
+    ulp = lambda a: 2.0 ** (np.floor(np.log2(np.abs(a).max())) - 7)
+    for got, refs, ulps in ((out, (out_j, plain_out), 2), (dq, (dq_j, plain_dq), 4)):
+        assert got.dtype == torch.bfloat16 and got.shape == (bh, lq, d)
+        for ref in refs:
+            ref = ref.float().numpy() if isinstance(ref, torch.Tensor) else np.asarray(ref.astype(jnp.float32))
+            assert np.abs(got.float().numpy() - ref).max() <= ulps * ulp(ref)
+    torch.testing.assert_close(stats, plain_stats, rtol=1e-5, atol=1e-5)

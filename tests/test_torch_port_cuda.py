@@ -145,9 +145,9 @@ def test_fused_block1_autograd_on_the_card(cuda):
 # ---------------------------------------------------------------- rel-pos attention
 
 
-def _attn_inputs(bh, lq, grid, d, dtype, device, seed=0):
+def _attn_inputs(bh, lq, grid, d, dtype, device, seed=0, lk=77):
     r = np.random.default_rng(seed)
-    lk = grid[0] * grid[1] if grid else 77
+    lk = grid[0] * grid[1] if grid else lk
     t = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32)).to(device, dtype)
     q, k, v, do = t(bh, lq, d), t(bh, lk, d), t(bh, lk, d), t(bh, lq, d)
     bias = (0.5 * t(bh, lq, grid[0] + grid[1])).contiguous() if grid else None
@@ -220,10 +220,11 @@ def test_attention_backward_bf16_tensor_core_kernels(cuda, bh, lq, grid):
 
 @pytest.mark.parametrize("bh,lq,grid", MAST_BWD_SHAPES)
 def test_attention_forward_bf16_tensor_core_kernel(cuda, bh, lq, grid):
-    """The bf16 forward (the tensor-core design, 64 or 128 query rows a
-    block) at every MAST-B shape, a ragged Lq and the no-bias mode against
-    its plain version within 2 bf16 ulps of max|ref|; one launch a call, and
-    two runs bit for bit."""
+    """The bf16 forward (the tensor-core designs: resident with a bias, 64
+    or 128 query rows a block; streamed over keys without, 128) at every
+    MAST-B shape, a ragged Lq and the no-bias mode against its plain version
+    within 2 bf16 ulps of max|ref|; one launch a call, and two runs bit for
+    bit."""
     from audiossl_tpu_torch.ops import attention as A
 
     d = 96
@@ -240,6 +241,55 @@ def test_attention_forward_bf16_tensor_core_kernel(cuda, bh, lq, grid):
     assert got.dtype == want.dtype and got.shape == want.shape and torch.isfinite(got.float()).all()
     ref = float(want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= 2 * _bf16_ulp(ref)
+
+
+# AST's no-bias attention at key lengths whose k and v would not fit in
+# shared memory (the streamed kernels): AST-base's 1214 tokens at a small batch, a ragged 1500,
+# keys one past a multiple of the 64-key chunk (a last chunk of one key), and
+# fewer queries than keys
+AST_SHAPES = [(24, 1214, 1214), (4, 1500, 1500), (6, 1217, 1217), (5, 300, 1217)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,lq,lk", AST_SHAPES)
+def test_attention_streamed_kernels_match_plain(cuda, dtype, bh, lq, lk):
+    """The forward, dq and dk/dv with no bias at key lengths whose k and v
+    would not fit in shared memory, against their plain versions: f32 out within 1e-5
+    and gradients within 1e-4 of max(1, max|ref|); bf16 out within 2 and
+    gradients within 4 bf16 ulps of max|ref|; one launch each a call, and two
+    runs bit for bit."""
+    from audiossl_tpu_torch.ops import attention as A
+
+    d = 64
+    bf16 = int(dtype == torch.bfloat16)
+    assert all(A._lib().audiossl_attn_tile(which, lk, d, 0, bf16) for which in range(3))
+    q, k, v, _, do = _attn_inputs(bh, lq, None, d, dtype, cuda, seed=lk, lk=lk)
+    qs = A.scale_q(q, d**-0.5)
+    before = A.rel_attention_fwd.launches, A.rel_attention_bwd_dq.launches, A.rel_attention_bwd_dkv.launches
+    runs = []
+    for _ in range(2):
+        out = A.rel_attention_fwd(qs, k, v, None, None)
+        dq, _, stats = A.rel_attention_bwd_dq(qs, k, v, None, None, d**-0.5, do)
+        dk, dv = A.rel_attention_bwd_dkv(qs, k, v, None, None, do, stats)
+        torch.cuda.synchronize()
+        runs.append([out, dq, dk, dv, stats])
+    after = A.rel_attention_fwd.launches, A.rel_attention_bwd_dq.launches, A.rel_attention_bwd_dkv.launches
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dq, dk, dv, stats = runs[0]
+    want_dq, _, want_st = A.attention_bwd_dq_plain(qs, k, v, None, None, d**-0.5, do)
+    want_dk, want_dv = A.attention_bwd_dkv_plain(qs, k, v, None, None, do, stats)
+    torch.testing.assert_close(stats, want_st, rtol=1e-5, atol=1e-5)
+    for name, got, want in (("out", out, A.attention_fwd_plain(qs, k, v, None, None)), ("dq", dq, want_dq),
+                            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert got.dtype == want.dtype and got.shape == want.shape and torch.isfinite(got.float()).all(), name
+        ref = float(want.float().abs().max())
+        if dtype == torch.float32:
+            tol = (1e-5 if name == "out" else 1e-4) * max(1.0, ref)
+        else:
+            tol = (2 if name == "out" else 4) * _bf16_ulp(ref)
+        assert float((got.float() - want.float()).abs().max()) <= tol, name
 
 
 def test_attention_function_on_the_card_matches_cpu(cuda):
@@ -270,7 +320,8 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         A.rel_attention_fwd(q, k, v, bias, (torch.rand(7, 12) < 0.3).float())
     with pytest.raises(ValueError, match="one dtype"):
         A.rel_attention_bwd_dq(q, k, v, bias, (3, 4), 0.1, do.bfloat16())
-    short, long = torch.zeros((8, 8, 96), device=cuda), torch.zeros((8, 4000, 96), device=cuda)
+    # the f32 forward streams the keys but keeps whole score rows: beyond ~6,000 keys they do not fit
+    short, long = torch.zeros((8, 8, 96), device=cuda), torch.zeros((8, 16000, 96), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         A.rel_attention_fwd(short, long, long, None, None)
     odd = torch.zeros((2, 16, 20), device=cuda, dtype=torch.bfloat16)

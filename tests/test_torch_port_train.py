@@ -91,9 +91,12 @@ def test_loader_resumes_mid_epoch_and_substitutes_silence(wav_manifest, tmp_path
 
 
 def test_loader_options_of_later_items_raise(wav_manifest):
-    for kw in ({"labeled": True}, {"host_shard": (0, 2)}, {"balanced": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ManifestLoader(wav_manifest, 4, CLIP, **kw)
+    """host_shard and tar rows are not ported; labelled manifests and balanced
+    sampling are (tests/test_torch_port_probe.py), and balanced needs labels."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ManifestLoader(wav_manifest, 4, CLIP, host_shard=(0, 2))
+    with pytest.raises(ValueError, match="labeled"):
+        ManifestLoader(wav_manifest, 4, CLIP, balanced=True)
     with pytest.raises(NotImplementedError, match="tar"):
         ManifestLoader(pd.DataFrame({"files": ["a.tar::x.wav"]}), 4, CLIP)
 
