@@ -21,32 +21,59 @@
 //             it into dbias.
 // Per-channel values come in as params [C, 16] f32: w[0..8] (the weights rounded
 // to the stream dtype, as the TPU kernel's banded matrix is), bias, a, b2, k1,
-// k2, k3. Inputs are f32 or bf16; every product is an f32 FFMA (bf16 operands are
-// exact in f32), so there is no TF32 and no tensor-core rounding, and the conv
+// k2, k3. Inputs are f32 or bf16; bf16 operands are exact in f32, so the conv
 // feeds BN without a bf16 round trip (ops/block1.py:38-42).
-//
-// Design: one block of 256 threads per (clip, tile of R pooled rows). The block
-// stages the tile's 2R + 2 input rows and the one-sample halo, zero-padded, in
-// shared memory as f32, and the per-channel params beside them. Each warp takes
-// channels warp, warp + 8, ...; its lanes walk the tile's pooled positions, so
-// neighbouring lanes read neighbouring shared-memory columns and write
-// neighbouring output addresses. For each pooled position a lane loads the 4 x 4
-// input patch once and computes the four conv outputs of its window.
-// The backward passes reduce across a warp with shuffles (a fixed order) and
-// write one partial row per (block, channel) to a scratch tensor; a second
-// kernel sums the partials over blocks in block order. No float atomics, so two
-// runs give the same gradients bit for bit.
 //
 // Bound on an H100 SXM at one training view (B = 256, F = 64 mels, T = 96 frames,
 // C = 64, bf16): the forward needs 256*64*64*96 = 100.7 M conv outputs x 9 MACs =
 // 1.81 GFLOP and moves 3.1 MB of x in and 50.3 MB of pooled output out. At
 // 3.35 TB/s the bytes take about 16 us; the operations take about 2 us at the
-// 989 TFLOP/s bf16 rate (27 us as f32 FFMA at 67 TFLOP/s, which this design
-// uses). So the function is bound by bytes. Backward pass 1 reads x and dp
-// (53.4 MB, the same 16 us) and recomputes the 1.81 GFLOP; pass 2 adds the dW
-// contraction, 3.6 GFLOP in all. This design is bound by shared-memory loads
-// (16 per pooled position and channel, for 36 to 80 FMAs): a later PR can reuse
-// patches across neighbouring positions.
+// 989 TFLOP/s bf16 rate (27 us as f32 FFMA). So the function is bound by bytes.
+// Backward pass 1 reads x and dp (53.4 MB, the same 16 us) and recomputes the
+// 1.81 GFLOP; pass 2 adds the dW contraction, 3.6 GFLOP in all.
+//
+// Forward (block1_fwd_kernel), and both backward passes for f32 (block1_bwd_kernel):
+// one block of 256 threads per (clip, tile of R pooled rows). The block stages the
+// tile's 2R + 2 input rows and the one-sample halo, zero-padded, in shared memory as
+// f32, and the per-channel params beside them. Each warp takes channels warp,
+// warp + 8, ...; its lanes walk the tile's pooled positions, load each 4 x 4 input
+// patch and compute the four conv outputs of its window with f32 FFMAs. This
+// design is bound by shared-memory loads: 16 a pooled position and channel, the
+// patch reloaded for every channel.
+//
+// Backward passes for bf16, the training path (block1_bwd_mma_kernel, C = 64 only):
+// the FFMA design spent its time reloading each patch from shared memory for every
+// channel (16 loads a pooled position and channel, 2-way bank conflicts). Here the
+// conv recompute and the dW contraction run on bf16 mma.sync m16n8k16 tiles with f32
+// accumulation, and each input patch is read once for all 64 channels.
+//   - A persistent grid (as many 256-thread blocks as fit the card at once) walks
+//     items (clip, 16 pooled rows); a block stages the item's input rows (bf16,
+//     zero-padded) by 4-byte async copies, and a warp takes 16 pooled positions at
+//     a time.
+//   - Conv: Y^T[c, pos] = W^T[c, tap] Patch^T[tap, pos], 9 taps and the bias (split
+//     exactly into three bf16 terms against rows of ones) padded to K = 16. The
+//     products are exact, and y_raw stays f32, rounded once. Columns
+//     are ordered so that a lane's C fragments hold all four window elements of
+//     its pooled positions (column 2 j + df of n-tile dt): the first-maximum routing
+//     and relu' run in registers, in the time-major order, and every window
+//     element's sum is taken in one order (exact ties stay ties).
+//   - Pass 1 sums dy and dy * y_raw; a warp takes all 64 channels.
+//   - Pass 2: d_conv = k2 y_raw + (k3 + k1 dy) (f32) is split exactly into three
+//     bf16 terms (hi + mid + lo, 24 significant bits), which as B fragments (rows
+//     positions, columns channels: the conv's C layout) give
+//     dW^T[tap, c] += Patch^T[tap, pos] d_conv[pos, c] in three exact products a
+//     tile; dbias is the f32 sum of d_conv. Two warps share a group of positions,
+//     32 channels each, so that a lane's dW accumulators stay in registers across
+//     the block's items.
+//   - What bounds them now: instruction issue, no longer shared-memory loads. The
+//     compiled loops spend about 31 instructions a window and channel in pass 1
+//     (the f32 routing most of them) and 84 in pass 2 (the split 22 of them); at
+//     the card's issue rate that is roughly 60% of each kernel's time. Reading dp
+//     (50.3 MB, one 8-byte load a lane and channel) needs 15 us at 3.35 TB/s.
+// Both backward designs reduce in a fixed order: over a quad with shuffles, over a
+// block's warps through shared memory, one partial row per block; a second kernel
+// sums the partials over blocks in block order (one warp an output, a fixed shuffle
+// tree). No float atomics, so two runs give the same gradients bit for bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -232,13 +259,369 @@ __global__ void __launch_bounds__(kThreads) block1_bwd_kernel(const T_* __restri
     }
 }
 
-// out[i] = sum over blocks, in block order, of partial[blk][i].
+// out[i] = sum over blocks, in block order, of partial[blk][i]: one warp an output,
+// its lanes taking blocks lane, lane + 32, ... in order, then a fixed shuffle tree.
 __global__ void reduce_partials_kernel(const float* __restrict__ partial, int nblk, int n, float* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const int i = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
     if (i >= n) return;
     float s = 0.f;
-    for (int k = 0; k < nblk; ++k) s += partial[(size_t)k * n + i];
-    out[i] = s;
+    for (int k = lane; k < nblk; k += 32) s += partial[(size_t)k * n + i];
+    s = warp_sum(s);
+    if (lane == 0) out[i] = s;
+}
+
+// ---------------------------------------------------------------- bf16 backward on tensor cores
+//
+// Fragments of mma.sync.m16n8k16 (PTX ISA), lane = 4 g + t4: A (16 x 16) a0 = (row g,
+// k 2t4, 2t4 + 1), a1 = (row g + 8, same), a2 = (row g, k 2t4 + 8, 2t4 + 9), a3 = (row
+// g + 8, same); B (16 x 8) b0 = (k 2t4, 2t4 + 1, col g), b1 = (k 2t4 + 8, 2t4 + 9, col g);
+// C (16 x 8, f32) c0, c1 = (row g, cols 2t4, 2t4 + 1), c2, c3 = (row g + 8, same).
+//
+// Columns of the conv: a warp takes 16 pooled positions at a time as 4 column pairs p;
+// pooled position base + 4 j + p, window element (df, dt) is column 2 j + df of n-tile dt.
+// So a lane's C fragments hold all four window elements of pooled position
+// base + 4 t4 + p (its 4 positions over the pairs are consecutive: one 8-byte dp load a
+// channel), channels g and g + 8 of each 16-channel m-tile.
+
+constexpr int kMmaC = 64;                  // channels of the tensor-core design (AudioNTT's block 1)
+constexpr int kGroup = 16;                 // pooled positions a warp takes at a time
+constexpr int kMmaRows = 16;               // pooled rows an item
+constexpr size_t kMmaSmemMax = 200 * 1024;  // above kSmemLimit only after cudaFuncSetAttribute
+
+// c += a b, bf16 operands, f32 accumulation (not volatile: the compiler may move it
+// like any other arithmetic)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16 pair (lo, hi) as one register, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ unsigned pack_bits(unsigned short lo, unsigned short hi) {
+    return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+}
+__device__ __forceinline__ float lo_f32(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_f32(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
+
+// (d0, d1) = hi + mid + lo exactly, as three bf16 pairs: hi takes each value's top 8
+// significant bits, the residual d - hi (exact in f32) has at most 16, mid its top 8,
+// and the residual after it (exact) the last 8, which lo holds exactly.
+__device__ __forceinline__ void split3(float d0, float d1, unsigned (&r)[3]) {
+    r[0] = pack_bf16(d0, d1);
+    const float r0 = d0 - lo_f32(r[0]), r1 = d1 - hi_f32(r[0]);
+    r[1] = pack_bf16(r0, r1);
+    r[2] = pack_bf16(r0 - lo_f32(r[1]), r1 - hi_f32(r[1]));
+}
+
+// The routing of one window: bn = y_raw * a + b2, one FMA (as the FFMA design's
+// compiler contracts it; the plain version rounds twice). dp goes to the first maximum
+// of relu(bn) in the time-major order, times relu'(bn) there: that is the first element
+// k with bn[k] = max(bn) when max(bn) > 0, and no element otherwise. Returns max(bn);
+// e[k] = (bn[k] == max(bn)) for k < 3.
+__device__ __forceinline__ float window_max(const float (&yr)[4], float a, float b2, bool (&e)[3]) {
+    float bn[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) bn[k] = fmaf(yr[k], a, b2);
+    const float mx = fmaxf(fmaxf(bn[0], bn[1]), fmaxf(bn[2], bn[3]));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) e[k] = bn[k] == mx;
+    return mx;
+}
+
+// dp at 4 consecutive pooled positions of one channel as two bf16 pairs; zeros past
+// `avail`. `vec`: src is 8-byte aligned and avail >= 4.
+__device__ __forceinline__ void load_dp4(const unsigned short* src, int avail, bool vec, unsigned (&r)[2]) {
+    if (vec) {
+        const uint2 v = __ldcs(reinterpret_cast<const uint2*>(src));
+        r[0] = v.x;
+        r[1] = v.y;
+    } else {
+        unsigned short v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = i < avail ? src[i] : 0;
+        r[0] = pack_bits(v[0], v[1]);
+        r[1] = pack_bits(v[2], v[3]);
+    }
+}
+
+// 4 bytes global -> shared without a register, zero-filled where `valid` is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Shared memory of the tensor-core kernels: the warps' sums, the conv's A fragments, the
+// params, and the input tile of (2R + 2) rows x (T + 4) columns, bf16 (tile column j is
+// input column j - 2: rows start 4-byte aligned, so they arrive by 4-byte async copies).
+size_t mma_smem_bytes(int rows, int T, bool weight) {
+    return (size_t)kWarps * (weight ? 10 : 2) * kMmaC * sizeof(float) + (size_t)(kMmaC / 16) * 32 * sizeof(uint4) +
+           2 * kMmaC * sizeof(float4) + (size_t)(2 * rows + 2) * (T + 4) * sizeof(unsigned short);
+}
+
+// Pooled rows per item of the tensor-core kernels: at most kMmaRows and F/2, fewer for
+// long clips, so that the tile fits kMmaSmemMax; 0 if not even one row fits.
+int mma_rows(int F, int T, bool weight) {
+    int r = kMmaRows < F / 2 ? kMmaRows : F / 2;
+    while (r > 0 && mma_smem_bytes(r, T, weight) > kMmaSmemMax) --r;
+    return r;
+}
+
+// kWeight = false: partial[blk][c] = (sum dy, sum dy * y_raw).
+// kWeight = true:  partial[blk][c] = (dW[0..8], dbias) of d_conv = k1 dy + k2 y_raw + k3.
+// A persistent block walks items (clip, R pooled rows) blockIdx.x, + gridDim.x, ...; a
+// warp takes 16 pooled positions at a time. In the sums pass a warp takes all 64
+// channels; in the weight pass two warps share the positions, 32 channels each, so
+// that a lane's 32 dW accumulators fit its registers. The conv's A fragments (one
+// 16-byte load a lane and m-tile) and the params (one or two a channel and window)
+// come from shared memory.
+template <bool kWeight>
+__global__ void __launch_bounds__(kThreads, 2) block1_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                                                                     const __nv_bfloat16* __restrict__ dp,
+                                                                     const float* __restrict__ params,
+                                                                     float* __restrict__ partial, int F, int T, int R,
+                                                                     int tiles, int items) {
+    constexpr int C = kMmaC, kOut = kWeight ? 10 : 2;
+    constexpr int kMT = kWeight ? 2 : 4;  // 16-channel m-tiles a warp takes
+    constexpr int kShare = 4 / kMT;       // warps that share a group of positions
+    extern __shared__ float smem[];
+    float* red = smem;                                                       // [kWarps][C][kOut]: each warp's sums
+    uint4* wfrag = reinterpret_cast<uint4*>(red + kWarps * C * kOut);        // [C / 16][32]: the conv's A fragments
+    float4* prm4 = reinterpret_cast<float4*>(wfrag + C / 16 * 32);           // [C][2]: a, b2, k1, k2 | k3, -
+    unsigned short* tile = reinterpret_cast<unsigned short*>(prm4 + 2 * C);  // bf16 [(2R + 2) x (T + 4)]
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+    const int m0 = (warp % kShare) * kMT, gwarp = warp / kShare, gstep = kWarps / kShare * kGroup;
+    const int Fp = F / 2, Tp = T / 2, W = T + 4;
+    // tap k = 3 di + dj of the window at tile row 2 pr, column 2 q + 1 (input column 2 q - 1)
+    // sits di * W + dj further
+    const int off0 = (2 * t4) / 3 * W + (2 * t4) % 3, off1 = (2 * t4 + 1) / 3 * W + (2 * t4 + 1) % 3;
+    const int offg = g / 3 * W + g % 3, off8 = 2 * W + 2;
+    // the zero columns left and right of every tile row, set once
+    for (int r = threadIdx.x; r < 2 * R + 2; r += blockDim.x) {
+        unsigned short* row = tile + r * W;
+        row[0] = row[1] = row[T + 2] = row[T + 3] = 0;
+    }
+    if (warp < C / 16) {
+        // the A fragments of m-tile `warp`: rows c = 16 m + g (+ 8); k = taps 0..8 (the weights,
+        // already bf16), then the bias split exactly into three bf16 terms (k = 9, 10, 11, whose
+        // B rows are ones), so that the tensor core adds it; the rest zero
+        const float* pc = params + (16 * warp + g) * kParams;
+        float bt[2][3];  // hi, mid, lo of rows g and g + 8
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float b = pc[8 * h * kParams + kBias];
+            bt[h][0] = __bfloat162float(__float2bfloat16_rn(b));
+            bt[h][1] = __bfloat162float(__float2bfloat16_rn(b - bt[h][0]));
+            bt[h][2] = (b - bt[h][0]) - bt[h][1];
+        }
+        auto w = [&](int h, int k) { return k < 9 ? pc[8 * h * kParams + k] : k < 12 ? bt[h][k - 9] : 0.f; };
+        wfrag[warp * 32 + lane] =
+            make_uint4(pack_bf16(w(0, 2 * t4), w(0, 2 * t4 + 1)), pack_bf16(w(1, 2 * t4), w(1, 2 * t4 + 1)),
+                       pack_bf16(w(0, 2 * t4 + 8), w(0, 2 * t4 + 9)), pack_bf16(w(1, 2 * t4 + 8), w(1, 2 * t4 + 9)));
+    }
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        const float* pc = params + c * kParams;
+        prm4[2 * c] = make_float4(pc[kA], pc[kB2], pc[kK1], pc[kK2]);
+        prm4[2 * c + 1] = make_float4(pc[kK3], 0.f, 0.f, 0.f);
+    }
+    float acc[kMT][2][2];                // sums: (sum dy, sum dy * y_raw); weight: (dbias, -)
+    float dw[kWeight ? 2 * kMT : 1][4];  // weight: C fragments of dW^T, n-tile n = 8 channels, rows taps g, g + 8
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) acc[m][h][0] = acc[m][h][1] = 0.f;
+    if constexpr (kWeight)
+#pragma unroll
+        for (int n = 0; n < 2 * kMT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dw[n][e] = 0.f;
+    const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+    const unsigned short* dps = reinterpret_cast<const unsigned short*>(dp);
+    const size_t plane = (size_t)Fp * Tp;
+    // dp at 8-byte loads where every item's positions start 4-aligned
+    const bool dp_vec = (reinterpret_cast<size_t>(dp) & 7) == 0 && plane % 4 == 0 && ((size_t)R * Tp) % 4 == 0;
+    const bool async_rows = (reinterpret_cast<size_t>(x) & 3) == 0;  // T is even: every row is 4-byte aligned
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int b = item / tiles, p0 = (item - b * tiles) * R;
+        const int rows = min(R, Fp - p0), npos = rows * Tp;
+        __syncthreads();  // every warp is done with the last item's tile
+        // the item's input rows 2 p0 - 1 .. 2 p0 + 2 rows, zero past the clip
+        const unsigned short* xb = xs + (size_t)b * F * T;
+        for (int r = warp; r < 2 * rows + 2; r += kWarps) {
+            const int f = 2 * p0 - 1 + r;
+            const bool in = f >= 0 && f < F;
+            const unsigned short* src = in ? xb + (size_t)f * T : xb;
+            unsigned short* dst = tile + r * W + 2;
+            if (async_rows)
+                for (int j = 2 * lane; j < T; j += 64) cp_async4(dst + j, src + j, in);
+            else
+                for (int j = lane; j < T; j += 32) dst[j] = in ? src[j] : 0;
+        }
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        const unsigned short* dpb = dps + (size_t)b * C * plane + (size_t)p0 * Tp;
+        for (int base = gwarp * kGroup; base < npos; base += gstep) {
+            const int q0 = base + 4 * t4;  // this lane's pooled positions q0 .. q0 + 3, one a pair
+            unsigned dpr[kMT][2][2];
+            const bool vec = dp_vec && q0 + 4 <= npos;
+#pragma unroll
+            for (int m = 0; m < kMT; ++m)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    load_dp4(dpb + (size_t)(16 * (m0 + m) + 8 * h + g) * plane + q0, npos - q0, vec, dpr[m][h]);
+            // (row, column) of the pooled positions of pair 0: the B loader's column and this lane's own
+            int pr_b = (base + 4 * (g >> 1)) / Tp, q_b = base + 4 * (g >> 1) - pr_b * Tp;
+            int pr_c = q0 / Tp, q_c = q0 - pr_c * Tp;
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+                // B fragments of the conv: column g is pooled position base + 4 (g / 2) + p, window row
+                // g % 2. Past the item the row is clamped: those columns' outputs are never read.
+                unsigned bf[2][2];  // [dt][b0, b1]
+                {
+                    const unsigned short* s = tile + (2 * min(pr_b, rows - 1) + (g & 1)) * W + 2 * q_b + 1;
+#pragma unroll
+                    for (int dt = 0; dt < 2; ++dt) {
+                        bf[dt][0] = pack_bits(s[dt + off0], s[dt + off1]);
+                        // tap 8 and the ones of the bias rows (bf16 1.0 = 0x3f80)
+                        bf[dt][1] = t4 == 0 ? pack_bits(s[dt + off8], 0x3f80) : t4 == 1 ? 0x3f803f80u : 0u;
+                    }
+                }
+                const bool valid = q0 + p < npos;  // this lane's C fragments' pooled position
+                // weight: A fragment of dW^T = Patch^T d_conv: rows taps g (and 8 for g = 0), k =
+                // columns 2 t4 + df of n-tile dt, i.e. this lane's own window elements. Zero past
+                // the item, where d_conv is not.
+                unsigned pa[4];
+                if constexpr (kWeight) {
+                    const unsigned short* s = tile + 2 * min(pr_c, rows - 1) * W + 2 * q_c + 1;
+                    const unsigned keep = valid ? 0xffffffffu : 0u, keep8 = g == 0 ? keep : 0u;
+                    pa[0] = pack_bits(s[offg], s[offg + W]) & keep;
+                    pa[2] = pack_bits(s[offg + 1], s[offg + W + 1]) & keep;
+                    pa[1] = pack_bits(s[off8], s[off8 + W]) & keep8;
+                    pa[3] = pack_bits(s[off8 + 1], s[off8 + W + 1]) & keep8;
+                }
+                if (++q_b == Tp) q_b = 0, ++pr_b;
+                if (++q_c == Tp) q_c = 0, ++pr_c;
+#pragma unroll
+                for (int m = 0; m < kMT; ++m) {
+                    const uint4 wv = wfrag[(m0 + m) * 32 + lane];
+                    const unsigned wa[4] = {wv.x, wv.y, wv.z, wv.w};
+                    float y0[4] = {0.f, 0.f, 0.f, 0.f}, y1[4] = {0.f, 0.f, 0.f, 0.f};
+                    mma_bf16(y0, wa, bf[0][0], bf[0][1]);
+                    mma_bf16(y1, wa, bf[1][0], bf[1][1]);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        // a, b2 (, k1, k2, k3) of channel 16 (m0 + m) + 8 h + g
+                        const int c = 16 * (m0 + m) + 8 * h + g;
+                        const float4 u = prm4[2 * c];
+                        const float pc[5] = {u.x, u.y, u.z, u.w, kWeight ? prm4[2 * c + 1].x : 0.f};
+                        // y_raw (the bias added by the tensor core) of the window elements in the
+                        // time-major order (t0,f0), (t0,f1), (t1,f0), (t1,f1)
+                        const float yr[4] = {y0[2 * h], y0[2 * h + 1], y1[2 * h], y1[2 * h + 1]};
+                        const unsigned dpw = dpr[m][h][p >> 1];  // zero past the item
+                        const float dpv = (p & 1) ? hi_f32(dpw) : lo_f32(dpw);
+                        bool e[3];
+                        const float mx = window_max(yr, pc[0], pc[1], e);
+                        const float dpe = mx > 0.f ? dpv : 0.f;
+                        if constexpr (!kWeight) {
+                            // the other three elements' dy are 0: adding them changes no bit
+                            const float ysel = e[0] ? yr[0] : e[1] ? yr[1] : e[2] ? yr[2] : yr[3];
+                            acc[m][h][0] += dpe;
+                            acc[m][h][1] = fmaf(dpe, ysel, acc[m][h][1]);
+                        } else {
+                            // d_conv = k2 y_raw + (k3 + k1 dy): dy is dpe at the first maximum, else 0
+                            const float k3 = pc[4], k3t = fmaf(pc[2], dpe, k3);
+                            const float dc[4] = {fmaf(pc[3], yr[0], e[0] ? k3t : k3),
+                                                 fmaf(pc[3], yr[1], !e[0] && e[1] ? k3t : k3),
+                                                 fmaf(pc[3], yr[2], !e[0] && !e[1] && e[2] ? k3t : k3),
+                                                 fmaf(pc[3], yr[3], !e[0] && !e[1] && !e[2] ? k3t : k3)};
+                            // dbias: the f32 sum of d_conv (zero past the item)
+                            acc[m][h][0] = fmaf(((dc[0] + dc[1]) + dc[2]) + dc[3], valid ? 1.f : 0.f, acc[m][h][0]);
+                            // B of dW^T, one a term: rows k = (dt, df) of this lane's position (b0: dt = 0,
+                            // b1: dt = 1), column its channel
+                            unsigned b0[3], b1[3];
+                            split3(dc[0], dc[1], b0);
+                            split3(dc[2], dc[3], b1);
+#pragma unroll
+                            for (int j = 0; j < 3; ++j) mma_bf16(dw[2 * m + h], pa, b0[j], b1[j]);
+                        }
+                    }
+                }
+            }
+        }
+    }
+    // the block's partial row: each warp's rows, then their sum over warps in order
+    float* rw = red + warp * C * kOut;
+    if constexpr (kWeight) {
+        for (int i = lane; i < C * kOut; i += 32) rw[i] = 0.f;  // the channels of the other warp of the pair
+        __syncwarp();
+    }
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // over the quad (the lanes of one g)
+            float v[2] = {acc[m][h][0], acc[m][h][1]};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                v[i] += __shfl_xor_sync(0xffffffffu, v[i], 1);
+                v[i] += __shfl_xor_sync(0xffffffffu, v[i], 2);
+            }
+            const int c = 16 * (m0 + m) + 8 * h + g;
+            if (t4 == 0) {
+                if constexpr (kWeight)
+                    rw[c * kOut + 9] = v[0];
+                else
+                    rw[c * kOut] = v[0], rw[c * kOut + 1] = v[1];
+            }
+        }
+    if constexpr (kWeight) {  // the C fragments of dW^T hold whole sums already
+#pragma unroll
+        for (int n = 0; n < 2 * kMT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int c = 16 * m0 + 8 * n + 2 * t4 + (e & 1), tap = g + 8 * (e >> 1);
+                if (tap < 9) rw[c * kOut + tap] = dw[n][e];
+            }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < C * kOut; i += blockDim.x) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) s += red[w * C * kOut + i];
+        partial[(size_t)blockIdx.x * C * kOut + i] = s;
+    }
+}
+
+// Rows of partials (the grid) of a backward pass: for f32 (the FFMA kernel) B * tiles
+// blocks; for bf16 (the tensor-core kernel, C = 64 only) a persistent grid of as many
+// blocks as fit the card at once (at most one an item). Sets the kernel's shared-memory
+// limit where it needs more than 48 KB. 0 if the clip is too long.
+template <bool kWeight>
+int bwd_blocks(int B, int F, int T, int C, int is_bf16) {
+    if (!is_bf16) {
+        const int R = rows_per_block(F, T, C);
+        return R == 0 ? 0 : B * ((F / 2 + R - 1) / R);
+    }
+    const int R = mma_rows(F, T, kWeight);
+    if (R == 0 || C != kMmaC) return 0;
+    const size_t smem = mma_smem_bytes(R, T, kWeight);
+    const auto kernel = block1_bwd_mma_kernel<kWeight>;
+    if (smem > kSmemLimit &&
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kMmaSmemMax)) !=
+            cudaSuccess)
+        return 0;
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) != cudaSuccess || per_sm == 0)
+        return 0;
+    const int items = B * ((F / 2 + R - 1) / R);
+    return items < per_sm * sms ? items : per_sm * sms;
 }
 
 template <typename T_>
@@ -251,29 +634,39 @@ int launch_fwd(const void* x, int B, int F, int T, int C, const float* params, v
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T_, bool kWeight>
-int launch_bwd(const void* x, const void* dp, int B, int F, int T, int C, const float* params, float* partial,
-               float* out, cudaStream_t stream) {
-    const int R = rows_per_block(F, T, C);
-    if (R == 0) return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = (F / 2 + R - 1) / R;
-    block1_bwd_kernel<T_, kWeight><<<B * tiles, kThreads, smem_bytes(R, T, C), stream>>>(
-        static_cast<const T_*>(x), static_cast<const T_*>(dp), params, partial, F, T, C, R, tiles);
+// nblk: the rows of `partial`, as bwd_blocks gave them
+template <bool kWeight>
+int launch_bwd(const void* x, const void* dp, int is_bf16, int B, int F, int T, int C, const float* params, int nblk,
+               float* partial, float* out, cudaStream_t stream) {
+    if (!is_bf16) {
+        const int R = rows_per_block(F, T, C);
+        if (R == 0 || nblk != B * ((F / 2 + R - 1) / R)) return static_cast<int>(cudaErrorInvalidValue);
+        block1_bwd_kernel<float, kWeight><<<nblk, kThreads, smem_bytes(R, T, C), stream>>>(
+            static_cast<const float*>(x), static_cast<const float*>(dp), params, partial, F, T, C, R,
+            (F / 2 + R - 1) / R);
+    } else {
+        const int R = mma_rows(F, T, kWeight);
+        if (R == 0 || C != kMmaC || nblk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+        const int tiles = (F / 2 + R - 1) / R;
+        block1_bwd_mma_kernel<kWeight><<<nblk, kThreads, mma_smem_bytes(R, T, kWeight), stream>>>(
+            static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dp), params, partial, F, T, R,
+            tiles, B * tiles);
+    }
     int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     const int n = C * (kWeight ? 10 : 2);
-    reduce_partials_kernel<<<(n + 255) / 256, 256, 0, stream>>>(partial, B * tiles, n, out);
+    reduce_partials_kernel<<<(n + kWarps - 1) / kWarps, kThreads, 0, stream>>>(partial, nblk, n, out);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Blocks of the backward passes for a [B, 1, F, T] input: the wrapper sizes the
-// scratch tensor of partials [blocks, C, 2 or 10] with it. 0 if the clip is too
-// long for one pooled row in shared memory.
-extern "C" int audiossl_block1_blocks(int B, int F, int T, int C) {
-    const int R = rows_per_block(F, T, C);
-    return R == 0 ? 0 : B * ((F / 2 + R - 1) / R);
+// Rows of the scratch tensor of partials [rows, C, 2 or 10] of a backward pass
+// (`weight`: the dW pass) for a [B, 1, F, T] input on the current device; 0 if the
+// clip is too long for the kernels' shared-memory tile. Not to be called while a
+// stream is being captured (it may set a kernel attribute).
+extern "C" int audiossl_block1_bwd_blocks(int B, int F, int T, int C, int is_bf16, int weight) {
+    return weight ? bwd_blocks<true>(B, F, T, C, is_bf16) : bwd_blocks<false>(B, F, T, C, is_bf16);
 }
 
 // x [B, 1, F, T] (bf16 if is_bf16, else f32), params [C, 16] f32 ->
@@ -287,19 +680,16 @@ extern "C" int audiossl_block1_fwd(const void* x, int is_bf16, int B, int F, int
 }
 
 // x [B, 1, F, T], dp [B, C, F/2, T/2] (both bf16 or both f32), params [C, 16] ->
-// out [C, 2] f32 = (sum dy, sum dy * y_raw); partial [blocks, C, 2] is scratch.
+// out [C, 2] f32 = (sum dy, sum dy * y_raw); partial [nblk, C, 2] is scratch, nblk
+// from audiossl_block1_bwd_blocks(..., weight = 0).
 extern "C" int audiossl_block1_bwd_sums(const void* x, const void* dp, int is_bf16, int B, int F, int T, int C,
-                                        const float* params, float* partial, float* out, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? launch_bwd<__nv_bfloat16, false>(x, dp, B, F, T, C, params, partial, out, s)
-                   : launch_bwd<float, false>(x, dp, B, F, T, C, params, partial, out, s);
+                                        const float* params, int nblk, float* partial, float* out, void* stream) {
+    return launch_bwd<false>(x, dp, is_bf16, B, F, T, C, params, nblk, partial, out, static_cast<cudaStream_t>(stream));
 }
 
 // As audiossl_block1_bwd_sums, -> out [C, 10] f32 = (dW[c, 0, di, dj] at di * 3 + dj, dbias);
-// partial [blocks, C, 10] is scratch.
+// partial [nblk, C, 10] is scratch, nblk from audiossl_block1_bwd_blocks(..., weight = 1).
 extern "C" int audiossl_block1_bwd_weight(const void* x, const void* dp, int is_bf16, int B, int F, int T, int C,
-                                          const float* params, float* partial, float* out, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? launch_bwd<__nv_bfloat16, true>(x, dp, B, F, T, C, params, partial, out, s)
-                   : launch_bwd<float, true>(x, dp, B, F, T, C, params, partial, out, s);
+                                          const float* params, int nblk, float* partial, float* out, void* stream) {
+    return launch_bwd<true>(x, dp, is_bf16, B, F, T, C, params, nblk, partial, out, static_cast<cudaStream_t>(stream));
 }

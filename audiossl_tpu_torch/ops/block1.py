@@ -10,7 +10,9 @@ version of the same function beside it and a ``launches`` counter:
   ``block1_bwd_weight`` <- ``_bwd2_kernel``: dW and dbias of the BN backward
 
 A wrapper takes the plain version for a CPU tensor only; on a CUDA tensor it
-launches the kernel or raises. ``batch_stats`` is plain torch on every device,
+launches the kernel or raises. In bf16 (the training path) the backward
+passes run on tensor-core tiles and take the block's 64 channels only; in
+f32 they run on f32 FFMAs at any width. ``batch_stats`` is plain torch on every device,
 as on the TPU it is XLA: Gram-matrix quadratic forms, so the conv output is
 never formed. ``FusedBlock1`` ties them into one ``autograd.Function``.
 
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -180,12 +183,12 @@ def block1_bwd_weight_plain(x: torch.Tensor, dp: torch.Tensor, params: torch.Ten
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("block1")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.audiossl_block1_blocks.argtypes = [i, i, i, i]
-    lib.audiossl_block1_blocks.restype = i
+    lib.audiossl_block1_bwd_blocks.argtypes = [i, i, i, i, i, i]
+    lib.audiossl_block1_bwd_blocks.restype = i
     lib.audiossl_block1_fwd.argtypes = [p, i, i, i, i, i, p, p, p]
     lib.audiossl_block1_fwd.restype = i
     for fn in (lib.audiossl_block1_bwd_sums, lib.audiossl_block1_bwd_weight):
-        fn.argtypes = [p, p, i, i, i, i, i, p, p, p, p]
+        fn.argtypes = [p, p, i, i, i, i, i, p, i, p, p, p]
         fn.restype = i
     return lib
 
@@ -232,19 +235,46 @@ def block1_fwd(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks(device: int, b: int, f: int, t: int, c: int, bf16: bool, weight: bool) -> int:
+    """Rows of a backward pass's partials (its grid) for this shape on this
+    device; the kernel library may set a shared-memory attribute here, so it
+    is asked once, before any graph capture that launches the pass."""
+    with torch.cuda.device(device):
+        blocks = _lib().audiossl_block1_bwd_blocks(b, f, t, c, int(bf16), int(weight))
+    if blocks == 0:
+        raise ValueError(f"clips of {t} frames are too long for the block-1 kernels' shared-memory tile")
+    return blocks
+
+
+# eager calls reuse one partials buffer per (device, stream, host thread, shape): the
+# passes one thread launches on one stream run one after another, so no two calls in
+# flight share a buffer
+_partials: dict[tuple, torch.Tensor] = {}
+
+
+def _partial_buffer(x: torch.Tensor, blocks: int, c: int, n_out: int) -> torch.Tensor:
+    if torch.cuda.is_current_stream_capturing():  # a captured graph keeps its own
+        return torch.empty((blocks, c, n_out), dtype=torch.float32, device=x.device)
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream, threading.get_ident(), blocks, c, n_out)
+    if key not in _partials:
+        _partials[key] = torch.empty((blocks, c, n_out), dtype=torch.float32, device=x.device)
+    return _partials[key]
+
+
 def _bwd(fn_name: str, n_out: int, x: torch.Tensor, dp: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     _check(x, params, dp)
     b, _, f, t = x.shape
     c = params.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and c != 64:
+        raise ValueError(f"the bf16 backward kernels take 64 channels (AudioNTT's block 1), got {c}")
+    blocks = _bwd_blocks(x.device.index, b, f, t, c, bf16, n_out == 10)
     out = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    blocks = lib.audiossl_block1_blocks(b, f, t, c)
-    if blocks == 0:
-        raise ValueError(f"clips of {t} frames are too long for the block-1 kernels' shared-memory tile")
-    partial = torch.empty((blocks, c, n_out), dtype=torch.float32, device=x.device)
+    partial = _partial_buffer(x, blocks, c, n_out)
     with torch.cuda.device(x.device):
-        err = getattr(lib, fn_name)(
-            x.data_ptr(), dp.data_ptr(), int(x.dtype == torch.bfloat16), b, f, t, c, params.data_ptr(),
+        err = getattr(_lib(), fn_name)(
+            x.data_ptr(), dp.data_ptr(), int(bf16), b, f, t, c, params.data_ptr(), blocks,
             partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _raise_if(err, fn_name)

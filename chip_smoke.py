@@ -46,9 +46,15 @@ with 128).
     kernel spilling, the log-mel kernel is held at both paths' shapes, and
     the f32 DeLoRes-S step gate runs 12 batches.
 
+  * block 1's backward passes on bf16 tensor-core tiles (slice 7): the
+    ptxas report of block1.cu is held to no spill as well, each backward
+    pass run twice must give the same bits, and each backward pass's two
+    launches (the main kernel and the ordered sum of the blocks' partials)
+    are timed apart by torch.profiler.
+
 It checks the outputs, times each kernel, its plain version and a library
-composition (the log-mel, attention and rows kernels as CUDA graph
-replays; the attention at MAST-B's shapes and at AST-base's), serving and
+composition (every kernel as CUDA graph replays, block 1's since slice 7;
+the attention at MAST-B's shapes and at AST-base's), serving and
 training (DeLoRes-S, SS-MAST, the AST-base fine-tune), and prints:
 
   * the card's name and power limit as nvidia-smi gives them;
@@ -494,7 +500,13 @@ def block1_checks(dev) -> tuple[dict[str, float], dict[str, float]]:
             "block1_bwd_sums": (block1.block1_bwd_sums(x, dp, params), block1.block1_bwd_sums_plain(x, dp, params)),
             "block1_bwd_weight": (block1.block1_bwd_weight(x, dp, params), block1.block1_bwd_weight_plain(x, dp, params)),
         }
+        # deterministic: the backward passes run again give the same bits
+        again = {"block1_bwd_sums": block1.block1_bwd_sums(x, dp, params),
+                 "block1_bwd_weight": block1.block1_bwd_weight(x, dp, params)}
         torch.cuda.synchronize()
+        for name, out in again.items():
+            if not torch.equal(out, pairs[name][0]):
+                raise RuntimeError(f"{name} at {label}: a second run gave other bits")
         for name, (got, want) in pairs.items():
             got, want = got.float(), want.float()
             if got.shape != want.shape or not torch.isfinite(got).all():
@@ -698,9 +710,32 @@ def f32_step_check(pre, pool, dev, b: int = 8) -> dict[str, float]:
             "batches_passing": best["passing"], "injected_faults_batches_passing": caught}
 
 
+def kernel_split(fn, iters: int = 20) -> dict[str, float]:
+    """Mean device ms of each CUDA kernel that ``fn()`` launches, from
+    torch.profiler over ``iters`` eager calls (each kernel's own duration,
+    so the host's gaps between launches do not count); {} if the profiler
+    recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key): e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def block1_times(dev, card) -> dict[str, dict]:
     """ms, plain_ms, library_ms and the bound of each block-1 kernel at one
-    training view ([256, 1, 64, 96] bf16)."""
+    training view ([256, 1, 64, 96] bf16), each a CUDA graph replay
+    (graph_ms): the kernel 20 replays, the plain version 5, the cuDNN
+    composition's forward, and its backward as the graph of forward and
+    backward less the forward's. Each backward pass's two launches (the
+    main kernel and the ordered sum of the blocks' partials) are timed
+    apart by torch.profiler (``kernel_split``)."""
     import torch.nn.functional as F
 
     from audiossl_tpu_torch.ops import block1
@@ -721,9 +756,11 @@ def block1_times(dev, card) -> dict[str, dict]:
         y = F.batch_norm(y, None, None, gl, el, training=True)
         return F.max_pool2d(F.relu(y), 2, 2)
 
-    lib_out = composition()
-    lib_fwd = cuda_ms(composition)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (wl, bl, gl, el), dp, retain_graph=True))
+    def composition_fwd_bwd():
+        return torch.autograd.grad(composition(), (wl, bl, gl, el), dp)
+
+    lib_fwd = graph_ms(composition)
+    lib_bwd = graph_ms(composition_fwd_bwd) - lib_fwd
     fns = {
         "block1_fwd": (lambda: block1.block1_fwd(x, params), lambda: block1.block1_fwd_plain(x, params), lib_fwd, 9),
         "block1_bwd_sums": (lambda: block1.block1_bwd_sums(x, dp, params),
@@ -734,8 +771,8 @@ def block1_times(dev, card) -> dict[str, dict]:
     out = {}
     pooled_bytes = 2 * b * c * (f // 2) * (t // 2)
     for name, (kernel, plain, lib_ms, macs) in fns.items():
-        ms = cuda_ms(kernel)
-        plain_ms = cuda_ms(plain, iters=5)
+        ms = graph_ms(kernel)
+        plain_ms = graph_ms(plain, iters=5)
         # each input read once, each output written once; 2 FLOP per MAC at the bf16 rate
         out_f32 = {"block1_fwd": 0, "block1_bwd_sums": 2, "block1_bwd_weight": 10}[name]
         nbytes = 2 * b * f * t + pooled_bytes + 4 * c * (block1.N_PARAMS + out_f32)
@@ -743,11 +780,17 @@ def block1_times(dev, card) -> dict[str, dict]:
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms}
+        split = ""
+        if name != "block1_fwd":
+            launches = kernel_split(kernel)
+            out[name]["launch_ms"] = launches
+            split = ("; its launches (torch.profiler, eager): "
+                     + (", ".join(f"{k} {v:.4f} ms" for k, v in launches.items()) if launches else "not measured"))
         print(f"[{card}] {name} [256, 1, 64, 96] bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib_ms:.4f} ms ({'forward' if name == 'block1_fwd' else 'whole backward'} of the "
               f"cuDNN conv -> batch norm -> ReLU -> max-pool composition); bound {max(t_bytes, t_ops):.4f} ms "
               f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms at the "
-              f"bf16 rate, {flops / PEAK_F32 * 1e3:.4f} ms as f32 FFMA)")
+              f"bf16 rate, {flops / PEAK_F32 * 1e3:.4f} ms as f32 FFMA); all CUDA graph replays{split}")
     return out
 
 
@@ -1345,29 +1388,40 @@ def ssmast_train_times(dev, card, pool) -> None:
 # ---------------------------------------------------------------- the build's ptxas report
 
 
+def kernel_label(name: str, pattern: str) -> str:
+    """A readable name of a mangled kernel name: the function whose name
+    matches ``pattern``, with its template arguments (dtype, ints, bools)."""
+    # the mangled name: length, name, template arguments; in an anonymous namespace
+    # the length follows the file's 8-digit hash (_cu_<hash><length><name>)
+    m = re.search(rf"_cu_[0-9a-f]{{8}}(\d+)({pattern})", name) or re.search(rf"(\d+)({pattern})", name)
+    if not m:
+        return name
+    n = int(m.group(1))
+    kname, tail = m.group(2)[:n], name[m.start(2) + n:]
+    tmpl = tail.split("Ev")[0] if tail.startswith("I") else ""
+    args = (["bf16"] if "bfloat16" in tmpl else ["f32"] if tmpl.startswith("If") else [])
+    args += re.findall(r"Li(\d+)E", tmpl) + [("false", "true")[int(v)] for v in re.findall(r"Lb(\d)E", tmpl)]
+    return f"{kname}<{','.join(args)}>" if args else kname
+
+
 def ptxas_check(kernels) -> None:
-    """Registers and spills of every attention kernel instantiation, from
-    ptxas's report of the library's build; any spill fails the run."""
-    report = kernels.ptxas_report(kernels.build_log("attention"))
-    if not report:
-        raise RuntimeError("no ptxas report of attention.cu's build")
+    """Registers and spills of every attention and block-1 kernel
+    instantiation, from ptxas's report of each library's build; any spill
+    fails the run."""
     spilled = []
-    rows = []
-    for name, r in report.items():
-        label = name
-        if m := re.search(r"(\d+)(attn_\w+)", name):  # the mangled name: length, name, template arguments
-            n = int(m.group(1))
-            kname, tail = m.group(2)[:n], m.group(2)[n:]
-            tmpl = tail.split("Ev")[0] if tail.startswith("I") else ""
-            args = (["bf16"] if "bfloat16" in tmpl else ["f32"] if tmpl.startswith("If") else [])
-            args += re.findall(r"Li(\d+)E", tmpl)
-            label = f"{kname}<{','.join(args)}>" if args else kname
-        rows.append(f"{label} {r.get('registers')} regs, {r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} B spilled")
-        if r.get("spill_stores") or r.get("spill_loads"):
-            spilled.append(label)
-    print(f"ptxas, attention.cu ({len(report)} kernels): " + "; ".join(rows))
+    for source, pattern in (("attention", r"attn_\w+"), ("block1", r"block1_\w+|reduce_partials_kernel")):
+        report = kernels.ptxas_report(kernels.build_log(source))
+        if not report:
+            raise RuntimeError(f"no ptxas report of {source}.cu's build")
+        rows = []
+        for name, r in report.items():
+            label = kernel_label(name, pattern)
+            rows.append(f"{label} {r.get('registers')} regs, {r.get('spill_stores', 0)}/{r.get('spill_loads', 0)} B spilled")
+            if r.get("spill_stores") or r.get("spill_loads"):
+                spilled.append(f"{source}.cu {label}")
+        print(f"ptxas, {source}.cu ({len(report)} kernels): " + "; ".join(rows))
     if spilled:
-        raise RuntimeError(f"attention kernels spill registers: {spilled}")
+        raise RuntimeError(f"kernels spill registers: {spilled}")
 
 
 # ---------------------------------------------------------------- the downstream probe and AST-base (slice 6)

@@ -227,3 +227,128 @@ def test_block2_pool_tie_divergence_is_rare(dtype, bound):
     jax_first = order[(win == win.amax(-1, keepdim=True)).float().argmax(-1)]  # the first maximum in JAX's order
     differ = (torch_first != jax_first).any(-1) & (win.amax(-1) > 0)
     assert float(differ.float().mean()) <= bound
+
+
+# ---------------------------------------------------------------- the tensor-core backward design (CPU model)
+
+
+def _split3(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's exact split of f32 d_conv into three bf16 terms (split3 in
+    csrc/block1.cu): hi = bf16(d), mid = bf16(d - hi), lo = d - hi - mid."""
+    hi = d.bfloat16().float()
+    r = d - hi
+    mid = r.bfloat16().float()
+    return hi, mid, r - mid
+
+
+def _bwd_tile_model(x, dp, params, weight: bool, nblk: int = 2, max_rows: int = 16) -> torch.Tensor:
+    """The arithmetic of block1_bwd_mma_kernel in torch: items of (clip, R pooled
+    rows) dealt to ``nblk`` persistent blocks in turn; in an item, groups of 16
+    pooled positions, column pairs p, position base + 4 j + p (the fragment
+    order); window elements in the time-major order. y_raw is the exact sum of
+    the bf16 products and the bias rounded once to f32 (the tensor core keeps
+    f32), bn one FMA; dp goes to the first element with bn = max(bn) when
+    max(bn) > 0. The weight pass splits
+    d_conv = k2 y_raw + (k3 + k1 dy) into three bf16 terms and contracts them
+    with the patches exactly; dbias sums d_conv. Each block's partial row is
+    summed in f32 in block order."""
+    b_, _, f, t = x.shape
+    c = params.shape[0]
+    fp, tp = f // 2, t // 2
+    r_ = min(max_rows, fp)
+    tiles = -(-fp // r_)
+    xp = F.pad(x[:, 0].double(), (1, 1, 1, 1))
+    w = params[:, :9].double()
+    bias, a, b2, k1, k2, k3 = (params[:, i] for i in range(9, 15))
+    partial = torch.zeros((nblk, c, 10 if weight else 2), dtype=torch.float32)
+    for item in range(b_ * tiles):
+        b, p0 = item // tiles, (item % tiles) * r_
+        npos = min(r_, fp - p0) * tp
+        order = [base + 4 * j + p for base in range(0, npos, 16) for p in range(4) for j in range(4)]
+        order = torch.tensor([q for q in order if q < npos])
+        assert sorted(order.tolist()) == list(range(npos))  # the fragments cover each position once
+        pr, q = order // tp + p0, order % tp
+        patches = torch.stack([  # [n, 4 window elements, 9 taps]
+            torch.stack([xp[b, 2 * pr + df + di, 2 * q + dt + dj] for di in range(3) for dj in range(3)], -1)
+            for df, dt in block1.WINDOW_ORDER], 1)
+        yr = (patches @ w.T + bias.double()).float()  # [n, 4, C]: the bias added in the tensor core, one rounding
+        bn = (yr.double() * a.double() + b2.double()).float()  # one FMA
+        mx = bn.amax(1)
+        first = (bn == mx[:, None]).float().argmax(1)  # [n, C]
+        dpe = torch.where(mx > 0, dp[b, :, pr, q].T.float(), 0.0)
+        dy = torch.where(torch.arange(4)[None, :, None] == first[:, None], dpe[:, None], 0.0)
+        if not weight:
+            part = torch.stack([dy.double().sum((0, 1)), (dy.double() * yr.double()).sum((0, 1))], 1)
+        else:
+            k3t = torch.where(torch.arange(4)[None, :, None] == first[:, None], (k3 + k1 * dpe)[:, None], k3)
+            dconv = (k2.double() * yr.double() + k3t.double()).float()  # one rounding, as fmaf
+            terms = _split3(dconv)
+            for v in terms:  # each term is a bf16
+                assert torch.equal(v.bfloat16().float(), v)
+            dsum = sum(v.double() for v in terms)  # d_conv again, exactly
+            part = torch.cat([torch.einsum("nkc,nkt->ct", dsum, patches), dconv.double().sum((0, 1))[:, None]], 1)
+        partial[item % nblk] += part.float()
+    out = torch.zeros_like(partial[0])
+    for blk in range(nblk):  # the ordered sum of the partials
+        out += partial[blk]
+    return out
+
+
+def test_split3_reconstructs_f32_exactly():
+    rng = np.random.default_rng(17)
+    # exact wherever the terms are normal bf16 values: 2^-100 < |d| < 2^127 here
+    mags = 10.0 ** rng.uniform(-30, 30, 4096)
+    d = torch.from_numpy((rng.choice([-1.0, 1.0], 4096) * mags * rng.uniform(1, 2, 4096)).astype(np.float32))
+    d = torch.cat([d, torch.tensor([0.0, -0.0, 1.0, -3.0, 2.0**-100, 1.0 - 2.0**-24, 2.0**127 * (1 - 2.0**-24)])])
+    hi, mid, lo = _split3(d)
+    for v in (hi, mid, lo):
+        assert torch.equal(v.bfloat16().float(), v)  # each term is a bf16
+    assert torch.equal(hi.double() + mid.double() + lo.double(), d.double())  # and they sum to d exactly
+    one_term = d.bfloat16().float()  # a single bf16 would not
+    assert not torch.equal(one_term, d)
+
+
+@pytest.mark.parametrize("b,f,t,ties,jax_too", [(2, 8, 12, False, True), (2, 8, 12, True, True), (3, 16, 22, False, False)])
+def test_bwd_tile_model_matches_plain_and_jax(monkeypatch, b, f, t, ties, jax_too):
+    """The CPU model of the tensor-core backward design against the plain
+    versions (the chip's bound, 1e-5 of max|plain|) and, through FusedBlock1,
+    against JAX's fused_block1 backward in interpret mode (``jax_too``: at the
+    shape the tests above compile, so that it costs no new compile). Inputs and weights are bf16 values (the training
+    path's), held in f32 on both sides. (2, 8, 12) has 24 pooled positions a
+    clip, a group and a half of 16; (3, 16, 22) 88, 5.5 groups, and 3 items
+    over 2 blocks; the ties case routes exact ties to the first time-major
+    element."""
+    rng = np.random.default_rng(40 + b + f + t + ties)
+    bf = lambda v: torch.from_numpy(np.asarray(v, np.float32)).bfloat16().float().numpy()
+    if ties:
+        window = np.array([[0.0, 1.0], [1.0, 0.5]], np.float32)
+        x = np.tile(window, (b, f // 2, t // 2)).astype(np.float32)
+        kernel = np.zeros((3, 3, 1, C), np.float32)
+        kernel[1, 1, 0, :] = bf(1.0 + rng.uniform(0, 1, C))
+        bias, gamma, beta = np.zeros(C, np.float32), np.ones(C, np.float32), np.full(C, 0.5, np.float32)
+    else:
+        x = bf(rng.standard_normal((b, f, t)))
+        kernel, bias, gamma, beta = _params(rng)
+        kernel = bf(kernel)
+    cot = rng.standard_normal((b, C, f // 2, t // 2)).astype(np.float32)
+
+    # each pass against its plain version, at the bound chip_smoke.py holds the kernels to
+    w = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 1, 0)))
+    xt = torch.from_numpy(x)[:, None]
+    mean, var = block1.batch_stats(xt, w, torch.from_numpy(bias))
+    a = torch.from_numpy(gamma) * torch.rsqrt(var + block1.BN_EPS)
+    k = [torch.from_numpy(v.astype(np.float32)) for v in (1.0 + 0.1 * rng.standard_normal((3, C)) * [[1], [0.1], [0.01]])]
+    params = block1.pack_params(w, torch.from_numpy(bias), a, torch.from_numpy(beta) - mean * a, *k)
+    dp = torch.from_numpy(bf(cot))
+    for weight, plain in ((False, block1.block1_bwd_sums_plain), (True, block1.block1_bwd_weight_plain)):
+        got, want = _bwd_tile_model(xt, dp, params, weight), plain(xt, dp, params)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), weight
+
+    if not jax_too:
+        return
+    # the model in FusedBlock1's backward against JAX
+    monkeypatch.setattr(block1, "block1_bwd_sums", lambda x_, dp_, p_: _bwd_tile_model(x_, dp_, p_, False))
+    monkeypatch.setattr(block1, "block1_bwd_weight", lambda x_, dp_, p_: _bwd_tile_model(x_, dp_, p_, True))
+    _, _, _, grads = _port_grads(x, kernel, bias, gamma, beta, cot)
+    for name, got, ref in zip(("dW", "dbias", "dgamma", "dbeta"), grads, _jax_grads(x, kernel, bias, gamma, beta, cot)):
+        np.testing.assert_allclose(got, ref, atol=TOL_GRAD, rtol=1e-4, err_msg=name)

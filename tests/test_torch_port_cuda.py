@@ -86,7 +86,10 @@ def _block1_inputs(shape, dtype, device, seed=0, ties=False):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "shape,ties", [((3, 16, 20), False), ((2, 8, 12), True), ((4, 64, 96), False), ((2, 64, 96), True), ((2, 8, 2000), False)]
+    "shape,ties",
+    [((3, 16, 20), False), ((2, 8, 12), True), ((4, 64, 96), False), ((2, 64, 96), True), ((2, 8, 2000), False),
+     # pooled positions that fill neither a 16-position group nor an 8-row item
+     ((3, 14, 22), False), ((3, 14, 22), True)],
 )
 def test_block1_kernels_match_plain(cuda, dtype, shape, ties):
     from audiossl_tpu_torch.ops import block1
@@ -108,7 +111,23 @@ def test_block1_kernels_match_plain(cuda, dtype, shape, ties):
     for g, r in zip(got[1:], want[1:]):
         assert float((g - r).abs().max()) <= 1e-3 * float(r.abs().max())
     # deterministic: a second run gives the same bits
+    assert torch.equal(block1.block1_bwd_sums(x, dp, params), got[1])
     assert torch.equal(block1.block1_bwd_weight(x, dp, params), got[2])
+
+
+def test_block1_backward_above_48kb_of_shared_memory(cuda):
+    """A long clip whose bf16 input tiles (two of up to 18 rows x 3004
+    samples) take the tensor-core backward kernels past the default 48 KB of
+    shared memory."""
+    from audiossl_tpu_torch.ops import block1
+
+    x, params, dp = _block1_inputs((2, 16, 3000), torch.bfloat16, cuda, seed=1)
+    for kernel, plain in ((block1.block1_bwd_sums, block1.block1_bwd_sums_plain),
+                          (block1.block1_bwd_weight, block1.block1_bwd_weight_plain)):
+        got, want = kernel(x, dp, params), plain(x, dp, params)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+        assert torch.equal(kernel(x, dp, params), got)
 
 
 def test_block1_wrappers_reject_bad_inputs(cuda):
@@ -121,6 +140,8 @@ def test_block1_wrappers_reject_bad_inputs(cuda):
         block1.block1_fwd(x.transpose(2, 3), params)
     with pytest.raises(ValueError, match="dp must be"):
         block1.block1_bwd_sums(x, dp.to(torch.bfloat16), params)
+    with pytest.raises(ValueError, match="64 channels"):  # the tensor-core backward's one width
+        block1.block1_bwd_weight(x.bfloat16(), dp[:, :32].bfloat16().contiguous(), params[:32].contiguous())
 
 
 def test_fused_block1_autograd_on_the_card(cuda):
