@@ -10,9 +10,9 @@ version of the same function beside it and a ``launches`` counter:
   ``block1_bwd_weight`` <- ``_bwd2_kernel``: dW and dbias of the BN backward
 
 A wrapper takes the plain version for a CPU tensor only; on a CUDA tensor it
-launches the kernel or raises. In bf16 (the training path) the backward
-passes run on tensor-core tiles and take the block's 64 channels only; in
-f32 they run on f32 FFMAs at any width. ``batch_stats`` is plain torch on every device,
+launches the kernel or raises. In bf16 (the training path) all three run on
+tensor-core tiles and take the block's 64 channels only; in f32 they run on
+f32 FFMAs at any width. ``batch_stats`` is plain torch on every device,
 as on the TPU it is XLA: Gram-matrix quadratic forms, so the conv output is
 never formed. ``FusedBlock1`` ties them into one ``autograd.Function``.
 
@@ -36,7 +36,6 @@ import ctypes
 import functools
 import threading
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -60,8 +59,9 @@ def banded_matrix(weight: torch.Tensor, f: int) -> torch.Tensor:
     """[C, 1, 3, 3] f32 conv weight -> [3F, F*C]: row (dj, f_in), column
     (f_out, c), so that rows of three time-shifted inputs times it give the
     conv output (the TPU package's ``banded_matrix`` in the port's layout)."""
-    eye = torch.from_numpy(np.stack([np.eye(f, k=1 - di, dtype=np.float32) for di in range(3)]))
-    m = torch.einsum("dio,cdj->jioc", eye.to(weight.device), weight[:, 0].float())
+    # made on weight's device: no host-to-device copy, so that a CUDA graph can capture it
+    eye = torch.stack([torch.ones(f - abs(1 - di), device=weight.device).diag(1 - di) for di in range(3)])
+    m = torch.einsum("dio,cdj->jioc", eye, weight[:, 0].float())
     return m.reshape(3 * f, f * weight.shape[0])
 
 
@@ -183,9 +183,9 @@ def block1_bwd_weight_plain(x: torch.Tensor, dp: torch.Tensor, params: torch.Ten
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("block1")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.audiossl_block1_bwd_blocks.argtypes = [i, i, i, i, i, i]
-    lib.audiossl_block1_bwd_blocks.restype = i
-    lib.audiossl_block1_fwd.argtypes = [p, i, i, i, i, i, p, p, p]
+    lib.audiossl_block1_blocks.argtypes = [i, i, i, i, i, i]
+    lib.audiossl_block1_blocks.restype = i
+    lib.audiossl_block1_fwd.argtypes = [p, i, i, i, i, i, p, i, p, p]
     lib.audiossl_block1_fwd.restype = i
     for fn in (lib.audiossl_block1_bwd_sums, lib.audiossl_block1_bwd_weight):
         fn.argtypes = [p, p, i, i, i, i, i, p, i, p, p, p]
@@ -216,6 +216,24 @@ def _raise_if(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+_FWD, _SUMS, _DW = 0, 1, 2  # the passes, as the kernel library's grid query names them
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks(device: int, pass_: int, b: int, f: int, t: int, c: int, bf16: bool) -> int:
+    """A pass's grid (for a backward pass, the rows of its partials) for this
+    shape on this device; the kernel library may set a shared-memory
+    attribute here, so it is asked once, before any graph capture that
+    launches the pass."""
+    if bf16 and c != 64:
+        raise ValueError(f"the bf16 block-1 kernels take 64 channels (AudioNTT's block 1), got {c}")
+    with torch.cuda.device(device):
+        blocks = _lib().audiossl_block1_blocks(pass_, b, f, t, c, int(bf16))
+    if blocks == 0:
+        raise ValueError(f"clips of {t} frames are too long for the block-1 kernels' shared-memory tile")
+    return blocks
+
+
 def block1_fwd(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """x [B, 1, F, T] -> pooled [B, C, F/2, T/2] in x's dtype."""
     if x.device.type == "cpu":
@@ -223,28 +241,18 @@ def block1_fwd(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     _check(x, params)
     b, _, f, t = x.shape
     c = params.shape[0]
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty((b, c, f // 2, t // 2), dtype=x.dtype, device=x.device)
     if b:
+        blocks = _blocks(x.device.index, _FWD, b, f, t, c, bf16)
         with torch.cuda.device(x.device):
             err = _lib().audiossl_block1_fwd(
-                x.data_ptr(), int(x.dtype == torch.bfloat16), b, f, t, c, params.data_ptr(),
+                x.data_ptr(), int(bf16), b, f, t, c, params.data_ptr(), blocks,
                 out.data_ptr(), torch.cuda.current_stream().cuda_stream,
             )
         _raise_if(err, "block1_fwd")
         block1_fwd.launches += 1
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_blocks(device: int, b: int, f: int, t: int, c: int, bf16: bool, weight: bool) -> int:
-    """Rows of a backward pass's partials (its grid) for this shape on this
-    device; the kernel library may set a shared-memory attribute here, so it
-    is asked once, before any graph capture that launches the pass."""
-    with torch.cuda.device(device):
-        blocks = _lib().audiossl_block1_bwd_blocks(b, f, t, c, int(bf16), int(weight))
-    if blocks == 0:
-        raise ValueError(f"clips of {t} frames are too long for the block-1 kernels' shared-memory tile")
-    return blocks
 
 
 # eager calls reuse one partials buffer per (device, stream, host thread, shape): the
@@ -267,9 +275,7 @@ def _bwd(fn_name: str, n_out: int, x: torch.Tensor, dp: torch.Tensor, params: to
     b, _, f, t = x.shape
     c = params.shape[0]
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and c != 64:
-        raise ValueError(f"the bf16 backward kernels take 64 channels (AudioNTT's block 1), got {c}")
-    blocks = _bwd_blocks(x.device.index, b, f, t, c, bf16, n_out == 10)
+    blocks = _blocks(x.device.index, _DW if n_out == 10 else _SUMS, b, f, t, c, bf16)
     out = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
     partial = _partial_buffer(x, blocks, c, n_out)
     with torch.cuda.device(x.device):

@@ -52,6 +52,11 @@ with 128).
     launches (the main kernel and the ordered sum of the blocks' partials)
     are timed apart by torch.profiler.
 
+  * block 1's forward on bf16 tensor-core tiles (slice 8): the forward run
+    twice must give the same bits at every case, and the block's other
+    forward half, the batch statistics (plain torch, as on the TPU it is
+    XLA), is timed by graph replay beside the kernels.
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
 the attention at MAST-B's shapes and at AST-base's), serving and
@@ -500,8 +505,9 @@ def block1_checks(dev) -> tuple[dict[str, float], dict[str, float]]:
             "block1_bwd_sums": (block1.block1_bwd_sums(x, dp, params), block1.block1_bwd_sums_plain(x, dp, params)),
             "block1_bwd_weight": (block1.block1_bwd_weight(x, dp, params), block1.block1_bwd_weight_plain(x, dp, params)),
         }
-        # deterministic: the backward passes run again give the same bits
-        again = {"block1_bwd_sums": block1.block1_bwd_sums(x, dp, params),
+        # deterministic: each kernel run again gives the same bits
+        again = {"block1_fwd": block1.block1_fwd(x, params),
+                 "block1_bwd_sums": block1.block1_bwd_sums(x, dp, params),
                  "block1_bwd_weight": block1.block1_bwd_weight(x, dp, params)}
         torch.cuda.synchronize()
         for name, out in again.items():
@@ -728,14 +734,16 @@ def kernel_split(fn, iters: int = 20) -> dict[str, float]:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
 
 
-def block1_times(dev, card) -> dict[str, dict]:
+def block1_times(dev, card, stats: bool = True) -> dict[str, dict]:
     """ms, plain_ms, library_ms and the bound of each block-1 kernel at one
     training view ([256, 1, 64, 96] bf16), each a CUDA graph replay
     (graph_ms): the kernel 20 replays, the plain version 5, the cuDNN
     composition's forward, and its backward as the graph of forward and
     backward less the forward's. Each backward pass's two launches (the
     main kernel and the ordered sum of the blocks' partials) are timed
-    apart by torch.profiler (``kernel_split``)."""
+    apart by torch.profiler (``kernel_split``). With ``stats``, also the
+    batch statistics (``block1.batch_stats``, the other half of the block's
+    forward) by graph replay, as ``batch_stats_ms`` of the forward."""
     import torch.nn.functional as F
 
     from audiossl_tpu_torch.ops import block1
@@ -791,6 +799,12 @@ def block1_times(dev, card) -> dict[str, dict]:
               f"cuDNN conv -> batch norm -> ReLU -> max-pool composition); bound {max(t_bytes, t_ops):.4f} ms "
               f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms at the "
               f"bf16 rate, {flops / PEAK_F32 * 1e3:.4f} ms as f32 FFMA); all CUDA graph replays{split}")
+    if stats:
+        stats_ms = graph_ms(lambda: block1.batch_stats(x, w, bias))
+        out["block1_fwd"]["batch_stats_ms"] = stats_ms
+        print(f"[{card}] block1.batch_stats [256, 1, 64, 96] bf16 (plain torch: the [192, 192] Gram matrix and its "
+              f"quadratic forms): {stats_ms:.4f} ms, CUDA graph replay; with the kernel the block's forward "
+              f"{stats_ms + out['block1_fwd']['ms']:.4f} ms")
     return out
 
 

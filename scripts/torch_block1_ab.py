@@ -8,8 +8,9 @@ in a process of its own:
 Each run builds that tree's kernels into its own .torch_build/ and times
 them with this checkout's ``chip_smoke.block1_times`` ([256, 1, 64, 96]
 bf16: kernel, plain version and cuDNN composition as CUDA graph replays;
-the backward passes' launches apart by torch.profiler), so that an older
-tree is timed the same way. It prints the run's own lines and then one
+the backward passes' launches apart by torch.profiler; not the batch
+statistics, which an older tree cannot capture in a graph), so that an
+older tree is timed the same way. It prints the run's own lines and then one
 line ``<label> <tree> AB {kernel: ms}``.
 """
 import os
@@ -30,7 +31,7 @@ torch.backends.cudnn.allow_tf32 = False
 kernels.load("block1")
 card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                       capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-out = cs.block1_times(torch.device("cuda"), card)
+out = cs.block1_times(torch.device("cuda"), card, stats=False)
 print("AB", json.dumps({k: {"ms": v["ms"], **{n: ms for n, ms in v.get("launch_ms", {}).items()}} for k, v in out.items()}))
 """
 

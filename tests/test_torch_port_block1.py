@@ -352,3 +352,99 @@ def test_bwd_tile_model_matches_plain_and_jax(monkeypatch, b, f, t, ties, jax_to
     _, _, _, grads = _port_grads(x, kernel, bias, gamma, beta, cot)
     for name, got, ref in zip(("dW", "dbias", "dgamma", "dbeta"), grads, _jax_grads(x, kernel, bias, gamma, beta, cot)):
         np.testing.assert_allclose(got, ref, atol=TOL_GRAD, rtol=1e-4, err_msg=name)
+
+
+# ---------------------------------------------------------------- the tensor-core forward design (CPU model)
+
+
+def _fwd_tile_model(x, params, max_rows: int = 16) -> torch.Tensor:
+    """The arithmetic of block1_fwd_mma_kernel in torch: items of (clip, R pooled
+    rows); in an item, groups of 16 pooled positions, n-tiles nt, column g =
+    position base + 4 (g // 2) + 2 nt + g % 2 (the fragment order). The conv is
+    a product with the whole 4 x 4 input patch: row (e, c) of W' holds channel
+    c's 3 x 3 weights times the sign s of a at window element e's offset (df,
+    dt), zeros elsewhere, and the tensor core gives the exact sum of the 16
+    bf16 products rounded once to f32, s q. Then the window's max over the four
+    rows e, fmaf(max, |a|, sh) with the shift sh = b2 + bias a rounded as the
+    plain version rounds it (one rounding), relu and the rounding to x's dtype.
+    The model checks that this is the same as fmaf(q, a, sh) of each window
+    element and then the max."""
+    b_, _, f, t = x.shape
+    c = params.shape[0]
+    fp, tp = f // 2, t // 2
+    r_ = min(max_rows, fp)
+    tiles = -(-fp // r_)
+    xp = F.pad(x[:, 0].double(), (1, 1, 1, 1))
+    bias, a, b2 = (params[:, i] for i in (9, 10, 11))
+    sh = b2 + bias * a
+    sign = torch.where(a < 0, -1.0, 1.0)
+    w = (params[:, :9] * sign[:, None]).double().view(c, 3, 3)
+    wp = torch.zeros((4, c, 4, 4), dtype=torch.float64)  # W' [window element, channel, patch row u, column v]
+    for e, (df, dt) in enumerate(block1.WINDOW_ORDER):
+        wp[e, :, df : df + 3, dt : dt + 3] = w
+    out = torch.full((b_, c, fp, tp), float("nan"))
+    for item in range(b_ * tiles):
+        b, p0 = item // tiles, (item % tiles) * r_
+        npos = min(r_, fp - p0) * tp
+        order = [base + 4 * (g // 2) + 2 * nt + g % 2 for base in range(0, npos, 16) for nt in range(2) for g in range(8)]
+        order = torch.tensor([q for q in order if q < npos])
+        assert sorted(order.tolist()) == list(range(npos))  # the fragments cover each position once
+        pr, q = order // tp + p0, order % tp
+        patches = torch.stack([xp[b, 2 * pr + u, 2 * q + v] for u in range(4) for v in range(4)], -1)  # [n, 16]
+        sq = torch.einsum("nk,eck->nec", patches, wp.reshape(4, c, 16)).float()  # exact products, one rounding
+        got = (sq.amax(1).double() * a.abs().double() + sh.double()).float()
+        # the plain order: each window element's fmaf(q, a, sh), then the max
+        assert torch.equal(got, ((sq * sign).double() * a.double() + sh.double()).float().amax(1))
+        out[b, :, pr, q] = got.clamp_min(0.0).T
+    assert not out.isnan().any()
+    return out.to(x.dtype)
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(v, 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("b,f,t,ties,jax_too", [(2, 8, 12, False, True), (2, 8, 12, True, True), (3, 16, 22, False, False)])
+def test_fwd_tile_model_matches_plain_and_jax(monkeypatch, b, f, t, ties, jax_too):
+    """The CPU model of the tensor-core forward design against the plain
+    version in bf16 (the chip's bound, 1 bf16 ulp of max|plain|) and, as
+    FusedBlock1's forward, against JAX's fused_block1 forward in interpret mode
+    (``jax_too``: at a shape the tests above compile) at TOL_FWD, on bf16-valued
+    f32 inputs. A third of the channels have a negative BN scale, so that the
+    sign folded into the weights is -1 there. (2, 8, 12) has 24 pooled positions
+    a clip, a group and a half of 16; (3, 16, 22) 88, 5.5 groups; the ties case
+    has exact ties inside windows."""
+    rng = np.random.default_rng(60 + b + f + t + ties)
+    bf = lambda v: torch.from_numpy(np.asarray(v, np.float32)).bfloat16().float().numpy()
+    if ties:
+        window = np.array([[0.0, 1.0], [1.0, 0.5]], np.float32)
+        x = np.tile(window, (b, f // 2, t // 2)).astype(np.float32)
+        kernel = np.zeros((3, 3, 1, C), np.float32)
+        kernel[1, 1, 0, :] = bf(1.0 + rng.uniform(0, 1, C))
+        bias, gamma, beta = np.zeros(C, np.float32), np.ones(C, np.float32), np.full(C, 0.5, np.float32)
+    else:
+        x = bf(rng.standard_normal((b, f, t)))
+        kernel, bias, gamma, beta = _params(rng)
+        kernel = bf(kernel)
+    gamma[::3] = -gamma[::3]
+
+    w = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 1, 0)))
+    xt = torch.from_numpy(x)[:, None]
+    mean, var = block1.batch_stats(xt, w, torch.from_numpy(bias))
+    a = torch.from_numpy(gamma) * torch.rsqrt(var + block1.BN_EPS)
+    params = block1.pack_params(w, torch.from_numpy(bias), a, torch.from_numpy(beta) - mean * a, dtype=torch.bfloat16)
+    assert (params[:, 10] < 0).sum() == C // 3 + 1
+    xb = xt.bfloat16()
+    got, want = _fwd_tile_model(xb, params), block1.block1_fwd_plain(xb, params)
+    assert got.dtype == want.dtype == torch.bfloat16
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_ulp(scale)
+
+    if not jax_too:
+        return
+    # the model as FusedBlock1's forward, in f32, against JAX
+    monkeypatch.setattr(block1, "block1_fwd", _fwd_tile_model)
+    ps = [w] + [torch.from_numpy(p) for p in (bias, gamma, beta)]
+    pooled, _, _ = block1.fused_block1(xt, *ps)
+    want_j, _, _ = _jax_block(x, kernel, bias, gamma, beta)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(want_j), atol=TOL_FWD, rtol=TOL_FWD)

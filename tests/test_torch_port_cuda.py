@@ -111,6 +111,7 @@ def test_block1_kernels_match_plain(cuda, dtype, shape, ties):
     for g, r in zip(got[1:], want[1:]):
         assert float((g - r).abs().max()) <= 1e-3 * float(r.abs().max())
     # deterministic: a second run gives the same bits
+    assert torch.equal(block1.block1_fwd(x, params), got[0])
     assert torch.equal(block1.block1_bwd_sums(x, dp, params), got[1])
     assert torch.equal(block1.block1_bwd_weight(x, dp, params), got[2])
 
@@ -130,6 +131,18 @@ def test_block1_backward_above_48kb_of_shared_memory(cuda):
         assert torch.equal(kernel(x, dp, params), got)
 
 
+def test_block1_forward_above_48kb_of_shared_memory(cuda):
+    """The same long clip through the tensor-core forward, whose bf16 input
+    tile (18 rows x 3004 samples) takes it past the default 48 KB."""
+    from audiossl_tpu_torch.ops import block1
+
+    x, params, _ = _block1_inputs((2, 16, 3000), torch.bfloat16, cuda, seed=1)
+    got, want = block1.block1_fwd(x, params), block1.block1_fwd_plain(x, params)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype and torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_ulp(float(want.float().abs().max()))
+
+
 def test_block1_wrappers_reject_bad_inputs(cuda):
     from audiossl_tpu_torch.ops import block1
 
@@ -140,8 +153,13 @@ def test_block1_wrappers_reject_bad_inputs(cuda):
         block1.block1_fwd(x.transpose(2, 3), params)
     with pytest.raises(ValueError, match="dp must be"):
         block1.block1_bwd_sums(x, dp.to(torch.bfloat16), params)
-    with pytest.raises(ValueError, match="64 channels"):  # the tensor-core backward's one width
+    with pytest.raises(ValueError, match="64 channels"):  # the tensor-core kernels' one width
         block1.block1_bwd_weight(x.bfloat16(), dp[:, :32].bfloat16().contiguous(), params[:32].contiguous())
+    with pytest.raises(ValueError, match="64 channels"):
+        block1.block1_fwd(x.bfloat16(), params[:32].contiguous())
+    narrow = params[:32].contiguous()  # f32 takes any width
+    got, want = block1.block1_fwd(x, narrow), block1.block1_fwd_plain(x, narrow)
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
 
 
 def test_fused_block1_autograd_on_the_card(cuda):
