@@ -12,11 +12,12 @@ plain PyTorch version beside it; a wrapper takes the plain version only for
 a tensor on the CPU, and on a CUDA tensor launches the kernel or raises.
 
 Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining,
-the downstream probe with AST):
+the downstream probe with AST, the SS-MAST checkpoint served and probed):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
   data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches,
                       labelled and class-balanced
+  data/hf.py          HFLoader: the HF-hosted speech_commands tasks
   data/augment.py     RunningNorm, MixupBYOLA ring bank, RandomResizeCrop,
                       SpecMask and precomputed-norm views
   frontend/           log-mel and Kaldi fbank: plain versions + the Hopper
@@ -28,17 +29,22 @@ the downstream probe with AST):
   models/audiontt.py  AudioNTT2020Task6, eval and training paths
   models/mvit.py      MViTv2; models/mast.py: MAST and MASTWithHead
   models/ast.py       AST (plain ViT), its attention on the same kernels
+  models/efficientnet.py  EfficientNet-B0
+  models/surgery.py   cross-shape checkpoint surgery (pos / rel-pos resize)
   models/heads.py     Barlow projector and loss
-  models/convert.py   flax variables -> reference state_dicts (AudioNTT, MAST, AST)
+  models/convert.py   flax variables -> reference state_dicts (AudioNTT, MAST,
+                      AST, EfficientNet); reference <-> port layouts
   objectives/         DeLoRes-S, SS-MAST (MoCo queue, EMA key encoder);
                       unfused.py: cross_entropy
   train/              optimizers, train step, checkpoints, loop
   train_upstream.py   pretraining CLI
-  downstream/         DownstreamModel (AudioNTT, AST), the LAPE task registry,
-                      the linear probe / fine-tune
+  downstream/         DownstreamModel (AudioNTT, EfficientNet, MAST, AST), the
+                      LAPE task registry, the linear probe / fine-tune,
+                      extract_features
   train_downstream.py downstream probe CLI
   utils/metrics.py    AverageMeter, Accuracy
-  serve/export.py     waveform -> embedding serving, artifact, CLI
+  serve/export.py     waveform -> embedding serving behind the log-mel or the
+                      fbank, artifact, CLI
 """
 from __future__ import annotations
 

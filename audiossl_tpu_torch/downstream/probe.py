@@ -8,18 +8,30 @@ seconds (a LAPE task's own duration for a registry task), Adam at
 one JSON line of stats per epoch in ``<exp_dir>/<task>/downstream_stats.txt``
 as in JAX; the accuracy plot is best-effort, as in JAX.
 
-``--checkpoint`` hands a port pretraining run's encoder over: the newest
-``encoder/<step>.pt`` under the checkpoint directory loads into the encoder
-strictly. A shape mismatch (an encoder pretrained at another input length)
-raises: the cross-shape surgery is not ported (ROADMAP.md Queue 1, item 8),
-and the probe never falls back to random weights. ``freeze`` trains the
-head only, while the encoder stays in training mode, so that its BatchNorm
-statistics still update as in the reference (utils.py:223-227).
+Every encoder sees the librosa log-mel at ``downstream.input.n_mels``,
+whatever ``downstream.input.type`` says, as in the JAX probe.
 
-One process on one device: the CUDA kernels on the card (log-mel, block 1
-in training mode, the attention kernels), their plain versions with
-``device="cpu"``. Not ported: HF-hosted tasks (``data/hf.py``) and
-``downstream.tp``.
+``--checkpoint`` hands a port pretraining run's encoder over: the newest
+``encoder/<step>.pt`` under the checkpoint directory, in the reference
+layout, is turned into the port's layout for the encoder type and
+transplanted (``models.surgery.load_pretrained_encoder``): tensors of equal
+shape copy. Where the shapes differ — a MAST or AST encoder pretrained at
+another input shape, SS-MAST's 128 x 1024 fbank probed at 64 mels x 1 s —
+the cross-shape surgery adapts the rel-pos tables and
+the positional embedding from the upstream run's input shape, read from
+its ``config.yaml`` as JAX reads it, and logs "cross-shape encoder
+transplant". The probe never trains from weights that are partly random:
+a load that leaves any tensor of the encoder unfilled (a checkpoint of
+another width, or with fewer blocks) raises (JAX keeps such tensors at
+random; ROADMAP.md Queue 3).
+``freeze`` trains the head only, while the encoder stays in training mode,
+so that its BatchNorm statistics still update as in the reference
+(utils.py:223-227), and MAST still draws its drop path, as JAX does.
+
+HF-hosted tasks (speech_commands) load through ``data/hf.py`` when no CSVs
+are given. One process on one device: the CUDA kernels on the card (log-mel,
+block 1 in training mode, the attention kernels), their plain versions
+with ``device="cpu"``. Not ported: ``downstream.tp``.
 """
 from __future__ import annotations
 
@@ -34,15 +46,15 @@ import torch
 from audiossl_tpu_torch import resolve_device
 from audiossl_tpu_torch.data.pipeline import ManifestLoader
 from audiossl_tpu_torch.downstream.model import DownstreamModel
-from audiossl_tpu_torch.frontend import logmel_features
+from audiossl_tpu_torch.frontend import build_frontend, logmel_features
 from audiossl_tpu_torch.frontend.stft import LogMelConfig
+from audiossl_tpu_torch.models import surgery
+from audiossl_tpu_torch.models.surgery import newest_encoder
 from audiossl_tpu_torch.objectives.unfused import cross_entropy
 from audiossl_tpu_torch.utils.metrics import Accuracy, AverageMeter
 
 log = logging.getLogger("audiossl_tpu_torch.downstream")
 
-# the tasks the JAX package reads from HF datasets when no CSVs are given (data/hf.py)
-HF_TASKS = ("speech_commands_v1", "speech_commands_v2", "speech_commands_v235")
 SEED = 0  # the head's and encoder's random initial weights
 
 
@@ -59,9 +71,21 @@ def build_loaders(config: dict[str, Any], args: dict[str, Any]):
     batch = int(config["run"]["batch_size"])
     workers = int(config["run"].get("num_dataloader_workers", 8))
     balanced = bool(ds.get("balanced_sampling", False))
-    if not train_csv and task_name in HF_TASKS:
-        raise NotImplementedError(f"HF-hosted task {task_name!r} is not ported yet (data/hf.py, ROADMAP.md Queue 1, "
-                                  "item 1); pass --train_csv and --test_csv")
+    if not train_csv:
+        from audiossl_tpu_torch.data.hf import HFLoader, hf_available
+
+        if hf_available(task_name):
+            clip = int(float(config["run"].get("duration", 1)) * sr)
+            train = HFLoader(task_name, "train", batch, clip, sr, shuffle=True, drop_last=True, seed=1,
+                             balanced=balanced)
+            test = HFLoader(task_name, "test", batch, clip, sr)
+            try:  # speech_commands carries a validation split, evaluated every epoch
+                valid = HFLoader(task_name, "validation", batch, clip, sr)
+            except (ValueError, KeyError, FileNotFoundError) as e:
+                log.warning("HF task %s: validation split unavailable, skipping per-epoch validation (%s: %s)",
+                            task_name, type(e).__name__, e)
+                valid = None
+            return train, valid, test, clip
     task = get_task(task_name)
     if task is not None:
         return build_task_loaders(task, batch, sr, workers=workers, data_root=args.get("data_root"),
@@ -80,28 +104,43 @@ def build_loaders(config: dict[str, Any], args: dict[str, Any]):
     return train, valid, test, clip
 
 
-def newest_encoder(ckpt_dir: str) -> str:
-    """The path of the newest ``encoder/<step>.pt`` of a checkpoint directory."""
-    enc_dir = os.path.join(ckpt_dir, "encoder")
-    steps = sorted(int(n[:-3]) for n in os.listdir(enc_dir) if n.endswith(".pt") and n[:-3].isdigit()) \
-        if os.path.isdir(enc_dir) else []
-    if not steps:
-        raise FileNotFoundError(f"no encoder/<step>.pt under {ckpt_dir}")
-    return os.path.join(enc_dir, f"{steps[-1]}.pt")
+def upstream_input_hw(ckpt_dir: str, n_mels: int) -> tuple[int, int] | None:
+    """(frames, mels) of the upstream run's input, from its ``config.yaml``:
+    ``target_length``, else the frontend's frame count for ``length_wave``;
+    the mels default to the probe's ``n_mels`` (JAX's rule,
+    audiossl_tpu/downstream/probe.py:166-183). None without a config."""
+    path = os.path.join(ckpt_dir, "config.yaml")
+    if not os.path.exists(path):
+        return None
+    import yaml
+
+    with open(path) as f:
+        inp = (yaml.safe_load(f).get("pretrain") or {}).get("input") or {}
+    frames = int(inp.get("target_length") or 0)
+    if not frames:
+        fe = build_frontend(inp)
+        frames = fe.num_frames(int(float(inp.get("length_wave", 0.95)) * fe.sample_rate))
+    return frames, int(inp.get("n_mels", n_mels))
 
 
-def load_encoder(model: DownstreamModel, ckpt_dir: str) -> str:
-    """Load the checkpoint's newest encoder into ``model.encoder`` strictly;
-    returns the file it read."""
+def load_encoder(model: DownstreamModel, ckpt_dir: str, input_hw: tuple[int, int]) -> str:
+    """Load the checkpoint's newest encoder into ``model.encoder``, built for
+    ``input_hw`` = (frames, mels), in the port's layout: equal shapes copy,
+    and a MAST or AST pretrained at another input shape takes the
+    cross-shape surgery. Raises unless every tensor of the encoder was
+    copied or adapted. Returns the file it read."""
+    enc_type = model.encoder_type
+    src_hw = upstream_input_hw(ckpt_dir, input_hw[1]) or input_hw
+    stats: dict = {}
+    sd = surgery.load_pretrained_encoder(ckpt_dir, model.encoder.state_dict(), enc_type, src_hw, input_hw,
+                                         prefix_tokens=2 if enc_type == "AST" else 0, stats=stats)
     path = newest_encoder(ckpt_dir)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    try:
-        model.encoder.load_state_dict(sd, strict=True)
-    except RuntimeError as e:
-        raise ValueError(
-            f"the encoder in {path} does not match the probe's {model.encoder_type} (another input shape or "
-            "width?); the cross-shape surgery, models/surgery.py, is not ported yet (ROADMAP.md Queue 1, item 8)"
-        ) from e
+    if stats["kept_fresh"] or stats["missing"]:
+        raise ValueError(f"the encoder surgery from {path} left {stats['kept_fresh'] + stats['missing']} tensors of "
+                         f"the probe's {enc_type} at random ({stats}): another model size or width?")
+    model.encoder.load_state_dict(sd, strict=True)
+    if stats["adapted"]:
+        log.info("cross-shape encoder transplant (pos/rel-pos surgery) applied: %s -> %s, %s", src_hw, input_hw, stats)
     return path
 
 
@@ -158,7 +197,8 @@ def run_downstream(config: dict[str, Any], args: dict[str, Any], device: str | t
     mel_cfg = LogMelConfig(sample_rate=int(ds["input"]["sampling_rate"]), n_mels=int(ds["input"]["n_mels"]))
     model = build_model(config, num_classes, mel_cfg.num_frames(clip))
     if args.get("checkpoint"):
-        log.info("loaded pretrained encoder from %s", load_encoder(model, args["checkpoint"]))
+        path = load_encoder(model, args["checkpoint"], (mel_cfg.num_frames(clip), mel_cfg.n_mels))
+        log.info("loaded pretrained encoder from %s", path)
     model = model.to(dev).train()
 
     freeze = bool(args.get("freeze") or config["run"].get("freeze", False))

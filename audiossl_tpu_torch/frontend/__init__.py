@@ -13,6 +13,10 @@ Mirrors ``audiossl_tpu.frontend``:
     kernel in Kaldi mode (fused_stft.kaldi_fbank_fused); on the CPU the plain
     version (fbank.kaldi_fbank). The JAX package keeps fbank on XLA for a
     TPU-only reason (the 400-tap window pads to 512 lanes).
+
+A ``FrontendSpec`` is called on waves, [B, L] -> [B, F, T], in training
+and in serving alike; neither kind falls back to a plain version on the
+card.
 """
 from __future__ import annotations
 
@@ -34,8 +38,9 @@ class FrontendSpec:
     target_length: int | None = None  # fbank: fixed frame count
 
     def logmel_config(self) -> LogMelConfig:
-        if self.kind == "fbank":
-            raise NotImplementedError("serving behind a fbank frontend is not ported yet (ROADMAP.md Queue 1)")
+        """The log-mel kind's config (a fbank spec has none)."""
+        if self.kind != "logmel":
+            raise ValueError(f"a {self.kind!r} frontend has no log-mel config")
         return LogMelConfig(sample_rate=self.sample_rate, n_mels=self.n_mels)
 
     def fbank_config(self) -> FbankConfig:

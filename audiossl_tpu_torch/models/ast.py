@@ -15,11 +15,11 @@ tokens run row-major over (time, freq) as in JAX. Parameter names are timm's
 mlp.fc1, mlp.fc2}``, ``norm``); ``models/convert.py:ast_reference_layout``
 writes the reference's freq-major order.
 
-Precision, as the JAX module's dtype flow gives it to the probe (which
-builds it with no compute dtype, on the log-mel's f32): the whole trunk is
-IEEE f32 (TF32 off), LayerNorm's eps 1e-6, GELU exact. (The JAX module's
-``compute_dtype`` reaches only its patch conv, since LayerNorm returns f32;
-no caller of the port sets it, so the port has none.)
+Precision, as the JAX module's dtype flow gives it: with no compute dtype
+(the probe's, on the log-mel's f32) the whole trunk is IEEE f32 (TF32 off),
+LayerNorm's eps 1e-6, GELU exact. A ``compute_dtype`` reaches only the
+patch conv, as in JAX: its output meets the f32 cls / dist tokens and
+positional embedding and leaves the conv as f32.
 
 Attention follows the JAX adapter ``_fused_attention_fn``: q, k and v fold to
 [B * H, L, Dh] and go through ``ops.attention.fused_rel_attention`` with no
@@ -140,10 +140,11 @@ class ASTEncoder(nn.Module):
     """[B, 1, F, T] log-fbank -> [B, embed_dim] ((cls + dist) / 2), f32."""
 
     def __init__(self, input_fdim: int = 128, input_tdim: int = 1024, cfg: ASTConfig | str = "base",
-                 patch_drop: float = 0.0, attention_dtype: torch.dtype | None = None):
+                 patch_drop: float = 0.0, attention_dtype: torch.dtype | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         cfg = VARIANTS[cfg]() if isinstance(cfg, str) else cfg
-        self.cfg, self.patch_drop = cfg, patch_drop
+        self.cfg, self.patch_drop, self.compute_dtype = cfg, patch_drop, compute_dtype
         c = cfg.embed_dim
         self.grid_tf = patch_grid(input_fdim, input_tdim, cfg)
         self.patch_embed = nn.Module()
@@ -164,7 +165,10 @@ class ASTEncoder(nn.Module):
         attention dropout; ``keep`` [B, N_keep] gives the kept patch tokens
         instead (the parity tests pass JAX's)."""
         with no_tf32():
-            x = self.patch_embed.proj(x.float().transpose(-1, -2))  # [B, 1, T, F]: time on H as in the JAX module
+            dt = self.compute_dtype or torch.float32
+            proj = self.patch_embed.proj
+            x = x.to(dt).transpose(-1, -2)  # [B, 1, T, F]: time on H as in the JAX module
+            x = F.conv2d(x, proj.weight.to(dt), proj.bias.to(dt), proj.stride).float()
             x = x.flatten(2).transpose(1, 2)  # [B, t * f, C], row-major over (t, f)
             b = x.shape[0]
             x = torch.cat([self.cls_token.expand(b, -1, -1), self.dist_token.expand(b, -1, -1), x], dim=1) + self.pos_embed

@@ -29,6 +29,14 @@ runs freq-major. The port's MViT runs time-major, as the JAX module does;
 ``mvit_reference_layout`` converts a state_dict either way (it is its own
 inverse): the patch and pooling conv kernels transpose their spatial axes
 and rel_pos_h / rel_pos_w swap.
+
+``efficientnet_from_flax`` carries the JAX EfficientNet-B0 (which has no
+exporter) into ``models.efficientnet.EfficientNetB0``'s efficientnet_pytorch
+names; both run freq-major, so only the kernels' axis order changes.
+
+Checkpoints and serving artifacts hold every encoder in the reference
+layout; ``port_layout`` and ``reference_layout`` convert a state_dict of
+any encoder type between that and the port's modules.
 """
 from __future__ import annotations
 
@@ -208,3 +216,90 @@ def ast_reference_layout(sd: Mapping[str, torch.Tensor], grid_ft: tuple[int, int
     grid = pos[:, 2:].reshape(1, t, f, -1).transpose(1, 2).reshape(1, f * t, -1)
     out["pos_embed"] = torch.cat([pos[:, :2], grid], dim=1).contiguous()
     return out
+
+
+def ast_port_layout(sd: Mapping[str, torch.Tensor], grid_ft: tuple[int, int]) -> dict[str, torch.Tensor]:
+    """The inverse of ``ast_reference_layout``: the reference's freq-major
+    AST state_dict -> the port's time-major one; ``grid_ft`` is the (freq,
+    time) patch grid the state_dict was made at."""
+    if grid_ft is None:
+        raise ValueError("an AST state_dict in the reference layout needs the (freq, time) grid of its positional "
+                         "embedding to be turned into the port's layout")
+    f, t = grid_ft
+    out = dict(sd)
+    out["patch_embed.proj.weight"] = sd["patch_embed.proj.weight"].transpose(-1, -2).contiguous()
+    pos = sd["pos_embed"]
+    if pos.shape[1] - 2 != f * t:
+        raise ValueError(f"grid_ft {grid_ft} != {pos.shape[1] - 2} grid tokens")
+    grid = pos[:, 2:].reshape(1, f, t, -1).transpose(1, 2).reshape(1, f * t, -1)
+    out["pos_embed"] = torch.cat([pos[:, :2], grid], dim=1).contiguous()
+    return out
+
+
+def port_layout(sd: Mapping[str, torch.Tensor], encoder_type: str,
+                grid_ft: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
+    """A reference-layout encoder state_dict (a checkpoint's ``encoder/<step>.pt``,
+    an artifact's weights) -> the port module's layout. MAST transposes its
+    conv kernels and swaps its rel-pos tables; AST transposes its patch
+    kernel and reorders its positional embedding from the (freq, time) grid
+    ``grid_ft``; AudioNTT and EfficientNet are the same in both."""
+    if encoder_type == "MAST":
+        return mvit_reference_layout(sd)
+    if encoder_type == "AST":
+        return ast_port_layout(sd, grid_ft)
+    return dict(sd)
+
+
+def reference_layout(sd: Mapping[str, torch.Tensor], encoder_type: str,
+                     grid_ft: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
+    """The inverse of ``port_layout`` (``grid_ft`` is needed for AST)."""
+    if encoder_type == "MAST":
+        return mvit_reference_layout(sd)
+    if encoder_type == "AST":
+        return ast_reference_layout(sd, grid_ft)
+    return dict(sd)
+
+
+def efficientnet_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``EfficientNetB0`` flax variables (``{"params", "batch_stats"}`` of
+    the module itself) -> ``models.efficientnet.EfficientNetB0``'s
+    state_dict. flax HWIO kernels, spatial (freq, time) as the port's, ->
+    OIHW; BatchNorm scale / bias / mean / var -> weight / bias /
+    running_mean / running_var."""
+    params = variables_numpy["params"]
+    stats = variables_numpy.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    oihw = lambda k: _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+    def put_conv(key: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{key}.weight"] = oihw(tree["kernel"])
+        if "bias" in tree:
+            sd[f"{key}.bias"] = _t(tree["bias"])
+
+    def put_bn(key: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+        sd[f"{key}.weight"] = _t(p["scale"])
+        sd[f"{key}.bias"] = _t(p["bias"])
+        sd[f"{key}.running_mean"] = _t(s["mean"])
+        sd[f"{key}.running_var"] = _t(s["var"])
+        sd[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+    put_conv("_conv_stem", params["stem_conv"])
+    put_bn("_bn0", params["stem_bn"], stats["stem_bn"])
+    names = sorted((k for k in params if k.startswith("block")),
+                   key=lambda k: tuple(int(n) for n in k[len("block"):].split("_")))
+    for i, name in enumerate(names):
+        p, s, b = params[name], stats[name], f"_blocks.{i}"
+        if "expand_conv" in p:
+            put_conv(f"{b}._expand_conv", p["expand_conv"])
+            put_bn(f"{b}._bn0", p["bn0"], s["bn0"])
+        put_conv(f"{b}._depthwise_conv", p["depthwise_conv"])
+        put_bn(f"{b}._bn1", p["bn1"], s["bn1"])
+        put_conv(f"{b}._se_reduce", p["se"]["Conv_0"])
+        put_conv(f"{b}._se_expand", p["se"]["Conv_1"])
+        put_conv(f"{b}._project_conv", p["project_conv"])
+        put_bn(f"{b}._bn2", p["bn2"], s["bn2"])
+    if not names:
+        raise KeyError("no MBConv blocks found (expected params['block0_0'])")
+    put_conv("_conv_head", params["head_conv"])
+    put_bn("_bn1", params["head_bn"], stats["head_bn"])
+    return sd

@@ -45,8 +45,8 @@ class MASTEncoder(MViT):
         cfg = mast_config(model_size, fstride, tstride, compute_dtype, droppath_rate, fused_attention, pool_impl)
         super().__init__(cfg, input_hw=(input_tdim, input_fdim), in_chans=1, final_norm=False, remat=remat)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        tokens = super().forward(x.transpose(-1, -2), generator)
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, *, draws=None) -> torch.Tensor:
+        tokens = super().forward(x.transpose(-1, -2), generator, draws=draws)
         return tokens.float().mean(1)
 
 

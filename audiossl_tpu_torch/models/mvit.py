@@ -344,14 +344,15 @@ class MViT(nn.Module):
         if final_norm:
             self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, *, draws=None) -> torch.Tensor:
         """In training mode with drop path, ``generator`` gives its draws
         (two per block, drawn before the block runs, so a rematerialised
-        block sees the same masks)."""
+        block sees the same masks); ``draws``, an iterator of U(0, 1) [B]
+        tensors in that order, gives them instead."""
         cfg = self.cfg
         dt = cfg.compute_dtype or x.dtype
         drops = self.training and cfg.droppath_rate > 0.0
-        if drops and generator is None:
+        if drops and generator is None and draws is None:
             raise ValueError("MViT in training mode with drop path needs a generator for its masks")
         with no_tf32() if dt == torch.float32 else contextlib.nullcontext():
             proj = self.patch_embed.proj
@@ -361,7 +362,8 @@ class MViT(nn.Module):
             for blk in self.blocks:
                 keep = [None, None]
                 if drops and blk.droppath > 0.0:
-                    keep = [torch.rand(b, generator=generator, device=generator.device).to(x.device) for _ in range(2)]
+                    keep = [next(draws).to(x.device) if draws is not None else
+                            torch.rand(b, generator=generator, device=generator.device).to(x.device) for _ in range(2)]
                 if self.remat and self.training:
                     x = checkpoint(blk, x, dt, *keep, use_reentrant=False)
                 else:

@@ -57,10 +57,25 @@ with 128).
     forward half, the batch statistics (plain torch, as on the TPU it is
     XLA), is timed by graph replay beside the kernels.
 
+  * the SS-MAST checkpoint put to use (slice 9), on phase 10's run:
+    MAST-B served behind the Kaldi fbank kernel from that checkpoint
+    (``serve.export --checkpoint``, 1024 frames, bf16, a fixed batch of
+    64, requests of 1, 7, 64 and 65 clips: per batch one rows launch and 24
+    attention forwards), AST-base behind the fbank with seeded weights (12
+    streamed forwards a batch), each against f32 on the card and f32 on
+    the CPU; the attention kernels at every shape of MAST-B on the probe's
+    9 x 5 token grid (Lq from 45 down to 2); the MAST-B probe on that
+    checkpoint through ``train_downstream`` at 64 mels x 1 s, B=32 (the
+    cross-shape transplant logged; frozen 1 log-mel and 24 attention
+    forwards a step and no backward, then fine-tuned with 24 + 24 backward
+    launches a step); and ``extract_features`` on the card against the CPU
+    (log-mel, and the embeddings of phase 7's DeLoRes-S checkpoint).
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
-the attention at MAST-B's shapes and at AST-base's), serving and
-training (DeLoRes-S, SS-MAST, the AST-base fine-tune), and prints:
+the attention at MAST-B's shapes and at AST-base's), serving (AudioNTT,
+and MAST-B and AST-base behind the fbank) and training (DeLoRes-S,
+SS-MAST, the AST-base fine-tune, the MAST-B probe), and prints:
 
   * the card's name and power limit as nvidia-smi gives them;
   * one {"kernels": [...]} JSON line (launches on the main paths, error
@@ -348,10 +363,10 @@ def main() -> int:
 
     # phase 7: the training main path through train_upstream, counts from 0
     pretrain = pre["pretrain"]
-    with tempfile.TemporaryDirectory() as tmp:
-        counts = training_run(pretrain, pool, wav, tmp, dev)
-        # the linear probe on the run's checkpoint (downstream.yaml as it stands), counts from 0
-        probe_counts = audiontt_probe_run(tmp, wav, dev)
+    ntt_tmp = tempfile.TemporaryDirectory()  # its checkpoint feeds extract_features in phase 17
+    counts = training_run(pretrain, pool, wav, ntt_tmp.name, dev)
+    # the linear probe on the run's checkpoint (downstream.yaml as it stands), counts from 0
+    probe_counts = audiontt_probe_run(ntt_tmp.name, wav, dev)
     step_err = f32_step_check(pretrain, pool, dev)
 
     # phase 8: times at the training shape, beside the card
@@ -364,8 +379,8 @@ def main() -> int:
 
     # phase 10: the SS-MAST main path through train_upstream, counts from 0;
     # then one f32 step on the card against the CPU
-    with tempfile.TemporaryDirectory() as tmp:
-        mast_counts = ssmast_training_run(tmp, wav, dev)
+    mast_tmp = tempfile.TemporaryDirectory()  # its checkpoint and WAVs serve slice 9's phases 15-17
+    mast_counts = ssmast_training_run(mast_tmp.name, wav, dev)
     mast_step_err = ssmast_f32_step_check(dev)
 
     # phase 11: the log-mel dispatcher on a config that is not ct_eligible,
@@ -392,7 +407,34 @@ def main() -> int:
     ast_times = ast_attention_times(dev, card)
     ast_train_times(dev, card)
 
-    # phase 15: the kernel line
+    # phase 15 (slice 9): MAST-B served behind the fbank from phase 10's
+    # SS-MAST checkpoint (serve.export --checkpoint), then AST-base behind
+    # the fbank with seeded weights (serve.export --config --seed), counts
+    # from 0 for each
+    ssmast_ckpt = os.path.join(mast_tmp.name, "ssmast_chkp")
+    pool9 = slice9_requests(mast_tmp.name, wav, max(SLICE9_REQUESTS))
+    with tempfile.TemporaryDirectory() as tmp:
+        mast_serve = fbank_serving_run("MAST-B", ["--checkpoint", ssmast_ckpt], pool9, 24, tmp, dev, card)
+        ast_serve = fbank_serving_run("AST-base", ["--config", ast_serving_config(tmp), "--seed", "0"], pool9,
+                                      AST_DEPTH, tmp, dev, card)
+
+    # phase 16: the attention kernels at every shape of the MAST-B probe
+    # (9 x 5 tokens) against their plain versions; the probe on the SS-MAST
+    # checkpoint through train_downstream, frozen then fine-tuned, counts
+    # from 0 for each; its step times
+    probe9_err = mast_probe_attention_checks(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        mast_probe_counts = mast_probe_run(ssmast_ckpt, mast_tmp.name, tmp, dev)
+        mast_probe_t = mast_probe_times(ssmast_ckpt, dev, card, tmp)
+
+    # phase 17: extract_features on the card against the CPU, log-mel and
+    # the embeddings of phase 7's DeLoRes-S checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        extract = extract_features_run(os.path.join(ntt_tmp.name, "delores_s_chkp"), mast_tmp.name, tmp, dev)
+    ntt_tmp.cleanup()
+    mast_tmp.cleanup()
+
+    # phase 18: the kernel line
     entries = [{
         "name": "log_mel_fused",
         "route": "cuda",
@@ -403,6 +445,8 @@ def main() -> int:
         "train_launches": counts["log_mel_fused"],
         "probe_launches": probe_counts["log_mel_fused"],
         "ast_launches": ast_counts["log_mel_fused"],
+        "mast_probe_launches": {mode: c["log_mel_fused"] for mode, c in mast_probe_counts.items()},
+        "extract_launches": {kind: e["launches"] for kind, e in extract.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -431,7 +475,11 @@ def main() -> int:
             "replaces": "audiossl_tpu/ops/attention.py:" + ("88" if name == "rel_attention_fwd" else "95"),
             "launches": mast_counts[name],
             "ast_launches": ast_counts[name],
-            "max_abs_err": max(attn_err[name], ast_err[name]),
+            "mast_serve_launches": mast_serve["counts"][name],
+            "ast_serve_launches": ast_serve["counts"][name],
+            "mast_probe_launches": {mode: c[name] for mode, c in mast_probe_counts.items()},
+            "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name]),
+            "mast_probe_max_abs_err": probe9_err[name],
             **attn_times[name],
             "times_are": "summed over the 24 blocks of one SS-MAST step at B=64, bf16",
             "ast": ast_times[name],
@@ -444,11 +492,17 @@ def main() -> int:
             "replaces": f"audiossl_tpu/frontend/pallas_stft.py:{line}",
             # Kaldi: the SS-MAST run; librosa: logmel_features at n_fft = 400
             "launches": mast_counts[name] if name == "fused_rows_kaldi" else dispatch["launches"],
+            "mast_serve_launches": mast_serve["counts"][name],
+            "ast_serve_launches": ast_serve["counts"][name],
             "max_abs_err": max(rows_err[name], dispatch["max_abs_err"]) if name == "fused_rows_librosa" else rows_err[name],
             **rows_t[name],
         })
+    serving9 = {label: {k: v for k, v in run.items() if k != "counts"} for label, run in
+                (("mast_b_fbank", mast_serve), ("ast_base_fbank", ast_serve))}
     print(json.dumps({"kernels": entries, "block1_grad_rel_err": grad_errs, "f32_step_rel_err": step_err,
-                      "ssmast_f32_step_rel_err": mast_step_err, "ast_f32_step_rel_err": ast_step_err}))
+                      "ssmast_f32_step_rel_err": mast_step_err, "ast_f32_step_rel_err": ast_step_err,
+                      "fbank_serving": serving9, "mast_probe_times": mast_probe_t,
+                      "extract_features_err": {kind: e["max_abs_err"] for kind, e in extract.items()}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -1753,6 +1807,390 @@ def ast_train_times(dev, card) -> None:
           f"({busy / wall_us:.1%}); {len(kernels_us)} kernels; by device time per step:")
     for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 2e3:9.4f} ms  {us / busy:6.1%}  {name[:110]}")
+
+
+
+# ---------------------------------------------------------------- the SS-MAST checkpoint put to use (slice 9)
+
+PROBE_BATCH = 32  # configs/downstream.yaml's run.batch_size
+PROBE_MELS, PROBE_FRAMES = 64, 101  # configs/downstream.yaml: 64 mels, 1 s clips (a 9 x 5 token grid)
+
+
+def mast_probe_attention_shapes(batch: int = PROBE_BATCH) -> list[tuple[int, int, tuple[int, int], int]]:
+    """MAST-B's distinct attention shapes at the probe's 64 mels x 101
+    frames: (BH, Lq, key grid, blocks), in block order, read from the model
+    on the meta device."""
+    from audiossl_tpu_torch.models.mast import MASTEncoder
+
+    with torch.device("meta"):
+        m = MASTEncoder(PROBE_MELS, PROBE_FRAMES, "base")
+    shapes: dict[tuple, int] = {}
+    for a in (blk.attn for blk in m.blocks):
+        key = (batch * a.num_heads, a.q_hw[0] * a.q_hw[1], tuple(a.k_hw))
+        shapes[key] = shapes.get(key, 0) + 1
+    return [(bh, lq, grid, n) for (bh, lq, grid), n in shapes.items()]
+
+
+def mast_probe_attention_checks(dev) -> dict[str, float]:
+    """The three attention kernels against their plain versions, f32 and
+    bf16, at every attention shape of MAST-B at the probe's 9 x 5 token grid
+    (B=32: Lq from 45 down to 2, Lk from 15 down to 2), far below the
+    64-row tiles the kernels were designed at; bf16 twice for equal bits."""
+    errs = dict.fromkeys(ATTN_KERNELS, 0.0)
+    for i, (bh, lq, grid, n) in enumerate(mast_probe_attention_shapes()):
+        label = f"MAST-B probe [{bh}, {lq}, {grid[0] * grid[1]}] {grid[0]}x{grid[1]} ({n} blocks)"
+        for dtype in (torch.float32, torch.bfloat16):
+            check_attention(label, bh, lq, grid, None, 96, dtype, dev, 200 + i, errs, twice=dtype == torch.bfloat16)
+    return errs
+
+
+
+SLICE9_CLIP = 163840  # 10.24 s at 16 kHz: 1022 Kaldi frames, padded to the config's 1024
+SLICE9_BATCH = 64  # the serving batch: configs/ssmast.yaml's run.batch_size
+SLICE9_REQUESTS = (1, 7, 64, 65)
+
+
+class LogLines(logging.Handler):
+    """Collects the messages of one logger while attached."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger, self.lines = logging.getLogger(name), []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper with a launch counter, by the kernel line's names
+    (the rows kernel counts by mode in ``fused_rows.launches``)."""
+    from audiossl_tpu_torch.frontend import fused_stft
+    from audiossl_tpu_torch.ops import attention as A
+    from audiossl_tpu_torch.ops import block1
+
+    return {"log_mel_fused": fused_stft.log_mel_fused, "block1_fwd": block1.block1_fwd,
+            "block1_bwd_sums": block1.block1_bwd_sums, "block1_bwd_weight": block1.block1_bwd_weight,
+            **{name: getattr(A, name) for name in ATTN_KERNELS}}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    from audiossl_tpu_torch.frontend import fused_stft
+
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    fused_stft.fused_rows.launches.update(dict.fromkeys(fused_stft.ROW_MODES, 0))
+
+
+def read_launches() -> dict[str, int]:
+    """Every kernel's launch count, the rows kernel's by mode."""
+    from audiossl_tpu_torch.frontend import fused_stft
+
+    counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    counts.update({f"fused_rows_{mode}": n for mode, n in fused_stft.fused_rows.launches.items()})
+    return counts
+
+
+def expect_counts(what: str, counts: dict[str, int], want: dict[str, int]) -> None:
+    """Each counter at ``want`` (0 where unnamed)."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise RuntimeError(f"{what}: {name} launched {n} times, expected {want.get(name, 0)} (all counts {counts})")
+
+
+def slice9_requests(wav_dir: str, wav, n: int) -> np.ndarray:
+    """[n, SLICE9_CLIP] waves: phase 10's 16 WAVs read back through
+    data/wav.py, scaled and in noise."""
+    rng = np.random.default_rng(71)
+    clips = np.stack([wav.load_wave(os.path.join(wav_dir, f"mast{i}.wav"))[:SLICE9_CLIP] for i in range(16)])
+    gains = rng.uniform(0.3, 1.0, (n, 1))
+    return (gains * clips[np.arange(n) % 16] + 0.01 * rng.standard_normal((n, SLICE9_CLIP))).astype(np.float32)
+
+
+def fbank_serving_run(label: str, export_argv: list[str], pool: np.ndarray, depth: int, tmp: str, dev, card) -> dict:
+    """One fbank serving path through the entry points a user calls:
+    ``serve.export`` (CLI main) writes the artifact at the default dtype and
+    at f32; ``ServingEncoder`` with a fixed batch of SLICE9_BATCH answers
+    SLICE9_REQUESTS, counts from 0 (per batch 1 Kaldi rows launch and
+    ``depth`` attention forwards, nothing else); default vs f32 on the card
+    within TOL_BF16, f32 on the card vs the CPU path on two clips within
+    TOL_F32; then the times. Returns the counts, errors and times."""
+    from audiossl_tpu_torch.serve import export as serve
+
+    arts = {}
+    for dtype in ("default", "f32"):
+        arts[dtype] = os.path.join(tmp, f"{label}_{dtype}.pt")
+        serve.main(export_argv + ["--out", arts[dtype], "--dtype", dtype, "--clip_samples", str(SLICE9_CLIP),
+                                  "--device", str(dev)])
+    art = serve.load_artifact(arts["default"])
+    enc = fixed_batch_encoder(arts["default"], dev)
+    reset_launches()
+    outs = {n: enc(pool[:n]) for n in SLICE9_REQUESTS}
+    torch.cuda.synchronize()
+    counts = read_launches()
+    batches = sum(-(-n // SLICE9_BATCH) for n in SLICE9_REQUESTS)
+    d = outs[1].shape[1]
+    for n, out in outs.items():
+        if out.shape != (n, d) or not np.isfinite(out).all():
+            raise RuntimeError(f"{label} serving {n} clips: shape {out.shape} or non-finite")
+    print(f"{label} serving: artifact {art['encoder_type']} {art['model_size']}, {art['frontend']}, "
+          f"{art['input_tdim']} frames, dtype {art['compute_dtype']}; requests {list(SLICE9_REQUESTS)} -> [n, {d}] "
+          f"finite in {batches} batches of {SLICE9_BATCH}; launches {counts}")
+    expect_counts(f"{label} serving", counts, {"fused_rows_kaldi": batches, "rel_attention_fwd": depth * batches})
+
+    f32 = fixed_batch_encoder(arts["f32"], dev)
+    e32 = f32(pool[:SLICE9_BATCH])
+    rel = float(np.abs(outs[SLICE9_BATCH] - e32).max() / np.abs(e32).max())
+    print(f"{label} serving default ({art['compute_dtype']}) vs f32 on the card, batch {SLICE9_BATCH}: max|d| / max|f32| "
+          f"= {rel:.3e} (tol {TOL_BF16})")
+    if not rel <= TOL_BF16:
+        raise RuntimeError(f"{label}: default-dtype serving strays from f32: {rel}")
+    cpu = serve.ServingEncoder(arts["f32"], device="cpu")
+    t0 = time.perf_counter()
+    ecpu = cpu(pool[:2])
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(e32[:2] - ecpu).max())
+    scale = max(1.0, float(np.abs(ecpu).max()))
+    print(f"{label} serving f32 card vs CPU plain path, 2 clips ({cpu_s:.1f} s on the CPU): max|d| = {err:.3e} "
+          f"(tol {TOL_F32 * scale:.3e})")
+    if not err <= TOL_F32 * scale:
+        raise RuntimeError(f"{label}: f32 serving on the card disagrees with the CPU path: {err}")
+
+    emb = enc.embedder
+    w = torch.from_numpy(pool[:SLICE9_BATCH]).to(dev)
+    with torch.inference_mode():
+        feats = emb.features(w)
+        frontend_ms = cuda_ms(lambda: emb.features(w), iters=10)
+        encoder_ms = cuda_ms(lambda: emb.model(feats), iters=5, warmup=2)
+        serve_ms = cuda_ms(lambda: emb(w), iters=5, warmup=2)
+    batch_np = pool[:SLICE9_BATCH]
+    enc(batch_np)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        enc(batch_np)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    with torch.inference_mode():
+        busy = busy_share(lambda: emb(w), 3, card, f"{label} serving, device-resident")
+    print(f"[{card}] {label} serving B={SLICE9_BATCH}, {art['input_tdim']} x {art['frontend']['n_mels']} fbank, "
+          f"{art['compute_dtype']}, device-resident: {serve_ms:.4f} ms/batch = {SLICE9_BATCH / serve_ms * 1e3:.1f} clips/s "
+          f"(frontend {frontend_ms:.4f} ms, encoder {encoder_ms:.4f} ms); through ServingEncoder (numpy in/out, host "
+          f"clock): {host_ms:.4f} ms/batch = {SLICE9_BATCH / host_ms * 1e3:.1f} clips/s")
+    return {"counts": counts, "batches": batches, "bf16_rel": rel, "f32_cpu_err": err, "busy": busy,
+            "device_ms": serve_ms, "frontend_ms": frontend_ms, "encoder_ms": encoder_ms, "host_ms": host_ms,
+            "clips_per_s": SLICE9_BATCH / serve_ms * 1e3, "host_clips_per_s": SLICE9_BATCH / host_ms * 1e3}
+
+
+def fixed_batch_encoder(path: str, dev):
+    """A ServingEncoder over the artifact at the fixed batch SLICE9_BATCH."""
+    from audiossl_tpu_torch.serve.export import ServingEncoder
+
+    return ServingEncoder(path, fixed_batch=SLICE9_BATCH, device=dev)
+
+
+def busy_share(fn, calls: int, card, label: str) -> float | None:
+    """The device's busy share over ``calls`` eager calls of ``fn`` (after
+    one warm-up): torch.profiler's summed kernel time over the host clock;
+    prints it with the largest kernels. None if no device time was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    averages = prof.key_averages()
+    kernels_us = {e.key: e.self_device_time_total for e in averages
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = sum(kernels_us.values())
+    if not busy:
+        print(f"[{card}] {label} profile: no device time recorded (not measured)")
+        return None
+    aten = sum(e.count for e in averages if e.key.startswith("aten::")) / calls
+    print(f"[{card}] {label} profile, {calls} calls: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+          f"({busy / wall_us:.1%}); {aten:.0f} aten calls a call; by device time per call:")
+    for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {us / calls / 1e3:9.4f} ms  {us / busy:6.1%}  {name[:110]}")
+    return busy / wall_us
+
+
+def ast_serving_config(tmp: str) -> str:
+    """configs/ssmast.yaml (128-bin fbank, 1024 frames) with base_encoder
+    AST, model_size base: AST-base at its published input, 1214 tokens."""
+    import yaml
+
+    config = ssmast_config()
+    config["pretrain"]["base_encoder"].update(type="AST", model_size="base")
+    path = os.path.join(tmp, "ast_serve.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def mast_probe_config(tmp: str) -> str:
+    """configs/downstream.yaml with base_encoder MAST, model_size base (64
+    mels, 1 s, B=32 as it stands), written to ``tmp``."""
+    import yaml
+
+    from audiossl_tpu_torch import config as cfgmod
+
+    config = cfgmod.load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "downstream.yaml"))
+    config["downstream"]["base_encoder"].update(type="MAST", model_size="base")
+    path = os.path.join(tmp, "mast_downstream.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def mast_probe_run(ckpt: str, wav_dir: str, tmp: str, dev) -> dict[str, dict[str, int]]:
+    """train_downstream (the CLI's main) on the SS-MAST checkpoint with MAST-B
+    at configs/downstream.yaml's 64 mels x 1 s, B=32: frozen (2 steps and 1
+    eval batch; per step 1 log-mel and 24 attention forwards, no backward),
+    then fine-tuned (2 steps and 1 eval batch; per step 24 of each backward
+    kernel as well). The cross-shape transplant (128 x 1024 -> 64 x 101)
+    must be logged, the losses finite. Returns each run's launch counts."""
+    from audiossl_tpu_torch.train_downstream import main as downstream_main
+
+    files = [os.path.join(wav_dir, f"mast{i}.wav") for i in range(16)]
+    train_csv, test_csv = write_labelled(tmp, "mastprobe", files, [f"pitch{i // 4}" for i in range(16)],
+                                         2 * PROBE_BATCH, PROBE_BATCH)
+    cfg_path = mast_probe_config(tmp)
+    depth = 24
+    out = {}
+    for mode, flags in (("frozen", ["--freeze"]), ("fine-tuned", [])):
+        reset_launches()
+        t0 = time.perf_counter()
+        with LogLines("audiossl_tpu_torch.downstream") as log_lines:
+            result = downstream_main(["--task", "mastprobe", "--train_csv", train_csv, "--test_csv", test_csv,
+                                      "--checkpoint", ckpt, "-c", cfg_path, "--encoder", "MAST", "--epochs", "1",
+                                      "--batch_size", str(PROBE_BATCH), "--exp_dir", os.path.join(tmp, "exp"),
+                                      "--device", str(dev)] + flags)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        transplant = [line for line in log_lines.lines if "cross-shape encoder transplant" in line]
+        print(f"MAST-B probe ({mode}): train_downstream on the SS-MAST checkpoint, 64 mels x 101 frames (9 x 5 "
+              f"tokens), B={PROBE_BATCH}, {len(result['losses'])} steps + 1 eval batch in {time.perf_counter() - t0:.1f} s; "
+              f"losses {result['losses']}; test accuracy {result['history']}; launches {counts}; log: {transplant}")
+        if not transplant:
+            raise RuntimeError(f"the MAST-B probe ({mode}) did not log the cross-shape transplant")
+        if len(result["losses"]) != 2 or not all(math.isfinite(v) for v in result["losses"] + result["history"]):
+            raise RuntimeError(f"the MAST-B probe ({mode}) gave losses {result['losses']}")
+        per_step = {"log_mel_fused": 1, "rel_attention_fwd": depth}
+        if mode == "fine-tuned":
+            per_step.update(rel_attention_bwd_dq=depth, rel_attention_bwd_dkv=depth)
+        probe_counts_check(f"the MAST-B probe ({mode})", counts, per_step, {"log_mel_fused": 1, "rel_attention_fwd": depth},
+                           2, 1)
+        out[mode] = counts
+    return out
+
+
+def mast_probe_times(ckpt: str, dev, card, tmp: str) -> dict[str, dict[str, float]]:
+    """The MAST-B probe's step on device-resident waves (B=32, 64 mels x 1 s,
+    the checkpoint transplanted), frozen and fine-tuned: the step split by
+    CUDA events (mean of 5 steps), clips/s (host clock, median of 3 windows
+    of 5 steps) and the device's busy share over 3 steps."""
+    from audiossl_tpu_torch.config import load_config
+    from audiossl_tpu_torch.downstream import probe
+    from audiossl_tpu_torch.frontend.stft import LogMelConfig
+    from audiossl_tpu_torch.objectives.unfused import cross_entropy
+
+    config = load_config(mast_probe_config(tmp))
+    mel_cfg = LogMelConfig(n_mels=PROBE_MELS)
+    rng = np.random.default_rng(73)
+    waves = torch.from_numpy((0.3 * rng.standard_normal((PROBE_BATCH, 16000))).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 4, PROBE_BATCH)).to(dev)
+    out = {}
+    for mode in ("frozen", "fine-tuned"):
+        model = probe.build_model(config, 4, PROBE_FRAMES)
+        probe.load_encoder(model, ckpt, (PROBE_FRAMES, PROBE_MELS))
+        model = model.to(dev).train()
+        if mode == "frozen":
+            model.encoder.requires_grad_(False)
+        opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=1e-3)
+        gen = torch.Generator(dev).manual_seed(7)
+        step = lambda: probe.probe_step(model, opt, mel_cfg, waves, labels, gen)
+        for _ in range(3):
+            loss = step()
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                loss = step()
+            torch.cuda.synchronize()
+            rates.append(5 * PROBE_BATCH / (time.perf_counter() - t0))
+        if not math.isfinite(loss.item()):
+            raise RuntimeError(f"MAST-B probe ({mode}) loss became {loss.item()}")
+        names = ("log-mel", "forward + loss", "backward", "Adam")
+        parts = dict.fromkeys(names, 0.0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        for _ in range(5):
+            ev[0].record()
+            feats = probe.features(waves, mel_cfg)
+            ev[1].record()
+            loss = cross_entropy(model(feats, gen), labels)
+            ev[2].record()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            ev[3].record()
+            opt.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            for name, e0, e1 in zip(names, ev[:-1], ev[1:]):
+                parts[name] += e0.elapsed_time(e1) / 5
+        print(f"[{card}] MAST-B probe ({mode}) B={PROBE_BATCH}, 64 mels x 101 frames (9 x 5 tokens), bf16: "
+              f"{float(np.median(rates)):.1f} clips/s (median of windows {[round(r, 1) for r in rates]}); step split "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+        busy = busy_share(step, 3, card, f"MAST-B probe ({mode}) step")
+        out[mode] = {"clips_per_s": float(np.median(rates)), "busy": busy, **parts}
+    return out
+
+
+def extract_features_run(ntt_ckpt: str, wav_dir: str, tmp: str, dev) -> dict:
+    """downstream.extract_features (the CLI's main) on the 16 WAVs of phase
+    10: log-mel files on the card within TOL_KERNEL of the CPU's (the log-mel
+    kernel launching once a batch), then the embeddings of phase 7's
+    DeLoRes-S checkpoint (AudioNTT-2048, bf16), finite and within TOL_BF16 of
+    the CPU's. Returns the counts and errors."""
+    from audiossl_tpu_torch.downstream.extract_features import main as extract_main
+
+    csv = os.path.join(tmp, "extract.csv")
+    with open(csv, "w") as f:
+        f.write("AudioPath\n" + "".join(f"{os.path.join(wav_dir, f'mast{i}.wav')}\n" for i in range(16)))
+    out = {}
+    for kind, flags in (("log-mel", []), ("embeddings", ["--checkpoint", ntt_ckpt])):
+        files = {}
+        for device in ("cuda", "cpu"):
+            reset_launches()
+            dest = os.path.join(tmp, f"feats_{kind}_{device}")
+            n = extract_main(["--csv", csv, "--out", dest, "--batch_size", "8", "--device", device] + flags)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                counts = read_launches()
+            files[device] = {i: np.load(os.path.join(dest, f"mast{i}.wav.npy")) for i in range(n)}
+        shape = files["cuda"][0].shape
+        if n != 16 or not all(np.isfinite(v).all() for v in files["cuda"].values()):
+            raise RuntimeError(f"extract_features ({kind}) wrote {n} files or non-finite values")
+        err = max(float(np.abs(files["cuda"][i] - files["cpu"][i]).max()) for i in range(n))
+        ref = max(float(np.abs(files["cpu"][i]).max()) for i in range(n))
+        tol = TOL_KERNEL if kind == "log-mel" else TOL_BF16 * ref
+        print(f"extract_features ({kind}): 16 files of {shape} on the card, max|card - CPU| = {err:.3e} (tol {tol:.3e}); "
+              f"launches {counts}")
+        if not err <= tol:
+            raise RuntimeError(f"extract_features ({kind}) on the card disagrees with the CPU: {err}")
+        expect_counts(f"extract_features ({kind})", counts, {"log_mel_fused": 2})
+        out[kind] = {"launches": counts["log_mel_fused"], "max_abs_err": err}
+    return out
 
 
 if __name__ == "__main__":

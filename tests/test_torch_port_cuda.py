@@ -195,7 +195,10 @@ def _attn_inputs(bh, lq, grid, d, dtype, device, seed=0, lk=77):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,lq,grid,d", [(3, 72, (5, 8), 24), (2, 1100, (13, 10), 96), (4, 37, (3, 11), 96),
-                                          (2, 301, (51, 6), 96), (3, 45, None, 64)])
+                                          (2, 301, (51, 6), 96), (3, 45, None, 64),
+                                          # MAST-B's shapes on the probe's 9 x 5 token grid, at B = 2
+                                          (2, 45, (3, 2), 96), (4, 15, (5, 3), 96), (8, 6, (5, 3), 96),
+                                          (16, 2, (3, 2), 96), (16, 2, (2, 1), 96)])
 def test_attention_kernels_match_plain(cuda, dtype, bh, lq, grid, d):
     from audiossl_tpu_torch.ops import attention as A
 
@@ -345,6 +348,28 @@ def test_attention_function_on_the_card_matches_cpu(cuda):
         grads.append([t.grad.cpu() for t in ts])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("encoder", ["MAST", "AST"])
+def test_fbank_serving_on_the_card_matches_cpu(cuda, encoder):
+    """A tiny encoder behind the Kaldi fbank (64 bins x 96 frames), served in
+    f32 on the card: one rows launch and one attention forward a block per
+    batch, the CPU path's embeddings within 1e-3 of max(1, max|ref|)."""
+    from audiossl_tpu_torch.frontend import FrontendSpec
+    from audiossl_tpu_torch.ops import attention as A
+    from audiossl_tpu_torch.serve.export import ServingEncoder, build_embedder, seeded_state_dict
+
+    spec = FrontendSpec("fbank", 64, 16000, target_length=96)
+    sd = seeded_state_dict(encoder, "tiny", 64, 96, 0, seed=1)
+    artifact = build_embedder(sd, spec, 16000, torch.float32, "cpu", encoder, "tiny").artifact()
+    waves = (0.3 * np.random.default_rng(5).standard_normal((3, 16000))).astype(np.float32)
+    want = ServingEncoder(artifact, device="cpu")(waves)
+    enc = ServingEncoder(artifact, device=cuda)
+    rows, fwd = fused_stft.fused_rows.launches["kaldi"], A.rel_attention_fwd.launches
+    got = enc(waves)
+    depth = len(enc.embedder.model.encoder.blocks)
+    assert (fused_stft.fused_rows.launches["kaldi"] - rows, A.rel_attention_fwd.launches - fwd) == (1, depth)
+    assert float(np.abs(got - want).max()) <= 1e-3 * max(1.0, float(np.abs(want).max()))
 
 
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):

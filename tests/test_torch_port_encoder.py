@@ -128,13 +128,14 @@ def test_max_mean_pool_matches_jax():
 
 def test_training_mode_and_other_encoders_raise():
     """Training with dropout refuses to draw from the global generator (the
-    training path itself is tests/test_torch_port_block1.py's); encoders
-    other than AudioNTT are not ported."""
+    training path itself is tests/test_torch_port_block1.py's); an encoder
+    type that the JAX package's DownstreamModel does not have raises (all
+    four of its encoders are ported)."""
     model = AudioNTT2020Task6(n_mels=N_MELS, d=D)
     with pytest.raises(ValueError, match="explicit torch.Generator"):
         model.train()(torch.zeros((2, 1, N_MELS, N_FRAMES)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DownstreamModel(N_MELS, D, 0, encoder_type="MAST")
+    with pytest.raises(NotImplementedError, match="unknown downstream encoder"):
+        DownstreamModel(N_MELS, D, 0, encoder_type="ResNet")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -179,7 +179,9 @@ class TestFrontendSpec:
         torch.testing.assert_close(spec(waves), log_mel(waves), rtol=0, atol=0)
 
     def test_fbank_kind_is_not_ported(self):
-        """The fbank kind trains (SS-MAST); serving behind it is not ported yet."""
+        """The fbank kind trains (SS-MAST) and serves (MAST, AST): the
+        serving module's features are the spec's own; a fbank spec has no
+        log-mel config. (The name dates from before fbank serving was ported.)"""
         from audiossl_tpu_torch.frontend.fbank import FbankConfig, kaldi_fbank
 
         spec = build_frontend({"type": "fbank", "sampling_rate": 16000, "n_mels": 128, "target_length": 1024})
@@ -190,8 +192,13 @@ class TestFrontendSpec:
         want = kaldi_fbank(waves, FbankConfig()).transpose(-1, -2)
         torch.testing.assert_close(out[..., :98], want, rtol=0, atol=0)
         assert not out[..., 98:].any()  # zero-padded to target_length
-        with pytest.raises(NotImplementedError, match="serving"):
+        with pytest.raises(ValueError, match="no log-mel config"):
             spec.logmel_config()
+        from audiossl_tpu_torch.serve.export import build_embedder, seeded_state_dict
+
+        emb = build_embedder(seeded_state_dict("MAST", "tiny", 128, 1024, 0, 0), spec, 16000, device="cpu",
+                             encoder_type="MAST", model_size="tiny")
+        torch.testing.assert_close(emb.features(waves), out[:, None], rtol=0, atol=0)
 
 
 class TestFbank:

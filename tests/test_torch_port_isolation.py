@@ -85,6 +85,24 @@ def test_entry_points_raise_without_cuda(no_cuda):
         ServingEncoder(artifact, device="cuda:0")
 
 
+def test_fbank_serving_and_feature_extraction_raise_without_cuda(no_cuda, tmp_path):
+    """The fbank serving path and the feature-extraction CLI ask for the
+    card by default too."""
+    from audiossl_tpu_torch.downstream.extract_features import main as extract_main
+    from audiossl_tpu_torch.frontend import FrontendSpec
+    from audiossl_tpu_torch.serve.export import build_embedder, seeded_state_dict
+
+    spec = FrontendSpec("fbank", 64, 16000, target_length=96)
+    sd = seeded_state_dict("MAST", "tiny", 64, 96, 0, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_embedder(sd, spec, 16000, encoder_type="MAST", model_size="tiny")
+    assert build_embedder(sd, spec, 16000, device="cpu", encoder_type="MAST", model_size="tiny").n_frames == 96
+    csv = tmp_path / "m.csv"
+    csv.write_text("AudioPath\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_main(["--csv", str(csv), "--out", str(tmp_path / "out")])
+
+
 def test_kernel_requests_raise_without_the_card(no_cuda, tmp_path, monkeypatch):
     from audiossl_tpu_torch import kernels
     from audiossl_tpu_torch.frontend import fused_stft

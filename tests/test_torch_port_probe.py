@@ -253,11 +253,14 @@ def test_probe_steps_match_jax(monkeypatch, encoder, freeze):
 # ---------------------------------------------------------------- CLI end to end
 
 
-def test_cli_pretrains_then_probes_on_the_checkpoint(labelled, tmp_path):
+def test_cli_pretrains_then_probes_on_the_checkpoint(labelled, tmp_path, monkeypatch):
     """WAVs -> train_upstream (DeLoRes-S, d = 32, 2 steps) -> checkpoint ->
     train_downstream --freeze on its encoder: one epoch, a stats line, the
     encoder's weights those of the checkpoint; a probe of another width
-    refuses the checkpoint instead of training from random weights."""
+    refuses the checkpoint instead of training from random weights (the
+    cross-shape surgery serves the transformer encoders only); an HF task
+    with no CSVs loads the checked-in fixture through data/hf.py (or, where
+    the `datasets` package is missing, raises an error that names it)."""
     df = pd.read_csv(labelled)
     pre_csv = str(tmp_path / "pre.csv")
     pd.DataFrame({"files": df["wav"]}).to_csv(pre_csv, index=False)
@@ -297,5 +300,12 @@ def test_cli_pretrains_then_probes_on_the_checkpoint(labelled, tmp_path):
         yaml.safe_dump(down, f)
     with pytest.raises(ValueError, match="surgery"):
         downstream_main(argv)
-    with pytest.raises(NotImplementedError, match="HF"):
-        probe.build_loaders(down, {"task": "speech_commands_v2"})
+    monkeypatch.setenv("AUDIOSSL_HF_DATA_DIR", os.path.join(ROOT, "tests", "fixtures", "speech_commands_tiny"))
+    try:
+        import datasets  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="datasets"):
+            probe.build_loaders(down, {"task": "speech_commands_v2"})
+    else:
+        train, valid, test, clip = probe.build_loaders(down, {"task": "speech_commands_v2"})
+        assert (train.num_samples, valid.num_samples, test.num_samples, clip) == (72, 24, 24, CLIP)
