@@ -12,7 +12,8 @@ plain PyTorch version beside it; a wrapper takes the plain version only for
 a tensor on the CPU, and on a CUDA tensor launches the kernel or raises.
 
 Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining,
-the downstream probe with AST, the SS-MAST checkpoint served and probed):
+the downstream probe with AST, the SS-MAST checkpoint served and probed,
+DeLoRes-M, SLICER and UnFuSeD pretraining):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
   data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches,
@@ -31,11 +32,13 @@ the downstream probe with AST, the SS-MAST checkpoint served and probed):
   models/ast.py       AST (plain ViT), its attention on the same kernels
   models/efficientnet.py  EfficientNet-B0
   models/surgery.py   cross-shape checkpoint surgery (pos / rel-pos resize)
-  models/heads.py     Barlow projector and loss
+  models/heads.py     Barlow projector and loss, SLICER's cluster head,
+                      UnFuSeD's classifier
   models/convert.py   flax variables -> reference state_dicts (AudioNTT, MAST,
-                      AST, EfficientNet); reference <-> port layouts
-  objectives/         DeLoRes-S, SS-MAST (MoCo queue, EMA key encoder);
-                      unfused.py: cross_entropy
+                      AST, EfficientNet) and whole objective states
+                      (DeLoRes-M, SLICER, UnFuSeD); reference <-> port layouts
+  objectives/         DeLoRes-S, DeLoRes-M, SLICER, UnFuSeD (labelled
+                      batches), SS-MAST (MoCo queue, EMA key encoder)
   train/              optimizers, train step, checkpoints, loop
   train_upstream.py   pretraining CLI
   downstream/         DownstreamModel (AudioNTT, EfficientNet, MAST, AST), the

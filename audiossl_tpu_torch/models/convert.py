@@ -16,7 +16,10 @@ projector, carries over. Conventions bridged:
 ``Dense_{0,1}``), e.g. ``jax.tree.map(np.asarray, variables)``; its output
 loads into ``models.audiontt.AudioNTT2020Task6`` with ``strict=True``.
 ``projection_from_flax`` takes the projector's params and batch_stats; its
-output loads into ``models.heads.MLPProjector``.
+output loads into ``models.heads.MLPProjector``. ``delores_m_from_flax``,
+``slicer_from_flax`` and ``unfused_from_flax`` take a JAX objective's whole
+state, (params, batch_stats, ssl_state), and return the port objective's
+whole state_dict: encoders, heads, running statistics, key encoder and queue.
 
 ``ast_from_flax`` is the inverse of ``ast_to_torch`` into the port's own
 time-major AST (timm naming, the flax q / k / v Dense layers fused into one
@@ -94,6 +97,78 @@ def projection_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
     sd["bn.running_var"] = torch.ones(out_dim, dtype=torch.float32)
     sd["bn.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return sd
+
+
+def dense_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax ``Dense`` (kernel [in, out], bias) -> ``nn.Linear``'s weight and bias."""
+    sd = {"weight": _t(np.asarray(tree["kernel"]).T)}
+    if "bias" in tree:
+        sd["bias"] = _t(tree["bias"])
+    return sd
+
+
+def _prefixed(prefix: str, sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def _audiontt(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The AudioNTT one level inside an objective's encoder wrapper."""
+    return audiontt_from_flax({"params": params["encoder"], "batch_stats": batch_stats["encoder"]})
+
+
+def _moco_state(ssl_state: Any, encoder) -> dict[str, torch.Tensor]:
+    """JAX's ``MocoState`` (params_k, batch_stats_k, queue, queue_ptr) ->
+    the key encoder (through ``encoder``, the wrapper's converter), the
+    queue and its pointer."""
+    params_k, batch_stats_k, queue, ptr = ssl_state
+    return {**_prefixed("encoder_k", encoder(params_k, batch_stats_k)), "queue": _t(queue),
+            "queue_ptr": torch.tensor(int(np.asarray(ptr)), dtype=torch.long)}
+
+
+def _projectors(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    sd = {}
+    for i in (1, 2, 3):
+        sd.update(_prefixed(f"p{i}", projection_from_flax(params[f"p{i}"], batch_stats[f"p{i}"])))
+    return sd
+
+
+def delores_m_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                        ssl_state: Any) -> dict[str, torch.Tensor]:
+    """JAX ``DeloresM`` state (NumPy) -> the whole state_dict of
+    ``objectives.delores_m.DeloresM``: query and key ``EncoderM`` (AudioNTT
+    + ``fc``), the projectors ``p1``–``p3`` with their running statistics,
+    the queue and its pointer."""
+    def encoder(p, bs):
+        return {**_prefixed("encoder", _audiontt(p, bs)), **_prefixed("fc", dense_from_flax(p["fc"]))}
+
+    return {**_prefixed("encoder", encoder(params["encoder"], batch_stats["encoder"])),
+            **_projectors(params, batch_stats), **_moco_state(ssl_state, encoder)}
+
+
+def slicer_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                     ssl_state: Any) -> dict[str, torch.Tensor]:
+    """JAX ``Slicer`` state (NumPy) -> the whole state_dict of
+    ``objectives.slicer.Slicer``: query and key ``EncoderSlicer`` (AudioNTT,
+    the instance head, the cluster head's two Linears), the queue and its
+    pointer."""
+    def encoder(p, bs):
+        clus = p["cluster_projector"]
+        return {**_prefixed("encoder", _audiontt(p, bs)),
+                **_prefixed("instance_projector", dense_from_flax(p["instance_projector"])),
+                **_prefixed("cluster_projector.0", dense_from_flax(clus["Dense_0"])),
+                **_prefixed("cluster_projector.2", dense_from_flax(clus["Dense_1"]))}
+
+    return {**_prefixed("encoder", encoder(params["encoder"], batch_stats["encoder"])),
+            **_moco_state(ssl_state, encoder)}
+
+
+def unfused_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                      ssl_state: Any = ()) -> dict[str, torch.Tensor]:
+    """JAX ``Unfused`` state (NumPy; it has no SSL state) -> the whole
+    state_dict of ``objectives.unfused.Unfused``: the AudioNTT, the
+    projectors ``p1``–``p3`` with their running statistics, the classifier."""
+    return {**_prefixed("encoder", _audiontt(params["encoder"], batch_stats["encoder"])),
+            **_projectors(params, batch_stats), **_prefixed("classifier", dense_from_flax(params["classifier"]))}
 
 
 def mast_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -1,4 +1,5 @@
-"""Barlow projection head and loss (port of ``audiossl_tpu.models.heads``).
+"""Projection and classifier heads and the Barlow loss (port of
+``audiossl_tpu.models.heads``).
 
 ``MLPProjector`` keeps the reference ``Projection`` layout
 (src/upstream/delores_s/upstream_expert.py:11-28): ``projector.{0,3,6}``
@@ -9,6 +10,10 @@ and ``audiossl_tpu.models.torch_export.projection_to_torch`` both load with
 ``strict=True``. Matmuls run in ``compute_dtype``; BatchNorm follows the
 encoder's training rule (f32 batch statistics, running stats 0.9 / 0.1 with
 the biased variance); the projection is f32.
+
+``ClusterProjector`` (SLICER's cluster head) and ``LinearClassifier``
+(UnFuSeD's classifier) are biased Linears that run in the dtype of their
+input, f32 on the objectives' paths, with TF32 off for an f32 input.
 
 No all-reduce: with world size 1 the JAX package's psum of the
 cross-correlation is the identity. DDP is ROADMAP.md Queue 1, slice 6.
@@ -54,6 +59,34 @@ class MLPProjector(nn.Module):
                     x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias, eps=bn.eps)
                 x = F.relu(x.to(dt))
             return F.linear(x, self.projector[6].weight.to(dt)).float()
+
+
+def _f32_exact(x: torch.Tensor):
+    """``no_tf32()`` for an f32 input, else nothing."""
+    return no_tf32() if x.dtype == torch.float32 else contextlib.nullcontext()
+
+
+class LinearClassifier(nn.Linear):
+    """A biased Linear run in its input's dtype (flax ``Dense(dtype=x.dtype)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with _f32_exact(x):
+            return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class ClusterProjector(nn.Sequential):
+    """Linear -> ReLU -> Linear -> softmax over clusters (SLICER's cluster
+    head, src/upstream/slicer/upstream_encoder.py:15-21), biased, in the
+    input's dtype."""
+
+    def __init__(self, in_dim: int, hidden: int, num_clusters: int):
+        super().__init__(nn.Linear(in_dim, hidden), nn.ReLU(), nn.Linear(hidden, num_clusters))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        with _f32_exact(x):
+            h = F.relu(F.linear(x, self[0].weight.to(dt), self[0].bias.to(dt)))
+            return torch.softmax(F.linear(h, self[2].weight.to(dt), self[2].bias.to(dt)), dim=1)
 
 
 def batch_standardize(z: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

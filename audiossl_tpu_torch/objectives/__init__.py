@@ -1,5 +1,5 @@
-"""SSL objectives of the port (DeLoRes-S, SS-MAST)."""
-from audiossl_tpu_torch.objectives import delores_s, ssmast  # noqa: F401  (register "delores_s", "ssmast")
-from audiossl_tpu_torch.objectives.api import get_objective, init_objective
+"""SSL objectives of the port (DeLoRes-S, DeLoRes-M, SLICER, UnFuSeD, SS-MAST)."""
+from audiossl_tpu_torch.objectives import delores_m, delores_s, slicer, ssmast, unfused  # noqa: F401  (register them)
+from audiossl_tpu_torch.objectives.api import get_objective, init_objective, objective_class
 
-__all__ = ["get_objective", "init_objective"]
+__all__ = ["get_objective", "init_objective", "objective_class"]

@@ -1,10 +1,13 @@
 """Objective registry (port of ``audiossl_tpu.objectives.api``).
 
-An objective of the port is an ``nn.Module`` that owns its encoder and heads
-and computes the SSL loss of two views: ``loss(v1, v2, generator)``, with
-BatchNorm running statistics updated as a side effect of the forward.
-``encoder`` is the module that ``train/checkpoint.py`` exports for serving
-and downstream use.
+An objective of the port is an ``Objective``: an ``nn.Module`` that owns its
+encoder and heads and computes the SSL loss of two views:
+``loss(v1, v2, generator, labels=None)``, with BatchNorm running statistics
+(and a MoCo objective's key encoder and queue) updated as a side effect of
+the forward. ``labels`` are the per-clip ids of a labelled batch, which only
+an objective whose class sets ``labeled`` reads (UnFuSeD); the loop loads a
+labelled manifest for it. ``export_state_dict()`` is what
+``train/checkpoint.py`` exports for serving and downstream use.
 """
 from __future__ import annotations
 
@@ -13,7 +16,12 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
-_REGISTRY: dict[str, Callable[..., nn.Module]] = {}
+
+class Objective(nn.Module):
+    labeled = False  # True: loss() takes the labels of a labelled manifest
+
+
+_REGISTRY: dict[str, Callable[..., Objective]] = {}
 
 
 def register(name: str):
@@ -24,14 +32,20 @@ def register(name: str):
     return deco
 
 
-def get_objective(name: str, config: dict[str, Any], **kwargs) -> nn.Module:
-    """The objective ``name`` built from an experiment config."""
+def objective_class(name: str) -> type[Objective]:
+    """The registered class of ``name`` (its ``labeled`` flag says which
+    manifest the loop loads)."""
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"upstream objective {name!r} is not ported yet (ported: {sorted(_REGISTRY)}; "
-            "the others are ROADMAP.md Queue 1, slice 4)"
+            "the clustering family, DECAR and DINO are ROADMAP.md Queue 1, item 7)"
         )
-    return _REGISTRY[name](config, **kwargs)
+    return _REGISTRY[name]
+
+
+def get_objective(name: str, config: dict[str, Any], **kwargs) -> Objective:
+    """The objective ``name`` built from an experiment config."""
+    return objective_class(name)(config, **kwargs)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -41,14 +55,14 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def init_objective(name: str, config: dict[str, Any], seed: int, device: str | torch.device = "cpu") -> nn.Module:
+def init_objective(name: str, config: dict[str, Any], seed: int, device: str | torch.device = "cpu") -> Objective:
     """``get_objective`` with flax's initialisation drawn from
     ``torch.Generator().manual_seed(seed)``: lecun-normal dense and conv
     kernels (depthwise ones included), zero biases, BatchNorm and LayerNorm
     at identity, rel-pos tables truncated-normal with std 0.02 (cut at two
-    std), then the objective's own ``init_state_`` (SS-MAST: the key encoder
-    and the queue). The modules are built on the meta device first, so no
-    draw touches the global generator."""
+    std), then the objective's own ``init_state_`` (the MoCo objectives: the
+    key encoder and the queue). The modules are built on the meta device
+    first, so no draw touches the global generator."""
     with torch.device("meta"):
         obj = get_objective(name, config)
     obj = obj.to_empty(device="cpu")

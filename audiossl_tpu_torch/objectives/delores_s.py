@@ -12,17 +12,16 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch import nn
 
 from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6, max_mean_pool
 from audiossl_tpu_torch.models.heads import MLPProjector, barlow_loss
-from audiossl_tpu_torch.objectives.api import register
+from audiossl_tpu_torch.objectives.api import Objective, register
 
 DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16, "float32": torch.float32, "f32": torch.float32}
 
 
 @register("delores_s")
-class DeloresS(nn.Module):
+class DeloresS(Objective):
     def __init__(self, config: dict[str, Any]):
         super().__init__()
         pre = config["pretrain"]
@@ -51,5 +50,6 @@ class DeloresS(nn.Module):
         """The encoder in the reference layout (what checkpoints export)."""
         return self.encoder.state_dict()
 
-    def loss(self, v1: torch.Tensor, v2: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def loss(self, v1: torch.Tensor, v2: torch.Tensor, generator: torch.Generator | None = None,
+             labels: torch.Tensor | None = None) -> torch.Tensor:
         return barlow_loss(self.embed(v1, generator), self.embed(v2, generator), self.lambd, self.scale_loss)

@@ -24,11 +24,10 @@ import math
 from typing import Any
 
 import torch
-from torch import nn
 
 from audiossl_tpu_torch.models.convert import mvit_reference_layout
 from audiossl_tpu_torch.models.mast import MASTWithHead
-from audiossl_tpu_torch.objectives.api import register
+from audiossl_tpu_torch.objectives.api import Objective, register
 from audiossl_tpu_torch.objectives.delores_m import info_nce, queue_update
 from audiossl_tpu_torch.ops.stats import l2_normalize
 
@@ -38,7 +37,7 @@ def cosine_momentum(epoch: torch.Tensor, base: float = 0.99, total_epochs: int =
 
 
 @register("ssmast")
-class SSMast(nn.Module):
+class SSMast(Objective):
     def __init__(self, config: dict[str, Any]):
         super().__init__()
         pre = config["pretrain"]
@@ -100,7 +99,8 @@ class SSMast(nn.Module):
         with torch.no_grad():
             return l2_normalize(self.encoder_k(v, generator), dim=1)
 
-    def loss(self, v1: torch.Tensor, v2: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def loss(self, v1: torch.Tensor, v2: torch.Tensor, generator: torch.Generator | None = None,
+             labels: torch.Tensor | None = None) -> torch.Tensor:
         """The step's InfoNCE sum; advances the key encoder, queue, pointer and step."""
         m = self.momentum()
         queue, ptr = self.queue, self.queue_ptr

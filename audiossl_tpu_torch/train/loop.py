@@ -6,11 +6,13 @@ and data time) written every ``run.log_every`` steps, which is also when the
 losses come back from the device and a non-finite one stops the run;
 step checkpoints every ``save_every`` steps; a checkpoint at the end of an
 epoch whose loss is the best so far, at the last epoch and at ``max_steps``.
+An objective whose class is ``labeled`` (UnFuSeD) reads a labelled
+manifest (columns ``files`` and ``label``) and gets each batch's ids.
 A resumed run (``load_checkpoint``) restores the whole state and continues
 the loader where the checkpoint left it, so it takes the same steps as a run
 that was never stopped.
 
-Not ported yet: the preemption guard (ROADMAP.md Queue 1, item 6) and the
+Not ported yet: the preemption guard (ROADMAP.md Queue 1, item 5) and the
 multi-device paths (slice 6).
 """
 from __future__ import annotations
@@ -30,7 +32,7 @@ from audiossl_tpu_torch import resolve_device
 from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline, AugmentState, MixupBankState
 from audiossl_tpu_torch.data.pipeline import ManifestLoader
 from audiossl_tpu_torch.frontend import build_frontend
-from audiossl_tpu_torch.objectives import init_objective
+from audiossl_tpu_torch.objectives import init_objective, objective_class
 from audiossl_tpu_torch.ops.stats import RunningNormState
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
@@ -112,7 +114,7 @@ def train_upstream(
     clip = cfgmod.clip_samples(config)
     loader = ManifestLoader(
         input_csv, batch_size=batch, clip_samples=clip, sample_rate=frontend.sample_rate,
-        num_workers=int(run.get("num_dataloader_workers", 8)), seed=seed,
+        labeled=objective_class(upstream).labeled, num_workers=int(run.get("num_dataloader_workers", 8)), seed=seed,
         wire_dtype=str(run.get("wire_dtype", "int16")), on_error=str(run.get("data_on_error", "raise")),
     )
     normalization = str(pre.get("normalization", "mean_var"))
@@ -174,9 +176,11 @@ def train_upstream(
         t_end = time.time()
         for epoch in range(start_epoch, epochs):
             first = epoch == start_epoch
-            for waves, _ in loader.epoch(epoch, start_batch if first else 0, rng_state if first else None):
+            for waves, labels in loader.epoch(epoch, start_batch if first else 0, rng_state if first else None):
                 data_time = time.time() - t_end
-                aug_state, loss = train_step(aug_state, torch.from_numpy(waves).to(dev))
+                if labels is not None:
+                    labels = torch.from_numpy(labels).to(dev)
+                aug_state, loss = train_step(aug_state, torch.from_numpy(waves).to(dev), labels)
                 step += 1
                 batch_time = time.time() - t_end
                 t_end = time.time()

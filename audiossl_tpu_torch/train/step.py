@@ -47,10 +47,11 @@ def prepare_views(
 
 
 class TrainStep:
-    """``step(aug_state, waves) -> (aug_state', loss)``: views, loss,
-    backward and one optimizer (and scheduler) step. The views' random
-    numbers and the dropout masks come from ``generator``; an f32 objective
-    runs forward and backward with TF32 off."""
+    """``step(aug_state, waves, labels=None) -> (aug_state', loss)``: views,
+    loss, backward and one optimizer (and scheduler) step. ``labels`` (the
+    ids of a labelled batch, on the waves' device) go to the objective's
+    loss. The views' random numbers and the dropout masks come from
+    ``generator``; an f32 objective runs forward and backward with TF32 off."""
 
     def __init__(
         self,
@@ -77,10 +78,10 @@ class TrainStep:
         draws = self.pipeline.sample_draws(aug_state, b, self.frontend.n_mels, n_frames, self.generator)
         return prepare_views(self.pipeline, self.frontend, self.normalization, aug_state, waves, draws, wave_draws)
 
-    def loss_and_grads(self, v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    def loss_and_grads(self, v1: torch.Tensor, v2: torch.Tensor, labels: torch.Tensor | None = None) -> torch.Tensor:
         f32 = self.objective.compute_dtype == torch.float32
         with no_tf32() if f32 else contextlib.nullcontext():
-            loss = self.objective.loss(v1, v2, self.generator)
+            loss = self.objective.loss(v1, v2, self.generator, labels=labels)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         return loss.detach()
@@ -90,8 +91,9 @@ class TrainStep:
         if self.scheduler is not None:
             self.scheduler.step()
 
-    def __call__(self, aug_state: AugmentState, waves: torch.Tensor) -> tuple[AugmentState, torch.Tensor]:
+    def __call__(self, aug_state: AugmentState, waves: torch.Tensor,
+                 labels: torch.Tensor | None = None) -> tuple[AugmentState, torch.Tensor]:
         aug_state, v1, v2 = self.views(aug_state, waves)
-        loss = self.loss_and_grads(v1, v2)
+        loss = self.loss_and_grads(v1, v2, labels)
         self.update()
         return aug_state, loss

@@ -71,11 +71,25 @@ with 128).
     launches a step); and ``extract_features`` on the card against the CPU
     (log-mel, and the embeddings of phase 7's DeLoRes-S checkpoint).
 
+  * the rest of the AudioNTT objective family (slice 10): DeLoRes-M,
+    SLICER and UnFuSeD pretraining through ``train_upstream`` on their
+    configs as they stand (B=256, bf16, AudioNTT-2048, the 65536-key queue;
+    UnFuSeD on a manifest with a ``label`` column of ids 0-98) for 3 steps
+    each. Per step the log-mel kernel launches once and block 1's forward /
+    backward-sums / backward-weight kernels 2/1/1 (DeLoRes-M: the key pass
+    takes the forward with no backward), 4/2/2 (SLICER: two directions) and
+    1/1/1 (UnFuSeD). The queue pointer must advance by B (DeLoRes-M) or 2B
+    (SLICER) a step and the key encoder move; each exported encoder serves;
+    each objective passes the f32 step gate (12 batches of B=8 card vs CPU,
+    the key encoder, queue and pointer after the step as well) and has its
+    step timed at B=256 (clips/s, split, busy share).
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
 the attention at MAST-B's shapes and at AST-base's), serving (AudioNTT,
 and MAST-B and AST-base behind the fbank) and training (DeLoRes-S,
-SS-MAST, the AST-base fine-tune, the MAST-B probe), and prints:
+DeLoRes-M, SLICER, UnFuSeD, SS-MAST, the AST-base fine-tune, the MAST-B
+probe), and prints:
 
   * the card's name and power limit as nvidia-smi gives them;
   * one {"kernels": [...]} JSON line (launches on the main paths, error
@@ -131,6 +145,28 @@ STEP_BATCHES = 12
 STEP_PASS = STEP_BATCHES // 2
 STEP_FAULT = 1e-2
 TRAIN_STEPS = 3
+TRAIN_SEED = 31  # train_upstream's default seed: the runs' initial weights
+# launches a step of log_mel_fused / block1_fwd / block1_bwd_sums /
+# block1_bwd_weight through train_upstream: one log-mel; block 1's forward
+# in every query and key pass, its backward passes once for each query pass
+NTT_KERNELS = ("log_mel_fused", "block1_fwd", "block1_bwd_sums", "block1_bwd_weight")
+TRAIN_LAUNCHES = {
+    "delores_s": (1, 2, 2, 2),  # both views through one encoder
+    "delores_m": (1, 2, 1, 1),  # the query pass on view 1, the key pass (no backward) on view 2
+    "slicer": (1, 4, 2, 2),  # two directions, each a query and a key pass
+    "unfused": (1, 1, 1, 1),  # view 1 only
+}
+QUEUE_BATCHES = {"delores_m": 1, "slicer": 2}  # batches of keys enqueued a step
+# gradients the f32 step gate must refuse when scaled by 1 + STEP_FAULT in
+# every batch; the first also in two batches of three only
+STEP_FAULTS = {
+    "delores_s": ("encoder.features_1.0.weight", "encoder.features_1.1.weight", "encoder.features_1.1.bias",
+                  "encoder.fc.0.weight", "projector.projector.3.weight"),
+    "delores_m": ("encoder.encoder.features_1.0.weight", "encoder.encoder.features_1.1.weight"),
+    "slicer": ("encoder.encoder.features_1.0.weight", "encoder.encoder.features_1.1.weight"),
+    "unfused": ("encoder.features_1.0.weight", "encoder.features_1.1.weight"),
+}
+TOL_EMA = 1e-6  # the key encoder's parameters after the EMA, card vs CPU, relative to max(1, max|ref|)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor
 # FLOP/s, bf16 dense tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -362,16 +398,15 @@ def main() -> int:
     b1_err, grad_errs = block1_checks(dev)
 
     # phase 7: the training main path through train_upstream, counts from 0
-    pretrain = pre["pretrain"]
     ntt_tmp = tempfile.TemporaryDirectory()  # its checkpoint feeds extract_features in phase 17
-    counts = training_run(pretrain, pool, wav, ntt_tmp.name, dev)
+    counts = training_run("delores_s", pool, wav, ntt_tmp.name, dev)
     # the linear probe on the run's checkpoint (downstream.yaml as it stands), counts from 0
     probe_counts = audiontt_probe_run(ntt_tmp.name, wav, dev)
-    step_err = f32_step_check(pretrain, pool, dev)
+    step_err = f32_step_check("delores_s", pool, dev)
 
     # phase 8: times at the training shape, beside the card
     b1_times = block1_times(dev, card)
-    train_times(pretrain, pool, dev, card)
+    train_times("delores_s", pool, dev, card)
 
     # phase 9: the SS-MAST slice's kernels against their plain versions
     attn_err = attention_checks(dev)
@@ -434,7 +469,17 @@ def main() -> int:
     ntt_tmp.cleanup()
     mast_tmp.cleanup()
 
-    # phase 18: the kernel line
+    # phases 18-20 (slice 10): DeLoRes-M, SLICER and UnFuSeD through
+    # train_upstream on their configs as they stand, counts from 0 for each;
+    # the f32 step gate of each; each step's times at B=256, beside the card
+    slice10_counts, slice10_step_err = {}, {}
+    for name in ("delores_m", "slicer", "unfused"):
+        with tempfile.TemporaryDirectory() as tmp:
+            slice10_counts[name] = training_run(name, pool, wav, tmp, dev)
+        slice10_step_err[name] = f32_step_check(name, pool, dev)
+        train_times(name, pool, dev, card)
+
+    # phase 21: the kernel line
     entries = [{
         "name": "log_mel_fused",
         "route": "cuda",
@@ -447,6 +492,7 @@ def main() -> int:
         "ast_launches": ast_counts["log_mel_fused"],
         "mast_probe_launches": {mode: c["log_mel_fused"] for mode, c in mast_probe_counts.items()},
         "extract_launches": {kind: e["launches"] for kind, e in extract.items()},
+        **{f"{name}_launches": c["log_mel_fused"] for name, c in slice10_counts.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -464,6 +510,7 @@ def main() -> int:
             "replaces": f"audiossl_tpu/ops/block1.py:{line}",
             "launches": counts[name],
             "probe_launches": probe_counts[name],
+            **{f"{objective}_launches": c[name] for objective, c in slice10_counts.items()},
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -500,6 +547,7 @@ def main() -> int:
     serving9 = {label: {k: v for k, v in run.items() if k != "counts"} for label, run in
                 (("mast_b_fbank", mast_serve), ("ast_base_fbank", ast_serve))}
     print(json.dumps({"kernels": entries, "block1_grad_rel_err": grad_errs, "f32_step_rel_err": step_err,
+                      **{f"{name}_f32_step_rel_err": e for name, e in slice10_step_err.items()},
                       "ssmast_f32_step_rel_err": mast_step_err, "ast_f32_step_rel_err": ast_step_err,
                       "fbank_serving": serving9, "mast_probe_times": mast_probe_t,
                       "extract_features_err": {kind: e["max_abs_err"] for kind, e in extract.items()}}))
@@ -600,8 +648,10 @@ def block1_checks(dev) -> tuple[dict[str, float], dict[str, float]]:
     return errs, grad_errs
 
 
-def write_manifest(pool_dir: str, wav, n_rows: int) -> str:
-    """16 two-second sine WAVs and a manifest of ``n_rows`` rows cycling over them."""
+def write_manifest(pool_dir: str, wav, n_rows: int, n_labels: int | None = None) -> str:
+    """16 two-second sine WAVs and a manifest of ``n_rows`` rows cycling over
+    them; with ``n_labels``, a ``label`` column of ids cycling over 0 ..
+    n_labels - 1."""
     t = np.arange(32000) / 16000.0
     files = []
     for i in range(16):
@@ -610,66 +660,100 @@ def write_manifest(pool_dir: str, wav, n_rows: int) -> str:
         wav.write_wav(files[-1], (0.4 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 2.7 * f0 * t)).astype(np.float32))
     csv = os.path.join(pool_dir, "manifest.csv")
     with open(csv, "w") as f:
-        f.write("files\n" + "".join(f"{files[r % 16]}\n" for r in range(n_rows)))
+        if n_labels is None:
+            f.write("files\n" + "".join(f"{files[r % 16]}\n" for r in range(n_rows)))
+        else:
+            f.write("files,label\n" + "".join(f"{files[r % 16]},{r % n_labels}\n" for r in range(n_rows)))
     return csv
 
 
-def training_run(pre, pool, wav, tmp, dev) -> dict[str, int]:
-    """DeLoRes-S pretraining through train_upstream at full width for
-    TRAIN_STEPS steps; checks the losses, the launches per step and that the
+def ntt_config(name: str) -> dict:
+    """configs/<name>.yaml as it stands."""
+    from audiossl_tpu_torch import config as cfgmod
+
+    return cfgmod.load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", f"{name}.yaml"))
+
+
+def training_run(name, pool, wav, tmp, dev) -> dict[str, int]:
+    """Pretraining of the AudioNTT objective ``name`` through train_upstream on
+    its config as it stands (full width) for TRAIN_STEPS steps, counts from
+    0; checks the losses, the launches per step (TRAIN_LAUNCHES; no other
+    kernel), a MoCo objective's queue pointer and key encoder, and that the
     exported encoder serves. Returns the launch counts of the run."""
     from audiossl_tpu_torch import config as cfgmod
-    from audiossl_tpu_torch.frontend import build_frontend, fused_stft
-    from audiossl_tpu_torch.ops import block1
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.objectives import objective_class
     from audiossl_tpu_torch.serve.export import build_embedder
     from audiossl_tpu_torch.train.loop import train_upstream
 
-    config = cfgmod.load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "delores_s.yaml"))
+    config = ntt_config(name)
     batch = int(config["run"]["batch_size"])
-    csv = write_manifest(tmp, wav, batch * TRAIN_STEPS)
-    config["run"].update(save_path=os.path.join(tmp, "delores_s"), epochs=1)
-    wrappers = {"log_mel_fused": fused_stft.log_mel_fused, "block1_fwd": block1.block1_fwd,
-                "block1_bwd_sums": block1.block1_bwd_sums, "block1_bwd_weight": block1.block1_bwd_weight}
-    for fn in wrappers.values():
-        fn.launches = 0
+    n_labels = int(config["pretrain"]["task_label"]) if objective_class(name).labeled else None
+    csv = write_manifest(tmp, wav, batch * TRAIN_STEPS, n_labels)
+    config["run"].update(save_path=os.path.join(tmp, name), epochs=1)
+    reset_launches()
     t0 = time.perf_counter()
-    _, step, ckpt_dir = train_upstream(config, csv, "delores_s", max_steps=TRAIN_STEPS, device=dev)
+    obj, step, ckpt_dir = train_upstream(config, csv, name, max_steps=TRAIN_STEPS, seed=TRAIN_SEED, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts = read_launches()
     with open(os.path.join(ckpt_dir, "stats.jsonl")) as f:
         losses = [json.loads(line)["train_loss"] for line in f]
-    print(f"training: train_upstream delores_s, B={batch}, d={pre['base_encoder']['output_dim']}, bf16, "
-          f"{step} steps in {seconds:.1f} s (set-up and loading included); losses {losses}; launches {counts}")
+    d = int(config["pretrain"]["base_encoder"]["output_dim"])
+    print(f"training: train_upstream {name}, B={batch}, d={d}, bf16, {step} steps in {seconds:.1f} s (set-up and "
+          f"loading included); losses {losses}; launches {({k: counts[k] for k in NTT_KERNELS})}")
     if step != TRAIN_STEPS or len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
-        raise RuntimeError(f"training took {step} steps with losses {losses}")
-    per_step = {"log_mel_fused": 1, "block1_fwd": 2, "block1_bwd_sums": 2, "block1_bwd_weight": 2}
-    for name, n in per_step.items():
-        if counts[name] != n * TRAIN_STEPS:
-            raise RuntimeError(f"{name} launched {counts[name]} times in {TRAIN_STEPS} steps, expected {n} per step")
+        raise RuntimeError(f"{name} training took {step} steps with losses {losses}")
+    expect_counts(f"training {name}, {TRAIN_STEPS} steps", counts,
+                  {k: n * TRAIN_STEPS for k, n in zip(NTT_KERNELS, TRAIN_LAUNCHES[name])})
+    if name in QUEUE_BATCHES:
+        moco_check(name, obj, config, batch)
     sd = torch.load(os.path.join(ckpt_dir, "encoder", f"{step}.pt"), map_location="cpu", weights_only=True)
     frontend = build_frontend(config["pretrain"]["input"])
     emb = build_embedder(sd, frontend, cfgmod.clip_samples(config), torch.bfloat16, dev)
     with torch.inference_mode():
         out = emb(torch.from_numpy(pool[:SERVE_BATCH]).to(dev))
-    d = int(config["pretrain"]["base_encoder"]["output_dim"])
     if out.shape != (SERVE_BATCH, d) or not torch.isfinite(out).all():
-        raise RuntimeError(f"the trained encoder's export served {tuple(out.shape)} or non-finite values")
-    print(f"training: exported encoder/{step}.pt serves [{SERVE_BATCH}, {CLIP}] -> [{SERVE_BATCH}, {d}], finite")
+        raise RuntimeError(f"the trained {name} encoder's export served {tuple(out.shape)} or non-finite values")
+    print(f"training: {name}'s exported encoder/{step}.pt serves [{SERVE_BATCH}, {CLIP}] -> [{SERVE_BATCH}, {d}], finite")
     return counts
 
 
-def f32_step_check(pre, pool, dev, b: int = 8) -> dict[str, float]:
-    """f32 DeLoRes-S steps at full width on the card against the same steps on
-    the CPU plain path, from the same weights, waves and draws, on
-    STEP_BATCHES batches of ``b`` clips: the views (frontend and augmentation)
-    are compared, then the loss and every gradient on the CPU's views. At
-    least STEP_PASS batches must pass every gradient bound at once (a routing
-    flip at round-off is a chance event of a batch; a fault shows in all of
-    them, or in most), the view and loss bounds every batch. Then the gate is
-    shown to refuse the card's gradients with one tensor scaled by 1 +
-    STEP_FAULT in every batch (block 1's conv weight, BN scale and BN shift,
-    and two later layers), and block 1's conv weight scaled so in two batches
+def moco_check(name, obj, config, batch) -> None:
+    """After the run: the queue pointer advanced by QUEUE_BATCHES[name]
+    batches a step, and the key encoder moved from where it started (the
+    run's seeded initial state, rebuilt on the CPU) and differs from the
+    query encoder."""
+    from audiossl_tpu_torch.objectives import init_objective
+
+    want = QUEUE_BATCHES[name] * batch * TRAIN_STEPS % obj.num_negatives
+    start = init_objective(name, config, seed=TRAIN_SEED)
+    with torch.no_grad():
+        moved = max(float((k.cpu() - k0).abs().max())
+                    for k, k0 in zip(obj.encoder_k.parameters(), start.encoder_k.parameters()))
+        apart = max(float((k - q).abs().max()) for k, q in zip(obj.encoder_k.parameters(), obj.encoder.parameters()))
+    print(f"training: {name} queue pointer {int(obj.queue_ptr)} (expected {want}); key encoder moved by max|d| "
+          f"{moved:.3e} from its start, {apart:.3e} from the query encoder")
+    if int(obj.queue_ptr) != want or not moved > 0.0 or not apart > 0.0:
+        raise RuntimeError(f"{name}'s MoCo state after {TRAIN_STEPS} steps: pointer {int(obj.queue_ptr)} (expected "
+                           f"{want}), key encoder moved {moved}, apart from the query encoder {apart}")
+
+
+def f32_step_check(name, pool, dev, b: int = 8) -> dict[str, float]:
+    """f32 steps of the AudioNTT objective ``name`` (its config, f32, dropout
+    0) at full width on the card against the same steps on the CPU plain
+    path, from the same weights, waves, draws (and labels), on STEP_BATCHES
+    batches of ``b`` clips: the views (frontend and augmentation) are
+    compared, then the loss and every gradient on the CPU's views, and a
+    MoCo objective's state after the step (key encoder parameters within
+    TOL_EMA, its BatchNorm statistics and the queue within TOL_F32, the
+    pointer equal). At least STEP_PASS batches must pass every gradient
+    bound at once (a routing flip at round-off is a chance event of a batch;
+    a fault shows in all of them, or in most), the other bounds every batch.
+    Then the gate is shown to refuse the card's gradients with each tensor
+    of STEP_FAULTS[name] scaled by 1 + STEP_FAULT in every batch (for
+    DeLoRes-S block 1's conv weight, BN scale and BN shift, and two later
+    layers), and the first (block 1's conv weight) scaled so in two batches
     of three only."""
     import copy
 
@@ -679,15 +763,19 @@ def f32_step_check(pre, pool, dev, b: int = 8) -> dict[str, float]:
     from audiossl_tpu_torch.objectives import init_objective
     from audiossl_tpu_torch.train.step import prepare_views
 
-    cfg = {"pretrain": copy.deepcopy(pre), "run": {}}
-    cfg["pretrain"]["base_encoder"].update(compute_dtype="float32", dropout=0.0)
+    cfg = ntt_config(name)
+    pre = cfg["pretrain"]
+    pre["base_encoder"].update(compute_dtype="float32", dropout=0.0)
     frontend = build_frontend(pre["input"])
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
     n_frames = frontend.num_frames(CLIP)
-    init = init_objective("delores_s", cfg, seed=0).train()
+    init = init_objective(name, cfg, seed=0).train()
     runs = []  # per batch: view error, (loss, gradients) on the card and on the CPU
+    moco_errs = []  # per batch: the key encoder's parameters, its statistics and the queue, card vs CPU
     for k in range(STEP_BATCHES):
         waves = torch.from_numpy(pool[k * b:(k + 1) * b])
+        labels = torch.from_numpy(np.random.default_rng(7 + k).integers(0, int(pre["task_label"]), b)) \
+            if init.labeled else None
         views = []
         for d in (dev, torch.device("cpu")):
             state = pipeline.init_state(frontend.n_mels, n_frames, d)
@@ -695,14 +783,24 @@ def f32_step_check(pre, pool, dev, b: int = 8) -> dict[str, float]:
             draws = tuple(type(v)(*(t.to(d) if t is not None else None for t in v)) for v in draws)
             views.append(prepare_views(pipeline, frontend, "mean_var", state, waves.to(d), draws)[1:])
         view_err = max(float((c.cpu() - r).abs().max()) / max(1.0, float(r.abs().max())) for c, r in zip(*views))
-        results = []
+        results, states = [], []
         for d in (dev, torch.device("cpu")):
             obj = copy.deepcopy(init).to(d)
             with no_tf32():
-                loss = obj.loss(*(v.to(d) for v in views[1]))
+                loss = obj.loss(*(v.to(d) for v in views[1]), labels=None if labels is None else labels.to(d))
                 loss.backward()
-            results.append((loss.item(), {n: p.grad.cpu() for n, p in obj.named_parameters()}))
+            results.append((loss.item(), {n: p.grad.cpu() for n, p in obj.named_parameters() if p.requires_grad}))
+            states.append({n: v.cpu() for n, v in obj.state_dict().items() if n.startswith(("encoder_k.", "queue"))})
         runs.append((view_err, *results))
+        if states[1]:
+            card, cpu = states
+            rel = lambda n: float((card[n].float() - cpu[n].float()).abs().max()) / max(1.0, float(cpu[n].abs().max()))
+            params = {n for n, _ in init.encoder_k.named_parameters()}
+            moco_errs.append({
+                "key_params": max(rel(n) for n in card if n[len("encoder_k."):] in params),
+                "key_stats": max(rel(n) for n in card if "running" in n),
+                "queue": rel("queue"), "pointer": int(card["queue_ptr"]) - int(cpu["queue_ptr"]),
+            })
     flat = lambda g: torch.cat([v.flatten() for v in g.values()])
 
     def errors(g, ref):
@@ -738,36 +836,42 @@ def f32_step_check(pre, pool, dev, b: int = 8) -> dict[str, float]:
     loss_errs = [abs(card[0] - cpu[0]) / abs(cpu[0]) for _, card, cpu in runs]
     ok, best = gate()
     worst_tensor = max(best["tensor_norm"], key=best["tensor_norm"].get)
-    print(f"f32 step B={b}, {STEP_BATCHES} batches, views (log-mel kernel, RunningNorm, mixup, crop) card vs CPU: "
+    print(f"f32 {name} step B={b}, {STEP_BATCHES} batches, views (log-mel kernel, RunningNorm, mixup, crop) card vs CPU: "
           f"worst max|d| / max(1, max|ref|) = {max(view_errs):.3e} (tol {TOL_F32}); losses relative, worst "
           f"{max(loss_errs):.3e} (tol {TOL_STEP_LOSS})")
-    print("f32 step per batch, gradients in norm / worst tensor in norm / worst element: "
+    print(f"f32 {name} step per batch, gradients in norm / worst tensor in norm / worst element: "
           + "; ".join(f"{w:.2e} / {max(t.values()):.2e} / {max(e.values()):.2e}" for w, t, e in best["per_batch"]))
-    print(f"f32 step, the best batch for each bound: gradients in norm {best['gradients']:.3e} (tol {TOL_STEP}); "
+    print(f"f32 {name} step, the best batch for each bound: gradients in norm {best['gradients']:.3e} (tol {TOL_STEP}); "
           f"each tensor in norm, worst {worst_tensor} {best['tensor_norm'][worst_tensor]:.3e} (tol {TOL_STEP}); "
           f"worst element {max(best['tensor_worst'].values()):.3e} (tol {TOL_STEP_TENSOR}); "
           f"batches passing every bound: {best['passing']}/{STEP_BATCHES} (at least {STEP_PASS})")
-    if not (max(view_errs) <= TOL_F32 and max(loss_errs) <= TOL_STEP_LOSS and ok):
-        raise RuntimeError(f"the f32 training step on the card disagrees with the CPU path: views {max(view_errs)}, "
-                           f"losses {max(loss_errs)}, {best['passing']} of {STEP_BATCHES} batches passing every "
-                           f"gradient bound (at least {STEP_PASS})")
-    block1_weight = "encoder.features_1.0.weight"
-    faults = [(name, ()) for name in (block1_weight, "encoder.features_1.1.weight", "encoder.features_1.1.bias",
-                                      "encoder.fc.0.weight", "projector.projector.3.weight")]
-    faults.append((block1_weight, tuple(range(0, STEP_BATCHES, 3))))  # spares one batch in three
+    moco = {key: max(abs(e[key]) for e in moco_errs) for key in moco_errs[0]} if moco_errs else {}
+    if moco:
+        print(f"f32 {name} step, MoCo state after the step card vs CPU, worst of {STEP_BATCHES} batches: key encoder "
+              f"parameters {moco['key_params']:.3e} (tol {TOL_EMA}), its BN statistics {moco['key_stats']:.3e} and "
+              f"the queue {moco['queue']:.3e} (tol {TOL_F32}), pointers equal: {moco['pointer'] == 0}")
+    moco_ok = not moco or (moco["key_params"] <= TOL_EMA and moco["key_stats"] <= TOL_F32
+                           and moco["queue"] <= TOL_F32 and moco["pointer"] == 0)
+    if not (max(view_errs) <= TOL_F32 and max(loss_errs) <= TOL_STEP_LOSS and ok and moco_ok):
+        raise RuntimeError(f"the f32 {name} training step on the card disagrees with the CPU path: views "
+                           f"{max(view_errs)}, losses {max(loss_errs)}, {best['passing']} of {STEP_BATCHES} batches "
+                           f"passing every gradient bound (at least {STEP_PASS}); MoCo state {moco}")
+    faults = [(tensor, ()) for tensor in STEP_FAULTS[name]]
+    faults.append((STEP_FAULTS[name][0], tuple(range(0, STEP_BATCHES, 3))))  # spares one batch in three
     caught = {}
-    for name, spared in faults:
-        passed, fb = gate(name, spared)
+    for tensor, spared in faults:
+        passed, fb = gate(tensor, spared)
         where = f"in {STEP_BATCHES - len(spared)} of {STEP_BATCHES} batches" if spared else "in every batch"
-        caught[f"{name} {where}"] = fb["passing"]
-        print(f"f32 step gate with the card's {name} gradient scaled by 1 + {STEP_FAULT} {where}: best batch "
-              f"{fb['tensor_norm'][name]:.3e} in norm (tol {TOL_STEP}); {fb['passing']}/{STEP_BATCHES} batches "
+        caught[f"{tensor} {where}"] = fb["passing"]
+        print(f"f32 {name} step gate with the card's {tensor} gradient scaled by 1 + {STEP_FAULT} {where}: best batch "
+              f"{fb['tensor_norm'][tensor]:.3e} in norm (tol {TOL_STEP}); {fb['passing']}/{STEP_BATCHES} batches "
               f"passing every bound: {'refused' if not passed else 'PASSED'}")
         if passed:
-            raise RuntimeError(f"the f32 step gate does not catch {name}'s gradient scaled by 1 + {STEP_FAULT} {where}")
+            raise RuntimeError(f"the f32 {name} step gate does not catch {tensor}'s gradient scaled by 1 + "
+                               f"{STEP_FAULT} {where}")
     return {"views": max(view_errs), "loss": max(loss_errs), "gradients": best["gradients"],
             "worst_tensor_norm": best["tensor_norm"][worst_tensor], "worst_element": max(best["tensor_worst"].values()),
-            "batches_passing": best["passing"], "injected_faults_batches_passing": caught}
+            "batches_passing": best["passing"], "injected_faults_batches_passing": caught, **moco}
 
 
 def kernel_split(fn, iters: int = 20) -> dict[str, float]:
@@ -862,48 +966,54 @@ def block1_times(dev, card, stats: bool = True) -> dict[str, dict]:
     return out
 
 
-def train_times(pre, pool, dev, card, b: int = 256) -> None:
-    """train_clips_per_sec at B=256, bf16, full width on device-resident
-    waves: the median of 3 windows of 10 steps on the host clock (each
-    window ends in a synchronize), and the step split by CUDA events."""
+def train_times(name, pool, dev, card, b: int = 256) -> None:
+    """train_clips_per_sec of the AudioNTT objective ``name`` at B=256, bf16,
+    its config's full width, on device-resident waves (and labels): the
+    median of 3 windows of 10 steps on the host clock (each window ends in
+    a synchronize), the step split by CUDA events, and the device's busy
+    share of 3 steps by torch.profiler."""
     from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
     from audiossl_tpu_torch.frontend import build_frontend
     from audiossl_tpu_torch.objectives import init_objective
     from audiossl_tpu_torch.train.optim import sgd_torch
     from audiossl_tpu_torch.train.step import TrainStep
 
+    cfg = ntt_config(name)
+    pre = cfg["pretrain"]
     frontend = build_frontend(pre["input"])
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
-    obj = init_objective("delores_s", {"pretrain": pre, "run": {}}, seed=0, device=dev).train()
-    step = TrainStep(obj, pipeline, frontend, sgd_torch(obj.parameters(), 0.03), torch.Generator(dev).manual_seed(0))
+    obj = init_objective(name, cfg, seed=0, device=dev).train()
+    params = [p for p in obj.parameters() if p.requires_grad]
+    step = TrainStep(obj, pipeline, frontend, sgd_torch(params, 0.03), torch.Generator(dev).manual_seed(0))
     state = pipeline.init_state(frontend.n_mels, frontend.num_frames(CLIP), dev)
     waves = torch.from_numpy(pool[:b]).to(dev)
+    labels = torch.from_numpy(np.arange(b) % int(pre["task_label"])).to(dev) if obj.labeled else None
     for _ in range(3):
-        state, loss = step(state, waves)
+        state, loss = step(state, waves, labels)
     torch.cuda.synchronize()
     rates = []
     for _ in range(3):
         t0 = time.perf_counter()
         for _ in range(10):
-            state, loss = step(state, waves)
+            state, loss = step(state, waves, labels)
         torch.cuda.synchronize()
         rates.append(10 * b / (time.perf_counter() - t0))
     if not math.isfinite(loss.item()):
-        raise RuntimeError(f"training loss became {loss.item()}")
+        raise RuntimeError(f"{name} training loss became {loss.item()}")
     parts = {"frontend+augment": 0.0, "forward+backward": 0.0, "optimizer": 0.0}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     for _ in range(10):
         ev[0].record()
         state, v1, v2 = step.views(state, waves)
         ev[1].record()
-        step.loss_and_grads(v1, v2)
+        step.loss_and_grads(v1, v2, labels)
         ev[2].record()
         step.update()
         ev[3].record()
         torch.cuda.synchronize()
-        for (name, _), e0, e1 in zip(parts.items(), ev[:3], ev[1:]):
-            parts[name] += e0.elapsed_time(e1) / 10
-    print(f"[{card}] training B={b} bf16 d={pre['base_encoder']['output_dim']}: train_clips_per_sec "
+        for part, e0, e1 in zip(parts, ev[:3], ev[1:]):
+            parts[part] += e0.elapsed_time(e1) / 10
+    print(f"[{card}] training {name} B={b} bf16 d={pre['base_encoder']['output_dim']}: train_clips_per_sec "
           f"{float(np.median(rates)):.1f} (median of windows {[round(r, 1) for r in rates]}); step split "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
 
@@ -914,17 +1024,18 @@ def train_times(pre, pool, dev, card, b: int = 256) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            state, loss = step(state, waves)
+            state, loss = step(state, waves, labels)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels_us = {e.key: e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
     busy = sum(kernels_us.values())
     if not busy:
-        print(f"[{card}] training profile: no device time recorded (not measured)")
+        print(f"[{card}] training {name} profile: no device time recorded (not measured)")
         return
-    print(f"[{card}] training profile, 3 steps: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
-          f"({busy / wall_us:.1%}); {len(kernels_us)} kernels; by device time per step:")
+    aten = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / 3
+    print(f"[{card}] training {name} profile, 3 steps: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+          f"({busy / wall_us:.1%}); {len(kernels_us)} kernels, {aten:.0f} aten calls a step; by device time per step:")
     for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 3e3:9.4f} ms  {us / busy:6.1%}  {name[:110]}")
 

@@ -181,6 +181,127 @@ def test_fused_block1_autograd_on_the_card(cuda):
         assert float((c - g).abs().max()) <= 1e-3 * max(1.0, float(c.abs().max()))
 
 
+# ---------------------------------------------------------------- DeLoRes-M, SLICER, UnFuSeD
+
+# launches a step of log_mel_fused / block1_fwd / block1_bwd_sums / block1_bwd_weight (chip_smoke.TRAIN_LAUNCHES)
+OBJECTIVE_LAUNCHES = {"delores_m": (1, 2, 1, 1), "slicer": (1, 4, 2, 2), "unfused": (1, 1, 1, 1)}
+
+
+def _objective_config(name, dtype):
+    import os
+
+    import yaml
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", f"{name}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["pretrain"]["base_encoder"].update(output_dim=64, compute_dtype=dtype, dropout=0.0)
+    cfg["pretrain"].update(num_negatives=64, contrastive_dim=16, instance_contrastive_dim=16, cluster_contrastive_dim=12,
+                           task_label=7)
+    return cfg
+
+
+def objective_views(pre, k, b=8):
+    """Batch ``k`` of ``b`` view pairs on the CPU, made as training makes
+    them: sine-mixture waves (chip_smoke.sine_requests' recipe) through the
+    log-mel, RunningNorm, mixup and crop, draws seeded by ``k``. Views of
+    random normal values would not do: the 2048-wide Barlow heads
+    standardise over 8 clips, and on such views the CPU alone, from weights
+    nudged by 1e-7, moves the gradients past the gate's bounds in half the
+    batches."""
+    from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.train.step import prepare_views
+
+    rng = np.random.default_rng(100 + k)
+    t = np.arange(15200) / 16000.0
+    f0 = 110.0 * 2 ** (rng.integers(0, 8, (b, 1)) / 2)
+    waves = rng.uniform(0.2, 1.0, (b, 1)) * (0.5 * np.sin(2 * np.pi * f0 * t) + 0.2 * np.sin(2 * np.pi * 3.1 * f0 * t))
+    waves = torch.from_numpy((waves + 0.01 * rng.standard_normal((b, 15200))).astype(np.float32))
+    frontend = build_frontend(pre["input"])
+    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
+    n_frames = frontend.num_frames(15200)
+    state = pipeline.init_state(frontend.n_mels, n_frames, "cpu")
+    draws = pipeline.sample_draws(state, b, frontend.n_mels, n_frames, torch.Generator().manual_seed(k))
+    return prepare_views(pipeline, frontend, "mean_var", state, waves, draws)[1:]
+
+
+@pytest.mark.parametrize("name", sorted(OBJECTIVE_LAUNCHES))
+def test_objective_f32_step_on_the_card_matches_cpu(cuda, name):
+    """One f32 step of each objective (d = 64, a 64-key queue) on the card
+    against the CPU from the same state, on 12 batches of B = 8 views
+    (``objective_views``) and labels: the loss in every batch within 1e-5;
+    chip_smoke.py's step-gate rule for the gradients (at least 6 batches
+    with all gradients within 1e-3 in norm and each tensor within 1e-3 of
+    its norm + 1e-3 of the largest: AudioNTT's f32 routing flips); the key
+    encoder's parameters within 1e-6 and the queue and running statistics
+    within 1e-3 of max(1, max|ref|), the pointer equal, in every batch."""
+    import copy
+
+    from audiossl_tpu_torch.objectives import init_objective
+
+    cfg = _objective_config(name, "float32")
+    init = init_objective(name, cfg, seed=0).train()
+    rng = np.random.default_rng(4)
+    passing, errors = 0, []  # per batch: all gradients in norm / the worst tensor in norm
+    for k in range(12):
+        v1, v2 = objective_views(cfg["pretrain"], k)
+        labels = torch.from_numpy(rng.integers(0, 7, 8))
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            obj = copy.deepcopy(init).to(dev)
+            loss = obj.loss(v1.to(dev), v2.to(dev), labels=labels.to(dev))
+            loss.backward()
+            out.append((loss.item(), {n: p.grad.cpu() for n, p in obj.named_parameters() if p.requires_grad},
+                        {n: v.cpu() for n, v in obj.state_dict().items()}))
+        (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out
+        assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+        flat = lambda g: torch.cat([v.flatten() for v in g.values()])
+        largest = max(float(v.norm()) for v in g_cpu.values())
+        whole = float((flat(g_card) - flat(g_cpu)).norm() / flat(g_cpu).norm())
+        each = max(float((g_card[n] - r).norm()) / (float(r.norm()) + 1e-3 * largest) for n, r in g_cpu.items())
+        passing += whole <= 1e-3 and each <= 1e-3
+        errors.append(f"{whole:.1e} / {each:.1e}")
+        for n, r in s_cpu.items():
+            if n.startswith("encoder_k.") and n[len("encoder_k."):] in dict(init.encoder_k.named_parameters()):
+                assert float((s_card[n] - r).abs().max()) <= 1e-6 * max(1.0, float(r.abs().max())), n
+            elif n == "queue_ptr":
+                assert int(s_card[n]) == int(r)
+            elif r.is_floating_point() and (n == "queue" or "running" in n):
+                assert float((s_card[n] - r).abs().max()) <= 1e-3 * max(1.0, float(r.abs().max())), n
+    assert passing >= 6, f"{passing} of 12 batches pass every gradient bound: {errors}"
+
+
+@pytest.mark.parametrize("name", sorted(OBJECTIVE_LAUNCHES))
+def test_objective_bf16_step_launch_counts(cuda, name):
+    """One bf16 training step (views from waves) launches the log-mel kernel
+    once and block 1's kernels as chip_smoke.TRAIN_LAUNCHES says."""
+    from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.ops import block1
+    from audiossl_tpu_torch.train.optim import sgd_torch
+    from audiossl_tpu_torch.train.step import TrainStep
+
+    cfg = _objective_config(name, "bfloat16")
+    pre = cfg["pretrain"]
+    frontend = build_frontend(pre["input"])
+    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
+    obj = init_objective(name, cfg, seed=0, device=cuda).train()
+    step = TrainStep(obj, pipeline, frontend, sgd_torch([p for p in obj.parameters() if p.requires_grad], 0.03),
+                     torch.Generator(cuda).manual_seed(0))
+    state = pipeline.init_state(frontend.n_mels, frontend.num_frames(15200), cuda)
+    waves = torch.from_numpy((0.3 * np.random.default_rng(5).standard_normal((8, 15200))).astype(np.float32)).to(cuda)
+    labels = torch.arange(8, device=cuda) % 7
+    wrappers = (fused_stft.log_mel_fused, block1.block1_fwd, block1.block1_bwd_sums, block1.block1_bwd_weight)
+    for fn in wrappers:
+        fn.launches = 0
+    _, loss = step(state, waves, labels)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert tuple(fn.launches for fn in wrappers) == OBJECTIVE_LAUNCHES[name]
+
+
 # ---------------------------------------------------------------- rel-pos attention
 
 

@@ -154,3 +154,24 @@ def test_ssmast_trainer_raises_without_cuda_unless_given_cpu(no_cuda, tmp_path):
     config["pretrain"]["input"].update(n_mels=64, target_length=96)
     _, step, _ = train_upstream(config, str(csv), "ssmast", device="cpu")  # an empty manifest: no step
     assert step == 0 and config["pretrain"]["steps_per_epoch"] == 1000  # the caller's config is not changed
+
+
+@pytest.mark.parametrize("name", ["delores_m", "slicer", "unfused"])
+def test_audiontt_objective_trainers_raise_without_cuda_unless_given_cpu(no_cuda, tmp_path, name):
+    """DeLoRes-M (the CLI's default upstream), SLICER and UnFuSeD ask for the card too."""
+    from audiossl_tpu_torch.config import load_config
+    from audiossl_tpu_torch.train.loop import train_upstream
+    from audiossl_tpu_torch.train_upstream import main
+
+    csv = tmp_path / "m.csv"
+    csv.write_text("files,label\n")
+    config = load_config(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_upstream(config, str(csv), name)  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--input", str(csv)] + ([] if name == "delores_m" else ["--upstream", name]))
+    config["run"].update(save_path=str(tmp_path / "run"), epochs=1)
+    config["pretrain"]["base_encoder"]["output_dim"] = 32
+    config["pretrain"].update(num_negatives=64, task_label=3)
+    _, step, _ = train_upstream(config, str(csv), name, device="cpu")  # an empty manifest: no step
+    assert step == 0
