@@ -13,14 +13,14 @@ a tensor on the CPU, and on a CUDA tensor launches the kernel or raises.
 
 Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining,
 the downstream probe with AST, the SS-MAST checkpoint served and probed,
-DeLoRes-M, SLICER and UnFuSeD pretraining):
+DeLoRes-M, SLICER and UnFuSeD pretraining, the clustering family):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
   data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches,
                       labelled and class-balanced
   data/hf.py          HFLoader: the HF-hosted speech_commands tasks
-  data/augment.py     RunningNorm, MixupBYOLA ring bank, RandomResizeCrop,
-                      SpecMask and precomputed-norm views
+  data/augment.py     RunningNorm, MixupBYOLA ring bank, Kmix, MixGaussianNoise,
+                      RandomResizeCrop, SpecMask and precomputed-norm views
   frontend/           log-mel and Kaldi fbank: plain versions + the Hopper
                       log-mel and dense-rows kernels; waveform mixup
   ops/                windowing, running norm, bicubic crop-resize, masking,
@@ -36,16 +36,22 @@ DeLoRes-M, SLICER and UnFuSeD pretraining):
                       UnFuSeD's classifier
   models/convert.py   flax variables -> reference state_dicts (AudioNTT, MAST,
                       AST, EfficientNet) and whole objective states
-                      (DeLoRes-M, SLICER, UnFuSeD); reference <-> port layouts
+                      (DeLoRes-M, SLICER, UnFuSeD, DECAR-v2, DeepCluster-v1);
+                      reference <-> port layouts
   objectives/         DeLoRes-S, DeLoRes-M, SLICER, UnFuSeD (labelled
-                      batches), SS-MAST (MoCo queue, EMA key encoder)
-  train/              optimizers, train step, checkpoints, loop
+                      batches), SS-MAST (MoCo queue, EMA key encoder), DECAR-v2
+                      (prototypes, memory bank), the clustering toolbox
+                      (PCA-whitening, k-means, kNN, PIC), make_pseudo_labels,
+                      the DINO loss
+  train/              optimizers (SGD, Adam, AdamW, LARS, LARC), train step,
+                      checkpoints, loop; the DECAR-v2 and DeepCluster-v1
+                      trainers
   train_upstream.py   pretraining CLI
   downstream/         DownstreamModel (AudioNTT, EfficientNet, MAST, AST), the
                       LAPE task registry, the linear probe / fine-tune,
                       extract_features
   train_downstream.py downstream probe CLI
-  utils/metrics.py    AverageMeter, Accuracy
+  utils/metrics.py    AverageMeter, Accuracy, NMI
   serve/export.py     waveform -> embedding serving behind the log-mel or the
                       fbank, artifact, CLI
 """

@@ -8,27 +8,35 @@ takes the whole (pre-mix) batch once per view, so view 2 can draw view 1's
 push.
 
 Every stochastic op takes its draws as tensors (mixup weight and partner per
-clip, crop box per clip); ``AugmentPipeline.sample_draws`` makes them from an
-explicit ``torch.Generator``, and tests hand the JAX cores the same draws.
-The bank is updated in place (its ring slots are overwritten) to keep one
-copy of it on the device.
+clip, Kmix's weight, uniform partner and Gumbel noise, the Gaussian noise's
+weight and draws, crop box per clip); ``AugmentPipeline.sample_draws`` makes
+them from an explicit ``torch.Generator``, and tests hand the JAX cores the
+same draws. The bank is updated in place (its ring slots are overwritten)
+to keep one copy of it on the device.
 
 Ported: the delores_s configuration (RunningNorm or l2 / none, MixupBYOLA,
-RandomResizeCrop) and the ssmast one (SpecMask, then the ``precomputed``
-norm; the waveform mixup runs before the frontend, in train/step.py).
-Kmix, MixGaussianNoise and MAST noise raise ``NotImplementedError``.
+RandomResizeCrop), the delores_s_kmix one (Kmix against centroids of
+time-averaged log-mel, augmentations.py:119-189), MixGaussianNoise, and the
+ssmast one (SpecMask, then the ``precomputed`` norm; the waveform mixup runs
+before the frontend, in train/step.py). A view is Mixup -> Kmix -> noise ->
+crop, the JAX package's order. MAST noise raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from audiossl_tpu_torch import no_tf32
 from audiossl_tpu_torch.frontend.fbank import WaveMixDraws, sample_wave_mixup
 from audiossl_tpu_torch.ops.masking import MaskDraws, sample_mask_draws, spec_mask
 from audiossl_tpu_torch.ops.resize import random_resize_crop, sample_crop_boxes
 from audiossl_tpu_torch.ops.stats import RunningNormState, precomputed_norm, running_norm_apply, running_norm_init
+
+log = logging.getLogger("audiossl_tpu_torch.data")
 
 EPS32 = 1.1920929e-7
 
@@ -70,15 +78,87 @@ def mixup_byola(
     return log_mixup_exp(x, z, 1.0 - a) if log_domain else a * z + (1.0 - a) * x
 
 
+def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared euclidean distances [n, m], f32 with TF32 off."""
+    with no_tf32():
+        return (a * a).sum(-1, keepdim=True) - 2.0 * a @ b.T + (b * b).sum(-1)[None, :]
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def kmix_partner_index(state: MixupBankState, x: torch.Tensor, centroids: torch.Tensor, gumbel: torch.Tensor,
+                       top_k: int = 128) -> torch.Tensor:
+    """Kmix's partner in the bank for each clip of ``x [B, C, F, T]`` ->
+    [B] bank indices, all clips at once. Kmix.get_index
+    (augmentations.py:140-162): centroids and bank items are time-averaged
+    to [n_mels] and L2-normalized (the query is *not* normalized, as in the
+    reference); each bank item goes to its nearest centroid; the centroids
+    are ranked by *descending* distance from the query's (torch.topk
+    largest-first); the eligible items are those of the first rank that
+    holds any, the first ``top_k`` of them in bank order, and the partner is
+    the eligible item of largest ``gumbel [B, N]`` noise (a uniform draw)."""
+    n, k = state.bank.shape[0], centroids.shape[0]
+    c = _unit_rows(centroids.float())
+    m = _unit_rows(state.bank.float().mean(dim=-1))  # [N, F]
+    x_avg = x[:, 0].float().mean(dim=-1)  # [B, F]
+    assign = _sq_dist(m, c).argmin(dim=1)  # [N] bank item -> cluster
+    pc = _sq_dist(x_avg, c).argmin(dim=1)  # [B] query cluster
+    order = torch.argsort(-_sq_dist(c, c)[pc], dim=1, stable=True)  # [B, K] farthest first
+    rank_of = torch.empty_like(order).scatter_(1, order, torch.arange(k, device=x.device).expand_as(order))
+    valid = torch.arange(n, device=x.device) < state.fill
+    item_rank = torch.where(valid, rank_of[:, assign], k + 1)  # [B, N]
+    eligible = (item_rank == item_rank.min(dim=1, keepdim=True).values) & valid
+    eligible &= torch.cumsum(eligible.long(), dim=1) <= top_k
+    return torch.where(eligible, gumbel, float("-inf")).argmax(dim=1)
+
+
+def kmix(state: MixupBankState, x: torch.Tensor, centroids: torch.Tensor, alpha: torch.Tensor,
+         rand_index: torch.Tensor, gumbel: torch.Tensor | None, log_domain: bool = True,
+         top_k: int = 128) -> torch.Tensor:
+    """Mix clip i of ``x [B, C, F, T]`` at weight ``alpha[i]`` (= ratio *
+    U(0, 1)) with its Kmix partner (``kmix_partner_index``) once the bank
+    holds ``top_k`` items, before that with bank entry ``rand_index[i]``
+    (uniform over the filled slots); the identity while the bank is empty."""
+    if state.fill == 0:
+        return x
+    index = kmix_partner_index(state, x, centroids, gumbel, top_k) if state.fill >= top_k else rand_index
+    z = state.bank[index].to(x.dtype)[:, None]
+    a = alpha.view(-1, 1, 1, 1)
+    return log_mixup_exp(x, z, 1.0 - a) if log_domain else a * z + (1.0 - a) * x
+
+
+def mix_gaussian_noise(x: torch.Tensor, lambd: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """MixGaussianNoise (augmentations.py:193-208): log((1 - l) exp(x) +
+    exp(l * noise) + eps), with one weight ``lambd`` (= ratio * U(0, 1)) for
+    the view and ``noise`` ~ N(0, 1) of x's shape."""
+    return torch.log((1.0 - lambd) * torch.exp(x) + torch.exp(lambd * noise) + EPS32)
+
+
+def sample_gumbel(shape: tuple[int, ...], generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel noise, -log(-log(u)) of u uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=generator.device).clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
 class ViewDraws(NamedTuple):
     """The random numbers of one view: mixup weight [B] and bank index [B]
     (None without mixup), crop boxes [B, 4] (None without RandomResizeCrop),
-    SpecMask spans (None without SpecMask)."""
+    SpecMask spans (None without SpecMask); Kmix's weight [B], uniform
+    partner [B] and Gumbel noise [B, bank size] (None until the bank holds
+    top_k items), and the Gaussian noise's weight [] and draws [B, 1, F, T]
+    (None without them)."""
 
     mix_alpha: torch.Tensor | None
     mix_index: torch.Tensor | None
     crop_boxes: torch.Tensor | None
     mask: MaskDraws | None = None
+    kmix_alpha: torch.Tensor | None = None
+    kmix_index: torch.Tensor | None = None
+    kmix_gumbel: torch.Tensor | None = None
+    noise_lambda: torch.Tensor | None = None
+    noise: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -153,9 +233,7 @@ class AugmentConfig:
 
 
 _NOT_PORTED = {
-    "kmix_ratio": "Kmix (the DECAR slice, ROADMAP.md Queue 1 item 14)",
-    "gaussian_ratio": "MixGaussianNoise (the DECAR slice, ROADMAP.md Queue 1 item 14)",
-    "mast_noise": "MAST noise (ROADMAP.md Queue 1)",
+    "mast_noise": "MAST noise (ROADMAP.md Queue 1, item 4)",
 }
 
 
@@ -164,22 +242,32 @@ class AugmentPipeline:
 
     Order as AugmentationModule.get_augmentations: RunningNorm first, then
     view 1, a bank push, view 2 (which can draw view 1's push), a second push.
-    A view is mixup, crop, SpecMask, then the precomputed norm: MAST masks
-    THEN normalizes (dataloader.py:186-202), so masked bins sit at
-    (0 - mean) / (2 std).
+    A view is mixup, Kmix, Gaussian noise, crop, SpecMask, then the
+    precomputed norm: MAST masks THEN normalizes (dataloader.py:186-202), so
+    masked bins sit at (0 - mean) / (2 std). Kmix needs ``centroids`` [K,
+    n_mels] (make_pseudo_labels --save_centroids); the bank exists when
+    mixup or Kmix is on.
     """
 
-    def __init__(self, cfg: AugmentConfig, epoch_samples: int):
+    def __init__(self, cfg: AugmentConfig, epoch_samples: int, centroids: np.ndarray | torch.Tensor | None = None):
         for field, what in _NOT_PORTED.items():
             if getattr(cfg, field):
                 raise NotImplementedError(f"{what} is not ported yet")
+        if cfg.kmix_ratio is not None and centroids is None:
+            raise ValueError("Kmix enabled but no centroids provided")
         self.cfg = cfg
         self.epoch_samples = epoch_samples
+        self.centroids = None if centroids is None else torch.as_tensor(centroids, dtype=torch.float32)
+        self._ranked_logged = False
+
+    @property
+    def has_bank(self) -> bool:
+        return self.cfg.mixup_ratio is not None or self.cfg.kmix_ratio is not None
 
     def init_state(self, n_mels: int, n_frames: int, device: str | torch.device = "cpu") -> AugmentState:
         cfg = self.cfg
         return AugmentState(
-            mixup=mixup_bank_init(cfg.n_memory, n_mels, n_frames, device) if cfg.mixup_ratio is not None else None,
+            mixup=mixup_bank_init(cfg.n_memory, n_mels, n_frames, device) if self.has_bank else None,
             # the reference caps RunningNorm at 2 * len(csv) samples per epoch: the
             # FIFO sees each clip twice per epoch (two views), __init__.py:14
             running_norm=running_norm_init(2 * self.epoch_samples, device=device)
@@ -195,10 +283,20 @@ class AugmentPipeline:
         fill = state.mixup.fill if state.mixup is not None else 0
         for _ in range(2):
             alpha = index = boxes = None
+            extra: dict[str, torch.Tensor | None] = {}
             dev = generator.device
             if cfg.mixup_ratio is not None:
                 alpha = cfg.mixup_ratio * torch.rand(b, generator=generator, device=dev)
                 index = torch.randint(0, max(fill, 1), (b,), generator=generator, device=dev)
+            if cfg.kmix_ratio is not None:
+                extra["kmix_alpha"] = cfg.kmix_ratio * torch.rand(b, generator=generator, device=dev)
+                extra["kmix_index"] = torch.randint(0, max(fill, 1), (b,), generator=generator, device=dev)
+                if fill >= cfg.kmix_top_k:
+                    extra["kmix_gumbel"] = sample_gumbel((b, cfg.n_memory), generator)
+            if cfg.gaussian_ratio is not None:
+                extra["noise_lambda"] = cfg.gaussian_ratio * torch.rand((), generator=generator, device=dev)
+                extra["noise"] = torch.randn((b, 1, n_mels, n_frames), generator=generator, device=dev)
+            if self.has_bank:
                 fill = min(fill + b, cfg.n_memory)
             if cfg.rrc:
                 boxes = sample_crop_boxes(
@@ -207,7 +305,7 @@ class AugmentPipeline:
             mask = None
             if cfg.spec_mask_freq or cfg.spec_mask_time:
                 mask = sample_mask_draws(b, n_mels, n_frames, cfg.spec_mask_freq, cfg.spec_mask_time, generator)
-            draws.append(ViewDraws(alpha, index, boxes, mask))
+            draws.append(ViewDraws(alpha, index, boxes, mask, **extra))
         return draws[0], draws[1]
 
     def sample_wave_draws(self, b: int, generator: torch.Generator) -> WaveMixDraws | None:
@@ -216,8 +314,20 @@ class AugmentPipeline:
         return sample_wave_mixup(b, rate, generator) if rate > 0.0 else None
 
     def _one_view(self, mixup: MixupBankState | None, x: torch.Tensor, draws: ViewDraws) -> torch.Tensor:
-        if mixup is not None:
-            x = mixup_byola(mixup, x, draws.mix_alpha, draws.mix_index, self.cfg.mixup_log)
+        cfg = self.cfg
+        if cfg.mixup_ratio is not None:
+            x = mixup_byola(mixup, x, draws.mix_alpha, draws.mix_index, cfg.mixup_log)
+        if cfg.kmix_ratio is not None:
+            if self.centroids.device != x.device:
+                self.centroids = self.centroids.to(x.device)
+            if mixup.fill >= cfg.kmix_top_k and not self._ranked_logged:
+                log.info("Kmix: the bank holds %d items (top_k %d): partners from the ranked centroid "
+                         "neighbourhoods from here on", mixup.fill, cfg.kmix_top_k)
+                self._ranked_logged = True
+            x = kmix(mixup, x, self.centroids, draws.kmix_alpha, draws.kmix_index, draws.kmix_gumbel, cfg.kmix_log,
+                     cfg.kmix_top_k)
+        if cfg.gaussian_ratio is not None:
+            x = mix_gaussian_noise(x, draws.noise_lambda, draws.noise)
         if self.cfg.rrc:
             x = random_resize_crop(x, draws.crop_boxes, self.cfg.virtual_crop_scale)
         if draws.mask is not None:

@@ -142,11 +142,14 @@ class ManifestLoader:
             np.random.default_rng(self.seed + epoch).shuffle(order)
         return order
 
-    def epoch(self, epoch: int = 0, start: int = 0, rng_state: dict | None = None) -> Iterator:
+    def epoch(self, epoch: int = 0, start: int = 0, rng_state: dict | None = None,
+              order: np.ndarray | None = None) -> Iterator:
         """Batches ``start`` .. of ``epoch``; ``rng_state`` is the window-rng
-        state a checkpoint saved at ``start`` (``position``)."""
-        order = self.epoch_order(epoch)
-        n_batches = len(self)
+        state a checkpoint saved at ``start`` (``position``). ``order``
+        replaces the epoch's order with these clip indices (DeepCluster-v1's
+        UnifLabelSampler epoch, utils.py:105-148)."""
+        order = self.epoch_order(epoch) if order is None else np.asarray(order)
+        n_batches = len(order) // self.batch_size if self.drop_last else -(-len(order) // self.batch_size)
         rng = np.random.default_rng((self.seed, epoch))
         if rng_state is not None:
             rng.bit_generator.state = rng_state

@@ -20,6 +20,11 @@ output loads into ``models.heads.MLPProjector``. ``delores_m_from_flax``,
 ``slicer_from_flax`` and ``unfused_from_flax`` take a JAX objective's whole
 state, (params, batch_stats, ssl_state), and return the port objective's
 whole state_dict: encoders, heads, running statistics, key encoder and queue.
+``decar_from_flax`` takes a JAX ``DecarV2``'s (params, batch_stats) and
+returns the port ``DecarV2``'s state_dict (``net.`` + encoder, proj_fc1,
+proj_bn, proj_fc2, prototypes{i}); ``deepcluster_from_flax`` takes the JAX
+DeepCluster-v1 trainer's (params, batch_stats), ``encoder`` and
+``top_layer``, and returns ``train.deepcluster_loop.DeepClusterNet``'s.
 
 ``ast_from_flax`` is the inverse of ``ast_to_torch`` into the port's own
 time-major AST (timm naming, the flax q / k / v Dense layers fused into one
@@ -169,6 +174,30 @@ def unfused_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
     projectors ``p1``–``p3`` with their running statistics, the classifier."""
     return {**_prefixed("encoder", _audiontt(params["encoder"], batch_stats["encoder"])),
             **_projectors(params, batch_stats), **_prefixed("classifier", dense_from_flax(params["classifier"]))}
+
+
+def decar_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``DecarV2`` params and batch_stats (NumPy) -> the state_dict of
+    ``objectives.decar.DecarV2``."""
+    bn, stats = params["proj_bn"], batch_stats["proj_bn"]
+    sd = {**_prefixed("encoder", _audiontt(params, batch_stats)),
+          **_prefixed("proj_fc1", dense_from_flax(params["proj_fc1"])),
+          "proj_bn.weight": _t(bn["scale"]), "proj_bn.bias": _t(bn["bias"]),
+          "proj_bn.running_mean": _t(stats["mean"]), "proj_bn.running_var": _t(stats["var"]),
+          "proj_bn.num_batches_tracked": torch.zeros((), dtype=torch.long),
+          **_prefixed("proj_fc2", dense_from_flax(params["proj_fc2"]))}
+    i = 0
+    while f"prototypes{i}" in params:
+        sd.update(_prefixed(f"prototypes{i}", dense_from_flax(params[f"prototypes{i}"])))
+        i += 1
+    return _prefixed("net", sd)
+
+
+def deepcluster_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX DeepCluster-v1 trainer's params and batch_stats (NumPy:
+    ``encoder`` and ``top_layer``) -> ``DeepClusterNet``'s state_dict."""
+    return {**_prefixed("encoder", _audiontt(params, batch_stats)),
+            **_prefixed("top_layer", dense_from_flax(params["top_layer"]))}
 
 
 def mast_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:

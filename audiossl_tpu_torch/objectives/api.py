@@ -37,8 +37,8 @@ def objective_class(name: str) -> type[Objective]:
     manifest the loop loads)."""
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"upstream objective {name!r} is not ported yet (ported: {sorted(_REGISTRY)}; "
-            "the clustering family, DECAR and DINO are ROADMAP.md Queue 1, item 7)"
+            f"upstream objective {name!r} is not ported (ported: {sorted(_REGISTRY)}; DeepCluster-v1, "
+            "--upstream decar_v1, has a trainer of its own, train/deepcluster_loop.py)"
         )
     return _REGISTRY[name]
 
@@ -55,22 +55,15 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def init_objective(name: str, config: dict[str, Any], seed: int, device: str | torch.device = "cpu") -> Objective:
-    """``get_objective`` with flax's initialisation drawn from
-    ``torch.Generator().manual_seed(seed)``: lecun-normal dense and conv
-    kernels (depthwise ones included), zero biases, BatchNorm and LayerNorm
-    at identity, rel-pos tables truncated-normal with std 0.02 (cut at two
-    std), then the objective's own ``init_state_`` (the MoCo objectives: the
-    key encoder and the queue). The modules are built on the meta device
-    first, so no draw touches the global generator."""
-    with torch.device("meta"):
-        obj = get_objective(name, config)
-    obj = obj.to_empty(device="cpu")
-    g = torch.Generator().manual_seed(seed)
+def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initialisation of ``module`` in place, drawn from
+    ``generator``: lecun-normal dense and conv kernels (depthwise ones
+    included), zero biases, BatchNorm and LayerNorm at identity, rel-pos
+    tables truncated-normal with std 0.02 (cut at two std)."""
     with torch.no_grad():
-        for m in obj.modules():
+        for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
-                _lecun_normal_(m.weight, m.weight[0].numel(), g)
+                _lecun_normal_(m.weight, m.weight[0].numel(), generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.modules.batchnorm._BatchNorm):
@@ -83,9 +76,23 @@ def init_objective(name: str, config: dict[str, Any], seed: int, device: str | t
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-        for name, p in obj.named_parameters():
+        for name, p in module.named_parameters():
             if name.endswith((".rel_pos_h", ".rel_pos_w")):
-                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=g)
-        if hasattr(obj, "init_state_"):
+                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
+
+
+def init_objective(name: str, config: dict[str, Any], seed: int, device: str | torch.device = "cpu") -> Objective:
+    """``get_objective`` with ``flax_init_`` drawn from
+    ``torch.Generator().manual_seed(seed)``, then the objective's own
+    ``init_state_`` (the MoCo objectives: the key encoder and the queue).
+    The modules are built on the meta device first, so no draw touches the
+    global generator."""
+    with torch.device("meta"):
+        obj = get_objective(name, config)
+    obj = obj.to_empty(device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    flax_init_(obj, g)
+    if hasattr(obj, "init_state_"):
+        with torch.no_grad():
             obj.init_state_(g)
     return obj.to(device)

@@ -78,22 +78,29 @@ def parse_scale(scale: Any) -> float:
 
 
 def audiontt_kwargs(pre: dict[str, Any], name: str) -> dict[str, Any]:
-    """AudioNTT's arguments from ``pretrain``: 64 mels only (the taps' widths
-    are fixed there), the config's compute dtype (bf16 by default) and
-    dropout (0.3 by default)."""
+    """AudioNTT's arguments from ``pretrain``: its mel count, the config's
+    compute dtype (bf16 by default) and dropout (0.3 by default)."""
     enc = pre["base_encoder"]
     if str(enc.get("type", "AudioNTT2020Task6")) != "AudioNTT2020Task6":
         raise NotImplementedError(f"{name} on {enc['type']!r} is not ported (AudioNTT2020Task6 only)")
-    n_mels = int(pre["input"]["n_mels"])
-    if n_mels != 64:
-        raise ValueError(
-            f"{name} needs input.n_mels = 64, got {n_mels}: the JAX objective fixes its tap widths at "
-            f"{TAP_DIMS}, the taps of AudioNTT at 64 mels"
-        )
     return dict(
-        n_mels=n_mels, d=int(enc["output_dim"]), compute_dtype=DTYPES[str(enc.get("compute_dtype") or "bfloat16")],
+        n_mels=int(pre["input"]["n_mels"]), d=int(enc["output_dim"]),
+        compute_dtype=DTYPES[str(enc.get("compute_dtype") or "bfloat16")],
         dropout_rate=float(enc["dropout"]) if enc.get("dropout") is not None else 0.3,
     )
+
+
+def tapped_audiontt_kwargs(pre: dict[str, Any], name: str) -> dict[str, Any]:
+    """``audiontt_kwargs`` for an objective with heads on AudioNTT's taps
+    (DeLoRes-M, UnFuSeD): 64 mels only, since the JAX objectives fix the
+    taps' widths at those of AudioNTT at 64 mels."""
+    kw = audiontt_kwargs(pre, name)
+    if kw["n_mels"] != 64:
+        raise ValueError(
+            f"{name} needs input.n_mels = 64, got {kw['n_mels']}: the JAX objective fixes its tap widths at "
+            f"{TAP_DIMS}, the taps of AudioNTT at 64 mels"
+        )
+    return kw
 
 
 class EncoderM(nn.Module):
@@ -168,7 +175,7 @@ class DeloresM(MocoObjective):
     def __init__(self, config: dict[str, Any]):
         super().__init__()
         pre = config["pretrain"]
-        kw = audiontt_kwargs(pre, "DeLoRes-M")
+        kw = tapped_audiontt_kwargs(pre, "DeLoRes-M")
         emb = int(pre.get("contrastive_dim", 128))
         self.encoder = EncoderM(emb, **kw)
         self.encoder_k = EncoderM(emb, **kw)

@@ -23,7 +23,7 @@ import torch
 from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6, max_mean_pool
 from audiossl_tpu_torch.models.heads import LinearClassifier, MLPProjector
 from audiossl_tpu_torch.objectives.api import Objective, register
-from audiossl_tpu_torch.objectives.delores_m import TAP_DIMS, audiontt_kwargs
+from audiossl_tpu_torch.objectives.delores_m import TAP_DIMS, tapped_audiontt_kwargs
 from audiossl_tpu_torch.ops.stats import l2_normalize
 
 
@@ -65,7 +65,7 @@ class Unfused(Objective):
     def __init__(self, config: dict[str, Any]):
         super().__init__()
         pre = config["pretrain"]
-        kw = audiontt_kwargs(pre, "UnFuSeD")
+        kw = tapped_audiontt_kwargs(pre, "UnFuSeD")
         self.num_classes = int(pre["task_label"])
         self.alpha = float(pre.get("alpha", 0.7))
         self.beta = float(pre.get("beta", 0.3))

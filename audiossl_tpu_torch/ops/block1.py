@@ -362,4 +362,5 @@ def fused_block1(x, weight, bias, gamma, beta):
             "zeros there, ops/block1.py:33-36); its input must not require grad. Use "
             "the plain conv block when something trainable feeds block 1."
         )
-    return FusedBlock1.apply(x, weight, bias, gamma, beta)
+    # the kernels read x densely; a strided view (a transposed log-mel) is copied once
+    return FusedBlock1.apply(x.contiguous(), weight, bias, gamma, beta)

@@ -12,8 +12,12 @@ A resumed run (``load_checkpoint``) restores the whole state and continues
 the loader where the checkpoint left it, so it takes the same steps as a run
 that was never stopped.
 
+Kmix (``pretrain.augmentations.Kmix.centroid_path``) loads its centroids
+from the .npy file there, as the JAX loop does.
+
 Not ported yet: the preemption guard (ROADMAP.md Queue 1, item 5) and the
-multi-device paths (slice 6).
+multi-device paths (item 9): ``check_parallel_knobs`` refuses the knobs
+that ask for them, here and in the DECAR and DeepCluster trainers.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import os
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from audiossl_tpu_torch import config as cfgmod
@@ -49,11 +54,14 @@ class MetricsBuffer:
     def __init__(self, flush_every: int, stats_file):
         self.flush_every = max(1, int(flush_every))
         self.stats_file = stats_file
-        self.pending: list[tuple[int, int, torch.Tensor, float, float]] = []
+        self.pending: list[tuple[int, int, torch.Tensor, float, float, dict]] = []
         self.last_loss = float("nan")
 
-    def push(self, epoch: int, step: int, loss: torch.Tensor, batch_time: float, data_time: float) -> bool:
-        self.pending.append((epoch, step, loss, batch_time, data_time))
+    def push(self, epoch: int, step: int, loss: torch.Tensor, batch_time: float, data_time: float,
+             **extra: float) -> bool:
+        """Queue one step's record; ``extra`` numbers go into its line as
+        they are (DeepCluster-v1's ``kmeans_loss``)."""
+        self.pending.append((epoch, step, loss, batch_time, data_time, extra))
         if len(self.pending) >= self.flush_every:
             self.flush()
             return True
@@ -63,13 +71,43 @@ class MetricsBuffer:
         if not self.pending:
             return
         losses = torch.stack([p[2] for p in self.pending]).float().cpu().tolist()  # one host sync
-        for (epoch, step, _, bt, dt), loss in zip(self.pending, losses):
-            print(json.dumps({"epoch": epoch, "step": step, "train_loss": loss, "batch_time": bt, "data_time": dt}),
-                  file=self.stats_file)
+        for (epoch, step, _, bt, dt, extra), loss in zip(self.pending, losses):
+            print(json.dumps({"epoch": epoch, "step": step, "train_loss": loss, "batch_time": bt, "data_time": dt,
+                              **extra}), file=self.stats_file)
             self.last_loss = loss
             if not math.isfinite(loss):
                 raise FloatingPointError(f"loss became {loss} at step {step}; stopping training")
         self.pending.clear()
+
+
+def check_parallel_knobs(config: dict[str, Any]) -> None:
+    """The JAX trainer's checks of ``pretrain.tp``, ``run.fsdp`` and
+    ``run.zero_optimizer`` (audiossl_tpu/train/loop.py:117-160, 216-220):
+    first its ValueErrors (tp needs a MAST encoder; tp + zero, fsdp + tp and
+    fsdp + zero exclude each other), then NotImplementedError for any knob
+    that is set, since the port runs one process on one device."""
+    run, pre = config["run"], config["pretrain"]
+    tp = int(pre.get("tp", 0) or 0)
+    fsdp = bool(run.get("fsdp", False))
+    zero = bool(run.get("zero_optimizer", False))
+    if tp > 1:
+        enc_type = (pre.get("base_encoder") or {}).get("type")
+        if str(enc_type) != "MAST":
+            raise ValueError("pretrain.tp requires base_encoder.type: MAST (the MViT weight-sharding specs, "
+                             f"parallel/tp_mvit.py); got {enc_type!r}")
+        if zero:
+            raise ValueError("pretrain.tp is incompatible with run.zero_optimizer: the GSPMD step already "
+                             "shards the moments on the model axis")
+    if fsdp:
+        if tp > 1:
+            raise ValueError("run.fsdp and pretrain.tp are mutually exclusive; pick one")
+        if zero:
+            raise ValueError("run.fsdp is incompatible with run.zero_optimizer: FSDP already shards the "
+                             "moments (and params/grads) over the mesh")
+    for knob, on in (("pretrain.tp > 1", tp > 1), ("run.fsdp", fsdp), ("run.zero_optimizer", zero)):
+        if on:
+            raise NotImplementedError(f"{knob} is not ported yet: the port trains in one process on one device "
+                                      "(ROADMAP.md Queue 1, item 9: parallelism)")
 
 
 def aug_state_dict(state: AugmentState) -> dict[str, Any]:
@@ -92,6 +130,17 @@ def aug_state_from_dict(d: dict[str, Any], device: torch.device) -> AugmentState
     )
 
 
+def kmix_centroids(pre: dict[str, Any]) -> np.ndarray | None:
+    """Kmix's [K, n_mels] centroids from ``augmentations.Kmix.centroid_path``
+    (augmentations.py:130-136), or None when Kmix is off."""
+    cp = ((pre.get("augmentations") or {}).get("Kmix") or {}).get("centroid_path")
+    if not cp or cp == "None":
+        return None
+    centroids = np.load(cp)
+    log.info("Kmix enabled with %s centroids from %s", centroids.shape, cp)
+    return centroids
+
+
 def train_upstream(
     config: dict[str, Any],
     input_csv: str,
@@ -106,6 +155,7 @@ def train_upstream(
     (objective, final step, checkpoint directory). ``config`` is not
     changed: the run writes ``pretrain.steps_per_epoch`` into its own copy
     (the one its checkpoints store)."""
+    check_parallel_knobs(config)
     dev = resolve_device(device)
     config = copy.deepcopy(config)
     run, pre = config["run"], config["pretrain"]
@@ -118,7 +168,8 @@ def train_upstream(
         wire_dtype=str(run.get("wire_dtype", "int16")), on_error=str(run.get("data_on_error", "raise")),
     )
     normalization = str(pre.get("normalization", "mean_var"))
-    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=loader.num_samples)
+    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=loader.num_samples,
+                               centroids=kmix_centroids(pre))
     steps_per_epoch = max(len(loader), 1)
     pre["steps_per_epoch"] = steps_per_epoch  # SS-MAST's momentum schedule reads it
     objective = init_objective(upstream, config, seed, dev).train()

@@ -6,7 +6,9 @@ JAX package's ``train_upstream.py``, plus ``--device``):
         [--batch_size N] [--save_path PATH] [--device cuda|cpu]
 
 One process on one device, seed 31. ``--device cpu`` runs the plain PyTorch
-path; the default ``cuda`` raises without a CUDA device.
+path; the default ``cuda`` raises without a CUDA device. ``decar_v2`` and
+``decar_v1`` (DeepCluster-v1) have trainers of their own, as in the JAX
+package (its train_upstream.py:59-76).
 """
 from __future__ import annotations
 
@@ -33,17 +35,25 @@ def main(argv: list[str] | None = None) -> None:
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     from audiossl_tpu_torch.config import load_config
-    from audiossl_tpu_torch.train.loop import train_upstream
 
     config = load_config(args.config, args.upstream)
     for key in ("epochs", "batch_size", "save_path"):
         if getattr(args, key) is not None:
             config["run"][key] = getattr(args, key)
     print(config)
-    _, step, ckpt_dir = train_upstream(
-        config, args.input, args.upstream, load_checkpoint=args.load_checkpoint,
-        max_steps=args.max_steps, device=args.device,
-    )
+    kw = dict(load_checkpoint=args.load_checkpoint, max_steps=args.max_steps, device=args.device)
+    if args.upstream == "decar_v2":  # the per-epoch k-means over the memory bank
+        from audiossl_tpu_torch.train.decar_loop import train_decar
+
+        _, step, ckpt_dir = train_decar(config, args.input, **kw)
+    elif args.upstream == "decar_v1":  # DeepCluster-v1's epoch mode
+        from audiossl_tpu_torch.train.deepcluster_loop import train_deepcluster_v1
+
+        _, step, ckpt_dir, _ = train_deepcluster_v1(config, args.input, **kw)
+    else:
+        from audiossl_tpu_torch.train.loop import train_upstream
+
+        _, step, ckpt_dir = train_upstream(config, args.input, args.upstream, **kw)
     print(f"checkpoints written to {ckpt_dir} (final step {step})")
 
 

@@ -1,5 +1,6 @@
-"""Training meters (port of the part of ``audiossl_tpu.utils.metrics`` the
-downstream probe uses: ``AverageMeter`` and ``Accuracy``). The mAP, AUC and
+"""Training meters and clustering agreement (port of the part of
+``audiossl_tpu.utils.metrics`` the downstream probe and the clustering
+family use: ``AverageMeter``, ``Accuracy`` and ``nmi``). The mAP, AUC and
 d-prime metrics come with the supervised fine-tune (ROADMAP.md Queue 1)."""
 from __future__ import annotations
 
@@ -38,3 +39,40 @@ class Accuracy:
     @property
     def avg(self) -> float:
         return self.correct / max(self.total, 1)
+
+
+def _entropy(labels: np.ndarray) -> float:
+    """Shannon entropy (nats) of a labelling's class frequencies."""
+    counts = np.unique(labels, return_counts=True)[1].astype(np.float64)
+    if counts.size <= 1:
+        return 0.0
+    total = counts.sum()
+    return float(-np.sum((counts / total) * (np.log(counts) - np.log(total))))
+
+
+def nmi(labels_a: np.ndarray, labels_b: np.ndarray) -> float:
+    """Normalized mutual information with the arithmetic-mean normaliser,
+    sklearn's ``normalized_mutual_info_score`` (which the JAX package calls)
+    in numpy: 1.0 when both labellings hold one class (or none), 0.0 when
+    their mutual information is 0."""
+    a, b = np.asarray(labels_a).ravel(), np.asarray(labels_b).ravel()
+    if a.shape != b.shape:
+        raise ValueError(f"labellings of different lengths: {a.shape} and {b.shape}")
+    ua, ia = np.unique(a, return_inverse=True)
+    ub, ib = np.unique(b, return_inverse=True)
+    if ua.size == ub.size and ua.size <= 1:
+        return 1.0
+    if ua.size == 1 or ub.size == 1:
+        return 0.0
+    pairs, nz = np.unique(ia.astype(np.int64) * ub.size + ib, return_counts=True)
+    nzx, nzy = pairs // ub.size, pairs % ub.size
+    nz = nz.astype(np.float64)
+    total = nz.sum()
+    pi, pj = np.bincount(ia).astype(np.float64), np.bincount(ib).astype(np.float64)
+    p = nz / total
+    outer = pi[nzx].astype(np.int64) * pj[nzy].astype(np.int64)
+    mi = p * (np.log(nz) - np.log(total)) + p * (-np.log(outer) + np.log(pi.sum()) + np.log(pj.sum()))
+    mi = float(np.clip(np.where(np.abs(mi) < np.finfo(np.float64).eps, 0.0, mi).sum(), 0.0, None))
+    if mi == 0.0:
+        return 0.0
+    return mi / ((_entropy(a) + _entropy(b)) / 2.0)

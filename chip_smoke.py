@@ -84,12 +84,29 @@ with 128).
     the key encoder, queue and pointer after the step as well) and has its
     step timed at B=256 (clips/s, split, busy share).
 
+  * the clustering family (slice 11), on 1280 distinct 1 s clips of 16
+    generating classes: DECAR-v2 through ``train_decar`` on
+    configs/decar_v2.yaml as it stands (B=256, AudioNTT-512, 1024
+    prototypes, LARC) for 2 epochs / 7 steps (one log-mel launch per
+    memory-bank batch, then 1/2/1/1 a step; both clusterings assign every
+    clip and leave the prototypes equal to the centroids), DeepCluster-v1
+    through ``train_deepcluster_v1`` on configs/decar_v1.yaml (d=2048, 512
+    clusters) for 3 steps (one log-mel launch per feature batch, then
+    1/1/1/1 a step; its k-means objective printed), ``make_pseudo_labels``
+    on phase 7's DeLoRes-S checkpoint (585 clusters; the NMI of its labels
+    against the generating classes printed) and DeLoRes-S with Kmix on its
+    centroids (a copy of configs/delores_s_kmix.yaml, 3 steps, 1/2/2/2 a
+    step, the ranked partner search taking over after the first push); the
+    f32 step gate of both new steps (DECAR's bank rows as well), their step
+    times at B=256, and the seconds of one DECAR clustering and one
+    memory-bank pass.
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
 the attention at MAST-B's shapes and at AST-base's), serving (AudioNTT,
 and MAST-B and AST-base behind the fbank) and training (DeLoRes-S,
-DeLoRes-M, SLICER, UnFuSeD, SS-MAST, the AST-base fine-tune, the MAST-B
-probe), and prints:
+DeLoRes-M, SLICER, UnFuSeD, DECAR-v2, DeepCluster-v1, SS-MAST, the AST-base
+fine-tune, the MAST-B probe), and prints:
 
   * the card's name and power limit as nvidia-smi gives them;
   * one {"kernels": [...]} JSON line (launches on the main paths, error
@@ -155,6 +172,9 @@ TRAIN_LAUNCHES = {
     "delores_m": (1, 2, 1, 1),  # the query pass on view 1, the key pass (no backward) on view 2
     "slicer": (1, 4, 2, 2),  # two directions, each a query and a key pass
     "unfused": (1, 1, 1, 1),  # view 1 only
+    "decar_v2": (1, 2, 1, 1),  # view 1's pass (no gradient) and view 2's
+    "decar_v1": (1, 1, 1, 1),  # one un-augmented view
+    "delores_s_kmix": (1, 2, 2, 2),  # DeLoRes-S with Kmix partners
 }
 QUEUE_BATCHES = {"delores_m": 1, "slicer": 2}  # batches of keys enqueued a step
 # gradients the f32 step gate must refuse when scaled by 1 + STEP_FAULT in
@@ -165,6 +185,8 @@ STEP_FAULTS = {
     "delores_m": ("encoder.encoder.features_1.0.weight", "encoder.encoder.features_1.1.weight"),
     "slicer": ("encoder.encoder.features_1.0.weight", "encoder.encoder.features_1.1.weight"),
     "unfused": ("encoder.features_1.0.weight", "encoder.features_1.1.weight"),
+    "decar_v2": ("net.encoder.features_1.0.weight", "net.encoder.features_1.1.weight"),
+    "decar_v1": ("encoder.features_1.0.weight", "encoder.features_1.1.weight"),
 }
 TOL_EMA = 1e-6  # the key encoder's parameters after the EMA, card vs CPU, relative to max(1, max|ref|)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor
@@ -466,7 +488,6 @@ def main() -> int:
     # the embeddings of phase 7's DeLoRes-S checkpoint
     with tempfile.TemporaryDirectory() as tmp:
         extract = extract_features_run(os.path.join(ntt_tmp.name, "delores_s_chkp"), mast_tmp.name, tmp, dev)
-    ntt_tmp.cleanup()
     mast_tmp.cleanup()
 
     # phases 18-20 (slice 10): DeLoRes-M, SLICER and UnFuSeD through
@@ -479,7 +500,27 @@ def main() -> int:
         slice10_step_err[name] = f32_step_check(name, pool, dev)
         train_times(name, pool, dev, card)
 
-    # phase 21: the kernel line
+    # phases 21-24 (slice 11): the clustering family on a manifest of distinct
+    # clips. Phase 21: DECAR-v2 and DeepCluster-v1 through their trainers on
+    # their configs as they stand, counts from 0 for each
+    cluster_tmp = tempfile.TemporaryDirectory()
+    csv11, classes11 = write_distinct_manifest(cluster_tmp.name, wav)
+    slice11_counts = {"decar_v2": decar_run(csv11, pool, cluster_tmp.name, dev),
+                      "decar_v1": deepcluster_run(csv11, classes11, pool, cluster_tmp.name, dev)}
+    # phase 22: make_pseudo_labels on phase 7's DeLoRes-S checkpoint, then
+    # DeLoRes-S with Kmix on its centroids, counts from 0 for each
+    kmix = pseudo_label_kmix_run(os.path.join(ntt_tmp.name, "delores_s_chkp"), csv11, classes11, pool,
+                                 cluster_tmp.name, dev)
+    ntt_tmp.cleanup()
+    slice11_counts.update(make_pseudo_labels=kmix["make_pseudo_labels"], delores_s_kmix=kmix["delores_s_kmix"])
+    # phase 23: the f32 step gate of each new step; phase 24: times, beside the card
+    slice11_step_err = {name: f32_step_check(name, pool, dev) for name in ("decar_v2", "decar_v1")}
+    for name in ("decar_v2", "decar_v1"):
+        train_times(name, pool, dev, card)
+    cluster_t = clustering_times(csv11, dev, card)
+    cluster_tmp.cleanup()
+
+    # phase 25: the kernel line
     entries = [{
         "name": "log_mel_fused",
         "route": "cuda",
@@ -493,6 +534,7 @@ def main() -> int:
         "mast_probe_launches": {mode: c["log_mel_fused"] for mode, c in mast_probe_counts.items()},
         "extract_launches": {kind: e["launches"] for kind, e in extract.items()},
         **{f"{name}_launches": c["log_mel_fused"] for name, c in slice10_counts.items()},
+        **{f"{name}_launches": c["log_mel_fused"] for name, c in slice11_counts.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -511,6 +553,7 @@ def main() -> int:
             "launches": counts[name],
             "probe_launches": probe_counts[name],
             **{f"{objective}_launches": c[name] for objective, c in slice10_counts.items()},
+            **{f"{run}_launches": c[name] for run, c in slice11_counts.items() if run != "make_pseudo_labels"},
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -548,6 +591,8 @@ def main() -> int:
                 (("mast_b_fbank", mast_serve), ("ast_base_fbank", ast_serve))}
     print(json.dumps({"kernels": entries, "block1_grad_rel_err": grad_errs, "f32_step_rel_err": step_err,
                       **{f"{name}_f32_step_rel_err": e for name, e in slice10_step_err.items()},
+                      **{f"{name}_f32_step_rel_err": e for name, e in slice11_step_err.items()},
+                      "clustering_times": cluster_t, "pseudo_label_nmi": kmix["nmi"],
                       "ssmast_f32_step_rel_err": mast_step_err, "ast_f32_step_rel_err": ast_step_err,
                       "fbank_serving": serving9, "mast_probe_times": mast_probe_t,
                       "extract_features_err": {kind: e["max_abs_err"] for kind, e in extract.items()}}))
@@ -674,6 +719,34 @@ def ntt_config(name: str) -> dict:
     return cfgmod.load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", f"{name}.yaml"))
 
 
+def step_model(name: str, cfg: dict, dev):
+    """The model a step of ``name`` trains, seed 0, in training mode: the
+    objective, or DeepCluster-v1's encoder + top layer."""
+    if name == "decar_v1":
+        from audiossl_tpu_torch.train.deepcluster_loop import build_net
+
+        return build_net(cfg["pretrain"], 0, dev).train()
+    from audiossl_tpu_torch.objectives import init_objective
+
+    return init_objective(name, cfg, seed=0, device=dev).train()
+
+
+def step_labels(name: str, pre: dict, b: int, rng: np.random.Generator):
+    """A batch's labels for an f32 step of ``name``: UnFuSeD's and
+    DeepCluster-v1's class ids, DECAR's cluster targets [heads, b] (the first
+    clip's ignored, -100), else None."""
+    if name == "unfused":
+        return torch.from_numpy(rng.integers(0, int(pre["task_label"]), b))
+    if name == "decar_v1":
+        return torch.from_numpy(rng.integers(0, int(pre["num_clusters"]), b))
+    if name == "decar_v2":
+        heads = [int(k) for k in pre["nmb_prototypes"]]
+        targets = np.stack([rng.integers(0, k, b) for k in heads])
+        targets[:, 0] = -100
+        return torch.from_numpy(targets)
+    return None
+
+
 def training_run(name, pool, wav, tmp, dev) -> dict[str, int]:
     """Pretraining of the AudioNTT objective ``name`` through train_upstream on
     its config as it stands (full width) for TRAIN_STEPS steps, counts from
@@ -760,7 +833,6 @@ def f32_step_check(name, pool, dev, b: int = 8) -> dict[str, float]:
     from audiossl_tpu_torch import no_tf32
     from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
     from audiossl_tpu_torch.frontend import build_frontend
-    from audiossl_tpu_torch.objectives import init_objective
     from audiossl_tpu_torch.train.step import prepare_views
 
     cfg = ntt_config(name)
@@ -769,13 +841,13 @@ def f32_step_check(name, pool, dev, b: int = 8) -> dict[str, float]:
     frontend = build_frontend(pre["input"])
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
     n_frames = frontend.num_frames(CLIP)
-    init = init_objective(name, cfg, seed=0).train()
+    init = step_model(name, cfg, torch.device("cpu"))
     runs = []  # per batch: view error, (loss, gradients) on the card and on the CPU
     moco_errs = []  # per batch: the key encoder's parameters, its statistics and the queue, card vs CPU
+    bank_errs = []  # per batch (DECAR): view 1's embeddings, the bank's new rows, card vs CPU
     for k in range(STEP_BATCHES):
         waves = torch.from_numpy(pool[k * b:(k + 1) * b])
-        labels = torch.from_numpy(np.random.default_rng(7 + k).integers(0, int(pre["task_label"]), b)) \
-            if init.labeled else None
+        labels = step_labels(name, pre, b, np.random.default_rng(7 + k))
         views = []
         for d in (dev, torch.device("cpu")):
             state = pipeline.init_state(frontend.n_mels, n_frames, d)
@@ -783,15 +855,22 @@ def f32_step_check(name, pool, dev, b: int = 8) -> dict[str, float]:
             draws = tuple(type(v)(*(t.to(d) if t is not None else None for t in v)) for v in draws)
             views.append(prepare_views(pipeline, frontend, "mean_var", state, waves.to(d), draws)[1:])
         view_err = max(float((c.cpu() - r).abs().max()) / max(1.0, float(r.abs().max())) for c, r in zip(*views))
-        results, states = [], []
+        results, states, banks = [], [], []
         for d in (dev, torch.device("cpu")):
             obj = copy.deepcopy(init).to(d)
+            vs, lbl = [v.to(d) for v in views[1]], None if labels is None else labels.to(d)
             with no_tf32():
-                loss = obj.loss(*(v.to(d) for v in views[1]), labels=None if labels is None else labels.to(d))
+                if hasattr(obj, "step_loss"):  # DECAR: the loss, and view 1's embeddings for the bank
+                    loss, bank = obj.step_loss(*vs, lbl)
+                    banks.append(bank.cpu())
+                else:
+                    loss = obj.loss(*vs, labels=lbl)
                 loss.backward()
             results.append((loss.item(), {n: p.grad.cpu() for n, p in obj.named_parameters() if p.requires_grad}))
             states.append({n: v.cpu() for n, v in obj.state_dict().items() if n.startswith(("encoder_k.", "queue"))})
         runs.append((view_err, *results))
+        if banks:
+            bank_errs.append(float((banks[0] - banks[1]).abs().max()) / max(1.0, float(banks[1].abs().max())))
         if states[1]:
             card, cpu = states
             rel = lambda n: float((card[n].float() - cpu[n].float()).abs().max()) / max(1.0, float(cpu[n].abs().max()))
@@ -852,10 +931,15 @@ def f32_step_check(name, pool, dev, b: int = 8) -> dict[str, float]:
               f"the queue {moco['queue']:.3e} (tol {TOL_F32}), pointers equal: {moco['pointer'] == 0}")
     moco_ok = not moco or (moco["key_params"] <= TOL_EMA and moco["key_stats"] <= TOL_F32
                            and moco["queue"] <= TOL_F32 and moco["pointer"] == 0)
-    if not (max(view_errs) <= TOL_F32 and max(loss_errs) <= TOL_STEP_LOSS and ok and moco_ok):
+    if bank_errs:
+        print(f"f32 {name} step, the bank's new rows (view 1's embeddings) card vs CPU: worst of {STEP_BATCHES} "
+              f"batches max|d| / max(1, max|ref|) = {max(bank_errs):.3e} (tol {TOL_F32})")
+        moco["bank"] = max(bank_errs)
+    bank_ok = not bank_errs or max(bank_errs) <= TOL_F32
+    if not (max(view_errs) <= TOL_F32 and max(loss_errs) <= TOL_STEP_LOSS and ok and moco_ok and bank_ok):
         raise RuntimeError(f"the f32 {name} training step on the card disagrees with the CPU path: views "
                            f"{max(view_errs)}, losses {max(loss_errs)}, {best['passing']} of {STEP_BATCHES} batches "
-                           f"passing every gradient bound (at least {STEP_PASS}); MoCo state {moco}")
+                           f"passing every gradient bound (at least {STEP_PASS}); MoCo state or bank {moco}")
     faults = [(tensor, ()) for tensor in STEP_FAULTS[name]]
     faults.append((STEP_FAULTS[name][0], tuple(range(0, STEP_BATCHES, 3))))  # spares one batch in three
     caught = {}
@@ -974,20 +1058,34 @@ def train_times(name, pool, dev, card, b: int = 256) -> None:
     share of 3 steps by torch.profiler."""
     from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
     from audiossl_tpu_torch.frontend import build_frontend
-    from audiossl_tpu_torch.objectives import init_objective
-    from audiossl_tpu_torch.train.optim import sgd_torch
+    from audiossl_tpu_torch.train.optim import build_optimizer, sgd_torch
     from audiossl_tpu_torch.train.step import TrainStep
 
     cfg = ntt_config(name)
     pre = cfg["pretrain"]
     frontend = build_frontend(pre["input"])
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
-    obj = init_objective(name, cfg, seed=0, device=dev).train()
+    obj = step_model(name, cfg, dev)
     params = [p for p in obj.parameters() if p.requires_grad]
-    step = TrainStep(obj, pipeline, frontend, sgd_torch(params, 0.03), torch.Generator(dev).manual_seed(0))
+    gen = torch.Generator(dev).manual_seed(0)
+    if name == "decar_v2":  # its own step: LARC, the frozen prototypes, the bank refreshed (train/decar_loop.py)
+        from audiossl_tpu_torch.train.decar_loop import DecarStep
+
+        opt, _ = build_optimizer("larc", params, float(cfg["run"]["learning_rate"]), momentum=0.9,
+                                 weight_decay=1e-6, trust_coefficient=0.001, clip=False)
+        n = 5 * b
+        assignments = torch.randint(0, obj.nmb_prototypes[0], (1, n), generator=gen, device=dev)
+        step = DecarStep(obj, pipeline, frontend, opt, gen, None, "mean_var",
+                         torch.zeros((n, obj.feat_dim), device=dev), torch.full((n,), -1, device=dev), assignments)
+        labels = torch.arange(b, device=dev)  # dataset indices
+    elif name == "decar_v1":  # SGD lr 0.05, momentum 0.9, decay 1e-5 on the raw log-mel (train/deepcluster_loop.py)
+        step = TrainStep(obj, pipeline, frontend, sgd_torch(params, 0.05, 0.9, 1e-5), gen, None, "none")
+        labels = torch.randint(0, int(pre["num_clusters"]), (b,), generator=gen, device=dev)
+    else:
+        step = TrainStep(obj, pipeline, frontend, sgd_torch(params, 0.03), gen)
+        labels = torch.from_numpy(np.arange(b) % int(pre["task_label"])).to(dev) if obj.labeled else None
     state = pipeline.init_state(frontend.n_mels, frontend.num_frames(CLIP), dev)
     waves = torch.from_numpy(pool[:b]).to(dev)
-    labels = torch.from_numpy(np.arange(b) % int(pre["task_label"])).to(dev) if obj.labeled else None
     for _ in range(3):
         state, loss = step(state, waves, labels)
     torch.cuda.synchronize()
@@ -2302,6 +2400,243 @@ def extract_features_run(ntt_ckpt: str, wav_dir: str, tmp: str, dev) -> dict:
         expect_counts(f"extract_features ({kind})", counts, {"log_mel_fused": 2})
         out[kind] = {"launches": counts["log_mel_fused"], "max_abs_err": err}
     return out
+
+
+# ---------------------------------------------------------------- the clustering family (slice 11)
+
+CLUSTER_CLIPS = 1280  # 5 batches of 256: DECAR's 1280-slot bank holds its 1024 prototypes
+CLUSTER_CLASSES = 16
+DECAR_STEPS = 7  # 5 steps an epoch: the second clustering runs on a bank the first epoch's steps refreshed
+CLUSTER_STEPS = 3  # DeepCluster-v1 and the Kmix run
+
+
+def write_distinct_manifest(tmp: str, wav) -> tuple[str, np.ndarray]:
+    """CLUSTER_CLIPS distinct 1 s clips and a manifest (``files``, ``class``):
+    clip i belongs to class i % CLUSTER_CLASSES, whose f0 (a quarter octave
+    apart from the next) it takes with a seeded 2% jitter, with a seeded
+    gain, a second partial at a class-specific ratio and light noise. The
+    sines of ``write_manifest`` repeat, which leaves k-means++ with zero
+    weights and PCA with degenerate eigenvalues."""
+    rng = np.random.default_rng(41)
+    t = np.arange(16000) / 16000.0
+    classes = np.arange(CLUSTER_CLIPS) % CLUSTER_CLASSES
+    files = []
+    for i, c in enumerate(classes):
+        f0 = 110.0 * 2 ** (c / 4) * (1.0 + 0.02 * rng.standard_normal())
+        x = rng.uniform(0.2, 0.5) * (np.sin(2 * np.pi * f0 * t) + 0.3 * np.sin(2 * np.pi * (1.5 + 0.25 * (c % 4)) * f0 * t))
+        files.append(os.path.join(tmp, f"clip{i}.wav"))
+        wav.write_wav(files[-1], (x + 0.01 * rng.standard_normal(t.size)).astype(np.float32))
+    csv = os.path.join(tmp, "distinct.csv")
+    with open(csv, "w") as f:
+        f.write("files,class\n" + "".join(f"{p},{c}\n" for p, c in zip(files, classes)))
+    return csv, classes
+
+
+def serves(sd: dict, config: dict, pool: np.ndarray, what: str, dev) -> None:
+    """The exported encoder ``sd`` serves a batch of SERVE_BATCH clips, finite."""
+    from audiossl_tpu_torch import config as cfgmod
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.serve.export import build_embedder
+
+    d = int(config["pretrain"]["base_encoder"]["output_dim"])
+    emb = build_embedder(sd, build_frontend(config["pretrain"]["input"]), cfgmod.clip_samples(config), torch.bfloat16, dev)
+    with torch.inference_mode():
+        out = emb(torch.from_numpy(pool[:SERVE_BATCH]).to(dev))
+    if out.shape != (SERVE_BATCH, d) or not torch.isfinite(out).all():
+        raise RuntimeError(f"the {what} export served {tuple(out.shape)} or non-finite values")
+    print(f"{what}: the exported encoder serves [{SERVE_BATCH}, {CLIP}] -> [{SERVE_BATCH}, {d}], finite")
+
+
+def stats_lines(ckpt_dir: str) -> list[dict]:
+    with open(os.path.join(ckpt_dir, "stats.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def ntt_launches(counts: dict[str, int]) -> dict[str, int]:
+    return {k: counts[k] for k in NTT_KERNELS}
+
+
+def decar_run(csv: str, pool: np.ndarray, tmp: str, dev) -> dict[str, int]:
+    """DECAR-v2 through ``train_decar`` on configs/decar_v2.yaml as it stands
+    (B=256, d=512, feat 128, 1024 prototypes, LARC, freeze 300) over the
+    distinct manifest, 2 epochs, DECAR_STEPS steps, counts from 0: finite
+    losses; two clusterings, each with every clip assigned and the
+    prototypes equal to the centroids; one log-mel launch per bank batch and
+    1 / 2 / 1 / 1 a step; the final bank and assignments complete; the
+    exported encoder serves."""
+    from audiossl_tpu_torch.train.decar_loop import train_decar
+
+    config = ntt_config("decar_v2")
+    batch = int(config["run"]["batch_size"])
+    config["run"].update(save_path=os.path.join(tmp, "decar_v2"), epochs=2)
+    reset_launches()
+    t0 = time.perf_counter()
+    with LogLines("audiossl_tpu_torch.decar") as lines:
+        _, step, ckpt_dir = train_decar(config, csv, max_steps=DECAR_STEPS, seed=TRAIN_SEED, device=dev)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    losses = [line["train_loss"] for line in stats_lines(ckpt_dir)]
+    clusterings = [line for line in lines.lines if "k-means over" in line]
+    print(f"training: train_decar (configs/decar_v2.yaml), B={batch}, d=512, bf16, {CLUSTER_CLIPS} clips, {step} steps "
+          f"in {seconds:.1f} s (set-up, the bank pass and loading included); losses {losses}; launches "
+          f"{ntt_launches(counts)}")
+    for line in clusterings:
+        print(f"training: decar_v2 {line}")
+    if step != DECAR_STEPS or len(losses) != DECAR_STEPS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"DECAR-v2 took {step} steps with losses {losses}")
+    if len(clusterings) != 2 or not all(f"{CLUSTER_CLIPS}/{CLUSTER_CLIPS} clips assigned" in line
+                                        and line.endswith("max|prototypes - centroids| = 0") for line in clusterings):
+        raise RuntimeError(f"DECAR-v2's clusterings: {clusterings}")
+    n_bank = CLUSTER_CLIPS // batch
+    expect_counts(f"DECAR-v2, a {n_bank}-batch bank pass and {step} steps", counts,
+                  {"log_mel_fused": n_bank + step, "block1_fwd": 2 * step, "block1_bwd_sums": step,
+                   "block1_bwd_weight": step})
+    state = torch.load(os.path.join(ckpt_dir, "state", f"{step}.pt"), map_location="cpu", weights_only=True)
+    if not bool((state["assignments"] >= 0).all()) or not bool((state["memory"]["index"] >= 0).all()):
+        raise RuntimeError("DECAR-v2's final assignments or bank leave clips out")
+    sd = torch.load(os.path.join(ckpt_dir, "encoder", f"{step}.pt"), map_location="cpu", weights_only=True)
+    serves(sd, config, pool, "training: decar_v2", dev)
+    return counts
+
+
+def deepcluster_run(csv: str, classes: np.ndarray, pool: np.ndarray, tmp: str, dev) -> dict[str, int]:
+    """DeepCluster-v1 through ``train_deepcluster_v1`` on configs/decar_v1.yaml
+    as it stands (B=256, d=2048, 512 clusters) over the distinct manifest,
+    CLUSTER_STEPS steps, counts from 0: finite losses and k-means objective,
+    one log-mel launch per feature batch and 1 / 1 / 1 / 1 a step; the
+    exported encoder serves."""
+    from audiossl_tpu_torch.train.deepcluster_loop import train_deepcluster_v1
+    from audiossl_tpu_torch.utils.metrics import nmi
+
+    config = ntt_config("decar_v1")
+    batch = int(config["run"]["batch_size"])
+    config["run"].update(save_path=os.path.join(tmp, "decar_v1"), epochs=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, step, ckpt_dir, labels = train_deepcluster_v1(config, csv, max_steps=CLUSTER_STEPS, seed=TRAIN_SEED, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    lines = stats_lines(ckpt_dir)
+    losses, km = [line["train_loss"] for line in lines], lines[0]["kmeans_loss"]
+    print(f"training: train_deepcluster_v1 (configs/decar_v1.yaml), B={batch}, d=2048, bf16, {CLUSTER_CLIPS} clips, "
+          f"{step} steps in {seconds:.1f} s (set-up, the feature pass and loading included); k-means objective {km!r} "
+          f"({len(np.unique(labels))} of 512 clusters non-empty, NMI against the generating classes "
+          f"{nmi(labels, classes):.4f}); losses {losses}; launches {ntt_launches(counts)}")
+    if step != CLUSTER_STEPS or len(losses) != step or not all(math.isfinite(v) for v in losses + [km]):
+        raise RuntimeError(f"DeepCluster-v1 took {step} steps with losses {losses}, k-means objective {km}")
+    n_feat = -(-CLUSTER_CLIPS // batch)
+    expect_counts(f"DeepCluster-v1, a {n_feat}-batch feature pass and {step} steps", counts,
+                  {"log_mel_fused": n_feat + step, "block1_fwd": step, "block1_bwd_sums": step,
+                   "block1_bwd_weight": step})
+    sd = torch.load(os.path.join(ckpt_dir, "encoder", f"{step}.pt"), map_location="cpu", weights_only=True)
+    serves(sd, config, pool, "training: decar_v1", dev)
+    return counts
+
+
+def pseudo_label_kmix_run(ntt_ckpt: str, csv: str, classes: np.ndarray, pool: np.ndarray, tmp: str,
+                          dev) -> dict[str, dict[str, int]]:
+    """``make_pseudo_labels`` (the CLI's main, its default 585 clusters) on
+    phase 7's DeLoRes-S checkpoint over the distinct manifest, counts from 0
+    (one log-mel launch a batch, nothing else), the NMI of its labels
+    against the generating classes; then DeLoRes-S through train_upstream
+    on a copy of configs/delores_s_kmix.yaml whose centroid_path is the
+    saved centroids, CLUSTER_STEPS steps, counts from 0 (1 / 2 / 2 / 2 a
+    step), with Kmix's ranked partner search taking over once the first push
+    (B clips) filled the bank past top_k."""
+    from audiossl_tpu_torch.objectives.make_pseudo_labels import main as pseudo_main
+    from audiossl_tpu_torch.train.loop import train_upstream
+    from audiossl_tpu_torch.utils.metrics import nmi
+
+    labelled, cents = os.path.join(tmp, "pseudo.csv"), os.path.join(tmp, "kmix_centroids.npy")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = pseudo_main(["--csv", csv, "--checkpoint", ntt_ckpt, "--out", labelled, "--save_centroids", cents])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    pseudo_counts = read_launches()
+    with open(labelled) as f:
+        rows = f.read().splitlines()
+    centroids = np.load(cents)
+    score = nmi(out["labels"], classes)
+    print(f"make_pseudo_labels: {len(rows) - 1} labels ({len(np.unique(out['labels']))} of 585 clusters non-empty, "
+          f"k-means objective {out['loss']!r}) in {seconds:.1f} s; NMI against the {CLUSTER_CLASSES} generating "
+          f"classes {score:.4f}; Kmix centroids {centroids.shape}; launches {ntt_launches(pseudo_counts)}")
+    n_batches = -(-CLUSTER_CLIPS // 256)
+    if rows[0] != "files,label" or len(rows) != CLUSTER_CLIPS + 1 or centroids.shape != (len(np.unique(out["labels"])), 64) \
+            or not np.isfinite(centroids).all():
+        raise RuntimeError(f"make_pseudo_labels wrote {rows[:2]} ... ({len(rows)} rows), centroids {centroids.shape}")
+    expect_counts("make_pseudo_labels", pseudo_counts, {"log_mel_fused": n_batches})
+
+    config = ntt_config("delores_s_kmix")
+    config["pretrain"]["augmentations"]["Kmix"]["centroid_path"] = cents
+    config["run"].update(save_path=os.path.join(tmp, "delores_s_kmix"), epochs=1)
+    batch, top_k = int(config["run"]["batch_size"]), int(config["pretrain"]["augmentations"]["Kmix"]["top_k"])
+    reset_launches()
+    t0 = time.perf_counter()
+    with LogLines("audiossl_tpu_torch.data") as lines:
+        _, step, ckpt_dir = train_upstream(config, csv, "delores_s", max_steps=CLUSTER_STEPS, seed=TRAIN_SEED,
+                                           device=dev)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    losses = [line["train_loss"] for line in stats_lines(ckpt_dir)]
+    ranked = [line for line in lines.lines if line.startswith("Kmix: the bank holds")]
+    print(f"training: train_upstream delores_s on configs/delores_s_kmix.yaml (centroid_path -> the saved centroids), "
+          f"B={batch}, {step} steps in {seconds:.1f} s; losses {losses}; launches {ntt_launches(counts)}; {ranked}")
+    if step != CLUSTER_STEPS or len(losses) != step or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"the Kmix DeLoRes-S run took {step} steps with losses {losses}")
+    if ranked != [f"Kmix: the bank holds {batch} items (top_k {top_k}): partners from the ranked centroid "
+                  "neighbourhoods from here on"]:
+        raise RuntimeError(f"Kmix's ranked partner search did not take over after the first push: {ranked}")
+    expect_counts(f"Kmix DeLoRes-S, {step} steps", counts,
+                  {k: n * step for k, n in zip(NTT_KERNELS, TRAIN_LAUNCHES["delores_s_kmix"])})
+    sd = torch.load(os.path.join(ckpt_dir, "encoder", f"{step}.pt"), map_location="cpu", weights_only=True)
+    serves(sd, config, pool, "training: delores_s_kmix", dev)
+    return {"make_pseudo_labels": pseudo_counts, "delores_s_kmix": counts, "nmi": score}
+
+
+def clustering_times(csv: str, dev, card) -> dict[str, float]:
+    """The seconds of one DECAR clustering (a 1280 x 128 bank, 1024
+    centroids, 10 iterations: kmeans_on_mesh) by CUDA events, and of one
+    memory-bank pass (fill_memory over the distinct manifest at B=256,
+    d=512, bf16: WAV decode and windows on host threads, the log-mel kernel,
+    eval-mode AudioNTT) on the host clock, each the second of two runs."""
+    from audiossl_tpu_torch.data.pipeline import ManifestLoader
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.objectives.decar import kmeans_on_mesh
+    from audiossl_tpu_torch.train.decar_loop import fill_memory
+
+    gen = torch.Generator(dev).manual_seed(3)
+    bank = torch.randn((CLUSTER_CLIPS, 128), generator=gen, device=dev)
+    bank = bank / bank.norm(dim=1, keepdim=True)
+    index = torch.arange(CLUSTER_CLIPS, device=dev)
+    pick = torch.from_numpy(np.random.default_rng(3).permutation(CLUSTER_CLIPS)[:1024])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(2):
+        start.record()
+        kmeans_on_mesh(bank, index, CLUSTER_CLIPS, 1024, pick, 10)
+        end.record()
+        torch.cuda.synchronize()
+    cluster_s = start.elapsed_time(end) / 1e3
+    config = ntt_config("decar_v2")
+    frontend = build_frontend(config["pretrain"]["input"])
+    obj = init_objective("decar_v2", config, seed=0, device=dev)
+    loader = ManifestLoader(csv, 256, CLIP, frontend.sample_rate, num_workers=8, seed=0, wire_dtype="int16")
+    loader.labels = np.arange(loader.num_samples)
+    mem, mem_idx = torch.zeros((CLUSTER_CLIPS, 128), device=dev), torch.full((CLUSTER_CLIPS,), -1, device=dev)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fill_memory(obj, loader, frontend, mem, mem_idx)
+        torch.cuda.synchronize()
+        bank_s = time.perf_counter() - t0
+    print(f"[{card}] DECAR clustering, a {CLUSTER_CLIPS} x 128 bank, 1024 centroids, 10 iterations "
+          f"(kmeans_on_mesh, f32, TF32 off): {cluster_s:.4f} s by CUDA events; one memory-bank pass over "
+          f"{CLUSTER_CLIPS} clips at B=256, d=512, bf16 (decode, log-mel kernel, eval AudioNTT, host clock): "
+          f"{bank_s:.4f} s = {CLUSTER_CLIPS / bank_s:.1f} clips/s")
+    return {"decar_clustering_s": cluster_s, "memory_bank_pass_s": bank_s}
 
 
 if __name__ == "__main__":

@@ -117,13 +117,25 @@ def test_config_parses_like_jax():
      ({"Kmix": {"centroid_path": "c.npy"}}, "Kmix")],
 )
 def test_options_of_later_slices_raise(extra, match):
+    """MAST noise (ROADMAP.md Queue 1 item 4) raises NotImplementedError.
+    Kmix and MixGaussianNoise, now ported, build; Kmix raises, as in
+    JAX, when no centroids are given (tests/test_torch_port_kmix.py holds
+    both against JAX)."""
     pre = _delores_pretrain()
     if "input" in extra:
         pre["input"].update(extra["input"])
     else:
         pre["augmentations"].update(extra)
-    with pytest.raises(NotImplementedError, match=match):
-        augment.AugmentPipeline(augment.AugmentConfig.from_dict(pre), epoch_samples=8)
+    cfg = augment.AugmentConfig.from_dict(pre)
+    if match == "MAST noise":
+        with pytest.raises(NotImplementedError, match=match):
+            augment.AugmentPipeline(cfg, epoch_samples=8)
+    elif match == "Kmix":
+        with pytest.raises(ValueError, match="no centroids"):
+            augment.AugmentPipeline(cfg, epoch_samples=8)
+        assert augment.AugmentPipeline(cfg, epoch_samples=8, centroids=np.zeros((3, F_))).cfg.kmix_ratio == 0.4
+    else:
+        assert augment.AugmentPipeline(cfg, epoch_samples=8).cfg.gaussian_ratio == 0.3
 
 
 def _jax_view(bank, fill, x, alpha, index, boxes):

@@ -302,6 +302,98 @@ def test_objective_bf16_step_launch_counts(cuda, name):
     assert tuple(fn.launches for fn in wrappers) == OBJECTIVE_LAUNCHES[name]
 
 
+# ---------------------------------------------------------------- the clustering family
+
+
+def test_fused_block1_takes_a_strided_input(cuda):
+    """A transposed view (a log-mel moved to the card as it lay on the CPU)
+    gives the contiguous input's result: the wrapper copies it once."""
+    from audiossl_tpu_torch.ops import block1
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((4, 1, 20, 16)).astype(np.float32)).to(cuda).transpose(2, 3)
+    w = torch.from_numpy((0.3 * rng.standard_normal((64, 1, 3, 3))).astype(np.float32)).to(cuda)
+    vecs = [torch.from_numpy((o + 0.1 * rng.standard_normal(64)).astype(np.float32)).to(cuda) for o in (0.0, 1.0, 0.0)]
+    assert not x.is_contiguous()
+    got = block1.fused_block1(x, w, *vecs)
+    want = block1.fused_block1(x.contiguous(), w, *vecs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_clustering_on_the_card_matches_cpu(cuda):
+    """k-means++ / Lloyd, the bank's spherical k-means, tensor PIC and
+    Kmix's partner search give the CPU's indices on the card."""
+    from audiossl_tpu_torch.data import augment
+    from audiossl_tpu_torch.objectives import clustering, decar
+
+    rng = np.random.default_rng(7)
+    cents = 3.0 * rng.standard_normal((6, 16))
+    x = (cents[rng.integers(0, 6, 300)] + 0.2 * rng.standard_normal((300, 16))).astype(np.float32)
+    first, u = clustering.kmeans_draws(300, 6, np.random.default_rng(0))
+    runs = [clustering.kmeans_l2(torch.from_numpy(x).to(dev), 6, first, u) for dev in (cuda, "cpu")]
+    assert torch.equal(runs[0][0].cpu(), runs[1][0])
+    bank = torch.nn.functional.normalize(torch.from_numpy(x), dim=1)
+    pick = torch.from_numpy(np.random.default_rng(1).permutation(300)[:6])
+    got = [decar.kmeans_on_mesh(bank.to(dev), torch.arange(300, device=dev), 320, 6, pick)[1].cpu() for dev in (cuda, "cpu")]
+    assert torch.equal(*got) and int((got[0] == -100).sum()) == 20
+    i, d = clustering.knn_graph(torch.from_numpy(x), 5)
+    assert np.array_equal(clustering.run_pic_device(i, d, device=cuda), clustering.run_pic(i, d))
+    spec = torch.from_numpy(rng.standard_normal((40, 16, 12)).astype(np.float32)).to(torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((5, 1, 16, 12)).astype(np.float32))
+    g = torch.from_numpy(rng.gumbel(size=(5, 40)).astype(np.float32))
+    c = torch.from_numpy(cents.astype(np.float32))
+    idx = [augment.kmix_partner_index(augment.MixupBankState(spec.to(dev), 32, 32), q.to(dev), c.to(dev), g.to(dev), 8)
+           for dev in (cuda, "cpu")]
+    assert torch.equal(idx[0].cpu(), idx[1])
+
+
+@pytest.mark.parametrize("name", ["decar_v2", "decar_v1"])
+def test_clustering_bf16_step_launch_counts(cuda, name):
+    """One bf16 step of DECAR-v2 (DecarStep: 1 / 2 / 1 / 1) and of
+    DeepCluster-v1 (TrainStep on the un-augmented view: 1 / 1 / 1 / 1)."""
+    import os
+
+    import yaml
+
+    from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.ops import block1
+    from audiossl_tpu_torch.train.decar_loop import DecarStep
+    from audiossl_tpu_torch.train.deepcluster_loop import build_net
+    from audiossl_tpu_torch.train.optim import build_optimizer, sgd_torch
+    from audiossl_tpu_torch.train.step import TrainStep
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", f"{name}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    pre = cfg["pretrain"]
+    pre["base_encoder"]["output_dim"] = 64
+    pre.update(nmb_prototypes=[16], num_clusters=16)
+    frontend = build_frontend(pre["input"])
+    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
+    gen = torch.Generator(cuda).manual_seed(0)
+    if name == "decar_v2":
+        obj = init_objective(name, cfg, seed=0, device=cuda).train()
+        opt, _ = build_optimizer("larc", list(obj.parameters()), 0.5, clip=False)
+        step = DecarStep(obj, pipeline, frontend, opt, gen, None, "mean_var", torch.zeros((32, 128), device=cuda),
+                         torch.full((32,), -1, device=cuda), torch.randint(0, 16, (1, 32), device=cuda))
+        want = (1, 2, 1, 1)
+    else:
+        obj = build_net(pre, 0, cuda).train()
+        step = TrainStep(obj, pipeline, frontend, sgd_torch(list(obj.parameters()), 0.05, 0.9, 1e-5), gen, None, "none")
+        want = (1, 1, 1, 1)
+    state = pipeline.init_state(frontend.n_mels, frontend.num_frames(15200), cuda)
+    waves = torch.from_numpy((0.3 * np.random.default_rng(5).standard_normal((8, 15200))).astype(np.float32)).to(cuda)
+    wrappers = (fused_stft.log_mel_fused, block1.block1_fwd, block1.block1_bwd_sums, block1.block1_bwd_weight)
+    for fn in wrappers:
+        fn.launches = 0
+    _, loss = step(state, waves, torch.arange(8, device=cuda) % 16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert tuple(fn.launches for fn in wrappers) == want
+
+
 # ---------------------------------------------------------------- rel-pos attention
 
 

@@ -43,6 +43,19 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_clustering_family_is_scanned_and_needs_no_sklearn():
+    """The clustering family's modules are among the scanned files, and
+    none of them (nor the metrics) imports sklearn, which the card's machine
+    need not have: ``utils.metrics.nmi`` is numpy."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    family = [os.path.join("audiossl_tpu_torch", m) for m in (
+        "objectives/clustering.py", "objectives/decar.py", "objectives/dino.py", "objectives/make_pseudo_labels.py",
+        "train/decar_loop.py", "train/deepcluster_loop.py", "utils/metrics.py")]
+    assert set(family) <= files, set(family) - files
+    bad = [(p, m) for p in family for m in _imports(os.path.join(ROOT, p)) if m.split(".")[0] == "sklearn"]
+    assert not bad, bad
+
+
 def test_importing_the_port_loads_no_jax():
     mods = [
         "audiossl_tpu_torch." + os.path.relpath(p, os.path.join(ROOT, "audiossl_tpu_torch"))[:-3].replace(os.sep, ".")

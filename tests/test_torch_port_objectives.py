@@ -2,7 +2,8 @@
 gradients, BatchNorm statistics, key encoder, queue and pointer from the
 same weights on each of four batches of views (carried by ``models.convert.delores_m_from_flax``),
 an 8-step SGD trajectory, the converters, the losses SLICER and UnFuSeD
-add, and the 64-mel refusal. f32, dropout 0, d = 64, B = 8, views
+add, the 64-mel refusal of the objectives with tap heads and a SLICER
+step at 128 mels. f32, dropout 0, d = 64, B = 8, views
 [8, 64, 96], a 64-key queue; inputs are numpy from a seed.
 tests/test_torch_port_objectives_slicer_unfused.py holds SLICER and
 UnFuSeD the same way, with the helpers of this file."""
@@ -21,7 +22,7 @@ from audiossl_tpu.objectives import unfused as junfused
 from audiossl_tpu.objectives.delores_m import DeloresM as JaxDeloresM
 from audiossl_tpu.train import optim as joptim
 from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6
-from audiossl_tpu_torch.models.convert import delores_m_from_flax
+from audiossl_tpu_torch.models.convert import delores_m_from_flax, slicer_from_flax
 from audiossl_tpu_torch.objectives import init_objective, objective_class
 from audiossl_tpu_torch.objectives import slicer, unfused
 from audiossl_tpu_torch.objectives.delores_m import parse_scale
@@ -53,11 +54,11 @@ def config(name, d=D, **pretrain):
     return cfg
 
 
-def jax_state(jobj, seed):
+def jax_state(jobj, seed, n_mels=64):
     """(params, batch_stats, ssl_state) of a JAX objective with its biases,
     BatchNorm affines and key encoder perturbed (each by its own noise), as
-    numpy; and four batches of view pairs [B, 64, 96] with labels."""
-    dummy = jnp.zeros((B, 64, 96, 1), jnp.float32)
+    numpy; and four batches of view pairs [B, n_mels, 96] with labels."""
+    dummy = jnp.zeros((B, n_mels, 96, 1), jnp.float32)
     params, batch_stats, ssl = jobj.init(jax.random.key(seed), (dummy, dummy))
     rng = np.random.default_rng(seed + 1)
 
@@ -70,7 +71,7 @@ def jax_state(jobj, seed):
     params = jax.tree_util.tree_map_with_path(perturb, params)
     batch_stats = jax.tree_util.tree_map(np.asarray, batch_stats)
     ssl = jax.tree_util.tree_map_with_path(perturb, ssl)
-    views = [tuple((1.5 * rng.standard_normal((B, 64, 96))).astype(np.float32) for _ in range(2))
+    views = [tuple((1.5 * rng.standard_normal((B, n_mels, 96))).astype(np.float32) for _ in range(2))
              + (rng.integers(0, 5, B),) for _ in range(4)]
     return params, batch_stats, ssl, views
 
@@ -272,14 +273,25 @@ def test_slicer_and_unfused_losses_match_jax():
 
 @pytest.mark.parametrize("name", ["delores_m", "slicer", "unfused"])
 def test_objectives_refuse_other_mel_counts_and_register(name):
-    cfg = config(name)
-    cfg["pretrain"]["input"]["n_mels"] = 128
-    with pytest.raises(ValueError, match="n_mels = 64"):
-        init_objective(name, cfg, seed=0)
+    """DeLoRes-M and UnFuSeD, whose tap heads JAX sizes for 64 mels, refuse
+    128; SLICER, which JAX sizes from n_mels, takes one step at 128 mels
+    that holds against JAX's (two batches, ``hold_steps``'s bounds)."""
+    if name == "slicer":
+        cfg = config(name, instance_contrastive_dim=16, cluster_contrastive_dim=12)
+        cfg["pretrain"]["input"]["n_mels"] = 128
+        jobj = jslicer.Slicer(cfg, axis_name=None)
+        params, batch_stats, ssl, views = jax_state(jobj, 5, n_mels=128)
+        obj = hold_steps(name, cfg, jobj, slicer_from_flax, params, batch_stats, ssl, views[:2], 2 * B)
+        assert obj.encoder.encoder.fc[0].in_features == 64 * 128 // 8
+    else:
+        cfg = config(name)
+        cfg["pretrain"]["input"]["n_mels"] = 128
+        with pytest.raises(ValueError, match="n_mels = 64"):
+            init_objective(name, cfg, seed=0)
     assert objective_class(name).labeled == (name == "unfused")
     assert not objective_class("delores_s").labeled
     with pytest.raises(NotImplementedError, match="not ported"):
-        objective_class("decar_v2")
+        objective_class("no_such_objective")
 
 
 def test_loss_scale_parses_fractions():

@@ -273,8 +273,11 @@ def test_optimizers_and_schedule_match_optax():
             upd, state = tx.update(jnp.asarray(g), state, q)
             q = optax.apply_updates(q, upd)
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(q), atol=1e-6, err_msg=name)
-    with pytest.raises(NotImplementedError, match="DECAR"):
-        optim.build_optimizer("lars", [torch.nn.Parameter(torch.zeros(1))], 0.1)
+    # LARS and LARC (held to optax in tests/test_torch_port_decar.py) build; a typo raises
+    for name, cls in (("lars", optim.Lars), ("larc", optim.Larc)):
+        assert isinstance(optim.build_optimizer(name, [torch.nn.Parameter(torch.zeros(1))], 0.1)[0], cls)
+    with pytest.raises(KeyError, match="unknown optimizer"):
+        optim.build_optimizer("lamb", [torch.nn.Parameter(torch.zeros(1))], 0.1)
 
 
 # ---------------------------------------------------------------- the CLI
