@@ -13,14 +13,18 @@ a tensor on the CPU, and on a CUDA tensor launches the kernel or raises.
 
 Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining,
 the downstream probe with AST, the SS-MAST checkpoint served and probed,
-DeLoRes-M, SLICER and UnFuSeD pretraining, the clustering family):
+DeLoRes-M, SLICER and UnFuSeD pretraining, the clustering family, the
+supervised MAST fine-tune):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
   data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches,
                       labelled and class-balanced
   data/hf.py          HFLoader: the HF-hosted speech_commands tasks
+  data/multilabel.py  AudioSet-style JSON datafile + label CSV -> multi-hot loader
+  data/norm_stats.py  feature mean / std over a manifest (CLI)
   data/augment.py     RunningNorm, MixupBYOLA ring bank, Kmix, MixGaussianNoise,
-                      RandomResizeCrop, SpecMask and precomputed-norm views
+                      RandomResizeCrop, SpecMask, precomputed-norm views and
+                      MAST noise
   frontend/           log-mel and Kaldi fbank: plain versions + the Hopper
                       log-mel and dense-rows kernels; waveform mixup
   ops/                windowing, running norm, bicubic crop-resize, masking,
@@ -36,22 +40,25 @@ DeLoRes-M, SLICER and UnFuSeD pretraining, the clustering family):
                       UnFuSeD's classifier
   models/convert.py   flax variables -> reference state_dicts (AudioNTT, MAST,
                       AST, EfficientNet) and whole objective states
-                      (DeLoRes-M, SLICER, UnFuSeD, DECAR-v2, DeepCluster-v1);
+                      (DeLoRes-M, SLICER, UnFuSeD, DECAR-v2, DeepCluster-v1)
+                      and the MAST fine-tune's classifier;
                       reference <-> port layouts
   objectives/         DeLoRes-S, DeLoRes-M, SLICER, UnFuSeD (labelled
                       batches), SS-MAST (MoCo queue, EMA key encoder), DECAR-v2
                       (prototypes, memory bank), the clustering toolbox
                       (PCA-whitening, k-means, kNN, PIC), make_pseudo_labels,
                       the DINO loss
-  train/              optimizers (SGD, Adam, AdamW, LARS, LARC), train step,
-                      checkpoints, loop; the DECAR-v2 and DeepCluster-v1
-                      trainers
+  train/              optimizers (SGD, Adam, AdamW, LARS, LARC, layer-decay
+                      AdamW), train step, gradient accumulation, checkpoints,
+                      loop, the SIGTERM guard; the DECAR-v2, DeepCluster-v1
+                      and supervised MAST fine-tune trainers
+                      (python -m audiossl_tpu_torch.train.finetune_mast)
   train_upstream.py   pretraining CLI
   downstream/         DownstreamModel (AudioNTT, EfficientNet, MAST, AST), the
                       LAPE task registry, the linear probe / fine-tune,
                       extract_features
   train_downstream.py downstream probe CLI
-  utils/metrics.py    AverageMeter, Accuracy, NMI
+  utils/metrics.py    AverageMeter, Accuracy, NMI, mAP, AUC, d-prime
   serve/export.py     waveform -> embedding serving behind the log-mel or the
                       fbank, artifact, CLI
 """

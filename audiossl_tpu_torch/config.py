@@ -3,7 +3,10 @@
 package).
 
 Default config resolution mirrors train_upstream.py: per-method YAML at
-configs/<upstream>.yaml unless a path is given.
+configs/<upstream>.yaml unless a path is given (the supervised fine-tune,
+``python -m audiossl_tpu_torch.train.finetune_mast``, asks for
+configs/mast_ft.yaml). ``encoder_section`` reads the encoder and input of
+a pretraining run's config and of a fine-tune's alike.
 """
 from __future__ import annotations
 
@@ -41,6 +44,18 @@ def load_config(path: str | None = None, upstream: str | None = None) -> dict[st
         log.warning("unknown run.* config key(s) %s — no trainer reads them "
                     "(typo? known: %s)", unknown, sorted(RUN_KEYS))
     return cfg
+
+
+def encoder_section(config: dict[str, Any]) -> dict[str, Any]:
+    """The part of a run's config that names its encoder and its input: the
+    ``pretrain`` section, or for a supervised MAST fine-tune (a ``finetune``
+    section) the same keys made from it: a MAST ``base_encoder`` of its
+    ``model_size`` and its ``input``."""
+    if "pretrain" in config or "finetune" not in config:
+        return config["pretrain"]
+    ft = config["finetune"]
+    size = str(ft.get("model_size", "base"))
+    return {"base_encoder": {"type": "MAST", "model_size": size}, "model_size": size, "input": ft["input"]}
 
 
 def clip_samples(config: dict[str, Any], section: str = "pretrain") -> int:

@@ -16,10 +16,11 @@ to keep one copy of it on the device.
 
 Ported: the delores_s configuration (RunningNorm or l2 / none, MixupBYOLA,
 RandomResizeCrop), the delores_s_kmix one (Kmix against centroids of
-time-averaged log-mel, augmentations.py:119-189), MixGaussianNoise, and the
+time-averaged log-mel, augmentations.py:119-189), MixGaussianNoise, the
 ssmast one (SpecMask, then the ``precomputed`` norm; the waveform mixup runs
-before the frontend, in train/step.py). A view is Mixup -> Kmix -> noise ->
-crop, the JAX package's order. MAST noise raises ``NotImplementedError``.
+before the frontend, in train/step.py) and MAST noise (``input.noise``),
+applied last. A view is Mixup -> Kmix -> noise -> crop -> SpecMask -> norm ->
+MAST noise, the JAX package's order.
 """
 from __future__ import annotations
 
@@ -136,6 +137,29 @@ def mix_gaussian_noise(x: torch.Tensor, lambd: torch.Tensor, noise: torch.Tensor
     return torch.log((1.0 - lambd) * torch.exp(x) + torch.exp(lambd * noise) + EPS32)
 
 
+def mast_noise(x: torch.Tensor, scale: torch.Tensor, noise: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """MAST fbank noise (extras/mast_new/mast/dataloader.py:205-207): add
+    ``noise`` (U(0, 1) of x's shape) times each clip's ``scale`` [B]
+    (U(0, 1) / 10), then roll each clip of ``x [B, C, F, T]`` along the time
+    axis by its ``shift`` [B] (an integer in [-10, 10): jax.random.randint's
+    upper bound is exclusive)."""
+    b, t = x.shape[0], x.shape[-1]
+    x = x + noise * scale.view(-1, *(1,) * (x.dim() - 1)).to(x.dtype)
+    src = (torch.arange(t, device=x.device) - shift.view(-1, 1).to(x.device)) % t  # out[..., i] = x[..., i - s]
+    return torch.gather(x, -1, src.view(b, *(1,) * (x.dim() - 2), t).expand_as(x))
+
+
+def sample_mast_noise(b: int, shape: tuple[int, ...], generator: torch.Generator,
+                      max_shift: int = 10) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MAST noise's draws for B clips of ``shape`` [C, F, T], on the
+    generator's device: (scale [B], noise [B, C, F, T], shift [B])."""
+    dev = generator.device
+    scale = torch.rand(b, generator=generator, device=dev) / 10.0
+    noise = torch.rand((b, *shape), generator=generator, device=dev)
+    shift = torch.randint(-max_shift, max_shift, (b,), generator=generator, device=dev)
+    return scale, noise, shift
+
+
 def sample_gumbel(shape: tuple[int, ...], generator: torch.Generator) -> torch.Tensor:
     """Standard Gumbel noise, -log(-log(u)) of u uniform in [tiny, 1)."""
     u = torch.rand(shape, generator=generator, device=generator.device).clamp_min(torch.finfo(torch.float32).tiny)
@@ -147,8 +171,9 @@ class ViewDraws(NamedTuple):
     (None without mixup), crop boxes [B, 4] (None without RandomResizeCrop),
     SpecMask spans (None without SpecMask); Kmix's weight [B], uniform
     partner [B] and Gumbel noise [B, bank size] (None until the bank holds
-    top_k items), and the Gaussian noise's weight [] and draws [B, 1, F, T]
-    (None without them)."""
+    top_k items), the Gaussian noise's weight [] and draws [B, 1, F, T]
+    (None without them), and MAST noise's scale [B], U(0, 1) field [B, 1, F,
+    T] and time shift [B] (None without it)."""
 
     mix_alpha: torch.Tensor | None
     mix_index: torch.Tensor | None
@@ -159,6 +184,9 @@ class ViewDraws(NamedTuple):
     kmix_gumbel: torch.Tensor | None = None
     noise_lambda: torch.Tensor | None = None
     noise: torch.Tensor | None = None
+    mnoise_scale: torch.Tensor | None = None
+    mnoise: torch.Tensor | None = None
+    mnoise_shift: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -232,27 +260,19 @@ class AugmentConfig:
         return cls(**kw)
 
 
-_NOT_PORTED = {
-    "mast_noise": "MAST noise (ROADMAP.md Queue 1, item 4)",
-}
-
-
 class AugmentPipeline:
     """(state, batch [B, 1, F, T], draws) -> (state, view 1, view 2).
 
     Order as AugmentationModule.get_augmentations: RunningNorm first, then
     view 1, a bank push, view 2 (which can draw view 1's push), a second push.
-    A view is mixup, Kmix, Gaussian noise, crop, SpecMask, then the
-    precomputed norm: MAST masks THEN normalizes (dataloader.py:186-202), so
-    masked bins sit at (0 - mean) / (2 std). Kmix needs ``centroids`` [K,
+    A view is mixup, Kmix, Gaussian noise, crop, SpecMask, the precomputed
+    norm, then MAST noise: MAST masks THEN normalizes (dataloader.py:186-202),
+    so masked bins sit at (0 - mean) / (2 std). Kmix needs ``centroids`` [K,
     n_mels] (make_pseudo_labels --save_centroids); the bank exists when
     mixup or Kmix is on.
     """
 
     def __init__(self, cfg: AugmentConfig, epoch_samples: int, centroids: np.ndarray | torch.Tensor | None = None):
-        for field, what in _NOT_PORTED.items():
-            if getattr(cfg, field):
-                raise NotImplementedError(f"{what} is not ported yet")
         if cfg.kmix_ratio is not None and centroids is None:
             raise ValueError("Kmix enabled but no centroids provided")
         self.cfg = cfg
@@ -305,6 +325,9 @@ class AugmentPipeline:
             mask = None
             if cfg.spec_mask_freq or cfg.spec_mask_time:
                 mask = sample_mask_draws(b, n_mels, n_frames, cfg.spec_mask_freq, cfg.spec_mask_time, generator)
+            if cfg.mast_noise:
+                extra["mnoise_scale"], extra["mnoise"], extra["mnoise_shift"] = sample_mast_noise(
+                    b, (1, n_mels, n_frames), generator)
             draws.append(ViewDraws(alpha, index, boxes, mask, **extra))
         return draws[0], draws[1]
 
@@ -334,6 +357,8 @@ class AugmentPipeline:
             x = spec_mask(x, draws.mask)
         if self.cfg.normalization == "precomputed":
             x = precomputed_norm(x, self.cfg.norm_mean, self.cfg.norm_std_mult * self.cfg.norm_std)
+        if cfg.mast_noise:
+            x = mast_noise(x, draws.mnoise_scale, draws.mnoise, draws.mnoise_shift)
         return x
 
     def __call__(self, state: AugmentState, x: torch.Tensor, draws: tuple[ViewDraws, ViewDraws]):

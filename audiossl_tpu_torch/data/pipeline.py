@@ -16,7 +16,9 @@ which a checkpoint stores so that a resumed run continues the same stream.
 
 Labelled manifests (the downstream probe's) name their file and label
 columns; ids come from ``labels_map`` or, as in JAX, from the sorted set of
-the labels. ``balanced`` draws the epoch's order with replacement, each clip
+the labels. ``labels`` may also be set to an [N, C] float32 matrix (the
+multi-label fine-tune, data/multilabel.py): a batch then yields its [B, C]
+rows. ``balanced`` draws the epoch's order with replacement, each clip
 weighted by the inverse of its class's count, from ``default_rng(seed +
 epoch)`` as the JAX loader does. Eval loaders take ``shuffle=False`` and
 ``drop_last=False``.
@@ -45,7 +47,8 @@ PREFETCH_BATCHES = 4
 
 
 class ManifestLoader:
-    """Iterates (waves [B, L], labels [B] int64 or None) batches from a CSV:
+    """Iterates (waves [B, L], labels [B] int64, [B, C] float32 targets or
+    None) batches from a CSV:
     the reference upstream dataset's ``files`` column
     (src/dataset/upstream_dataset.py:50-88), or a labelled manifest's file
     and label columns."""

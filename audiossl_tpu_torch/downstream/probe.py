@@ -44,6 +44,7 @@ from typing import Any
 import torch
 
 from audiossl_tpu_torch import resolve_device
+from audiossl_tpu_torch.config import encoder_section
 from audiossl_tpu_torch.data.pipeline import ManifestLoader
 from audiossl_tpu_torch.downstream.model import DownstreamModel
 from audiossl_tpu_torch.frontend import build_frontend, logmel_features
@@ -115,7 +116,7 @@ def upstream_input_hw(ckpt_dir: str, n_mels: int) -> tuple[int, int] | None:
     import yaml
 
     with open(path) as f:
-        inp = (yaml.safe_load(f).get("pretrain") or {}).get("input") or {}
+        inp = encoder_section(yaml.safe_load(f)).get("input") or {}  # a pretraining run, or a MAST fine-tune
     frames = int(inp.get("target_length") or 0)
     if not frames:
         fe = build_frontend(inp)

@@ -268,6 +268,22 @@ def mast_with_head_from_flax(params_numpy: Mapping[str, Any]) -> dict[str, torch
     return sd
 
 
+def mast_classifier_from_flax(params_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``MASTClassifier`` flax params (``{"mast": {"mvit": ...}, "head_norm":
+    ..., "head": ...}``) -> the port's ``train.finetune_mast.MASTClassifier``
+    state_dict, every key of which it fills (load it strictly)."""
+    extra = set(params_numpy) - {"mast", "head_norm", "head"}
+    if extra:
+        raise ValueError(f"unexpected MASTClassifier params {sorted(extra)}")
+    trunk = mvit_reference_layout(mast_from_flax({"params": params_numpy["mast"]}))
+    sd = {f"mast.{k}": v for k, v in trunk.items()}
+    sd["head_norm.weight"] = _t(params_numpy["head_norm"]["scale"])
+    sd["head_norm.bias"] = _t(params_numpy["head_norm"]["bias"])
+    sd["head.weight"] = _t(np.asarray(params_numpy["head"]["kernel"]).T)
+    sd["head.bias"] = _t(params_numpy["head"]["bias"])
+    return sd
+
+
 def ast_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``ASTEncoder`` flax variables -> the port's ``models.ast.ASTEncoder``
     state_dict: time-major like the JAX module (the patch conv's kernel

@@ -14,9 +14,17 @@ concat(v2, v1) in one key pass after both EMA steps, as the JAX package does;
 key encoder's parameters take no gradient and are not the optimizer's; they,
 the queue, its pointer and the step counter are part of the state_dict, so a
 checkpoint carries the whole MoCo state. Both passes run in training mode
-(drop path on), with draws from the step's generator. Not ported:
-``grad_accum_steps > 1`` (ROADMAP.md Queue 1); shuffle-BN is a no-op for the
-LayerNorm-only MAST on one device.
+(drop path on), with draws from the step's generator. Shuffle-BN is a no-op
+for the LayerNorm-only MAST on one device.
+
+``pretrain.grad_accum_steps: A`` (``loss_and_backward``) runs the batch as A
+microbatches with one microbatch's activations live at a time, exact
+against A = 1 for both view paths (JAX's ``SSMast.value_and_grad``): with
+batched views all A key passes run first and build the two queue snapshots
+of the whole batch, then each microbatch's query pass runs forward and
+backward against them; with sequential views each pass applies one EMA,
+runs its microbatches against the queue it started from, and enqueues all
+its keys in batch order.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from audiossl_tpu_torch.models.mast import MASTWithHead
 from audiossl_tpu_torch.objectives.api import Objective, register
 from audiossl_tpu_torch.objectives.delores_m import info_nce, queue_update
 from audiossl_tpu_torch.ops.stats import l2_normalize
+from audiossl_tpu_torch.train.accum import microbatched_value_and_grad, set_grads, split_batch
 
 
 def cosine_momentum(epoch: torch.Tensor, base: float = 0.99, total_epochs: int = 200) -> torch.Tensor:
@@ -48,8 +57,9 @@ class SSMast(Objective):
         self.momentum_epochs = int(pre.get("momentum_total_epochs", 200))
         self.steps_per_epoch = int(pre.get("steps_per_epoch", 1000))
         self.batched_views = bool(pre.get("batched_views", True))
-        if int(pre.get("grad_accum_steps", 1)) > 1:
-            raise NotImplementedError("pretrain.grad_accum_steps > 1 is not ported yet (ROADMAP.md Queue 1)")
+        self.grad_accum = max(1, int(pre.get("grad_accum_steps", 1)))
+        if self.grad_accum > 1 and bool(pre.get("shuffle_bn", False)):
+            raise ValueError("pretrain.grad_accum_steps > 1 is incompatible with shuffle_bn")
         inp = pre["input"]
         kw = dict(
             output_dim=self.emb_dim,
@@ -123,6 +133,61 @@ class SSMast(Objective):
                 total = total + info_nce(q, k, queue, self.temperature)
                 queue, ptr = queue_update(queue, ptr, k)
         self.queue, self.queue_ptr = queue, ptr  # new tensors: the loss's backward keeps the old queue
+        self.step.add_(1)
+        return total
+
+    def loss_and_backward(self, v1: torch.Tensor, v2: torch.Tensor, generator: torch.Generator | None = None,
+                          labels: torch.Tensor | None = None) -> torch.Tensor:
+        """The step's loss (detached), its gradients left on the query
+        encoder's parameters, the MoCo state advanced; A = grad_accum_steps
+        microbatches at a time (one forward and one backward at A = 1).
+        Raises JAX's ValueError for a batch that A does not divide."""
+        accum = self.grad_accum
+        if accum == 1:
+            loss = self.loss(v1, v2, generator)
+            loss.backward()
+            return loss.detach()
+        b = v1.shape[0]
+        if b % accum:
+            raise ValueError(f"per-chip batch {b} not divisible by pretrain.grad_accum_steps {accum}")
+        mb = b // accum
+        params = list(self.encoder.parameters())
+        m = self.momentum()
+        queue0 = queue = self.queue
+        ptr = self.queue_ptr
+        tau = self.temperature
+        query = lambda v: l2_normalize(self.encoder(v, generator), dim=1)  # noqa: E731
+        if self.batched_views:
+            self._ema_(m)
+            self._ema_(m)
+            # the key passes first (no gradient), then the queue snapshots of
+            # the whole batch: pass 1 against the initial queue, pass 2 against
+            # the queue after pass 1's keys (microbatches are contiguous slices)
+            ks = [self._keys(torch.cat([v2j, v1j]), generator) for v1j, v2j in split_batch((v1, v2), accum)]
+            q1, p1 = queue_update(queue, ptr, torch.cat([k[:mb] for k in ks]))
+            queue, ptr = queue_update(q1, p1, torch.cat([k[mb:] for k in ks]))
+
+            def micro_loss(views, j):
+                q12 = query(torch.cat(views))
+                return info_nce(q12[:mb], ks[j][:mb], queue0, tau) + info_nce(q12[mb:], ks[j][mb:], q1, tau)
+
+            total, grads = microbatched_value_and_grad(micro_loss, accum)(params, (v1, v2))
+        else:
+            total, grads = 0.0, None
+            for vq, vk in ((v1, v2), (v2, v1)):
+                self._ema_(m)  # one EMA application per pass
+                fixed, ks = queue, []
+
+                def micro_loss(views, j, fixed=fixed, ks=ks):
+                    ks.append(self._keys(views[1], generator))
+                    return info_nce(query(views[0]), ks[-1], fixed, tau)
+
+                loss, g = microbatched_value_and_grad(micro_loss, accum)(params, (vq, vk))
+                total = total + loss
+                grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+                queue, ptr = queue_update(queue, ptr, torch.cat(ks))  # bulk enqueue in batch order
+        set_grads(params, grads)
+        self.queue, self.queue_ptr = queue, ptr
         self.step.add_(1)
         return total
 

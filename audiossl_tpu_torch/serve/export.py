@@ -46,6 +46,7 @@ import torch
 from torch import nn
 
 from audiossl_tpu_torch import resolve_device
+from audiossl_tpu_torch.config import encoder_section
 from audiossl_tpu_torch.downstream.model import DownstreamModel
 from audiossl_tpu_torch.frontend import FrontendSpec, build_frontend
 from audiossl_tpu_torch.models.convert import port_layout, reference_layout
@@ -210,7 +211,7 @@ def embedder_from_config(
 ) -> Embedder:
     """The encoder a pretrain config names behind its frontend, with the
     given or seeded weights."""
-    pre = config["pretrain"]
+    pre = encoder_section(config)  # a pretraining run's section, or a MAST fine-tune's
     inp = pre.get("input", {})
     frontend = build_frontend(inp)  # log-mel, or the Kaldi fbank of a MAST / AST config
     if clip_samples is None:

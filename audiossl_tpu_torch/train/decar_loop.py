@@ -19,7 +19,8 @@ gradient). The checkpoint (at each epoch's end and at ``max_steps``) holds
 the bank, the assignments, the epoch step, the optimizer, the generator and
 the loader's position, so a resumed run takes the steps of a run never
 stopped; it re-clusters only where that run would, at an epoch's start (the
-JAX trainer restarts at epoch 0 and re-clusters at once). The k-means
+JAX trainer restarts at epoch 0 and re-clusters at once). SIGTERM stops the
+epoch at the log cadence, and that save is the preemption checkpoint. The k-means
 initial picks come from ``np.random.default_rng((seed, 10_000 + epoch,
 head))``. One process on one device.
 """
@@ -47,6 +48,7 @@ from audiossl_tpu_torch.train.loop import (
     MetricsBuffer, aug_state_dict, aug_state_from_dict, check_parallel_knobs, kmix_centroids,
 )
 from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
+from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.train.step import TrainStep
 
 log = logging.getLogger("audiossl_tpu_torch.decar")
@@ -205,7 +207,7 @@ def train_decar(
         if start_batch >= steps_per_epoch:
             start_epoch, start_batch, rng_state = start_epoch + 1, 0, None
     done = False
-    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file:
+    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file, PreemptionGuard() as guard:
         buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
         for epoch in range(start_epoch, epochs):
             first = epoch == start_epoch
@@ -220,6 +222,10 @@ def train_decar(
                 t_end = time.time()
                 if buf.push(epoch, train_step.step, loss, batch_time, data_time):
                     log.info("epoch %d step %d loss %.4f", epoch, train_step.step, buf.last_loss)
+                    if guard.should_stop():  # the epoch-end save below runs on break; the resume is exact
+                        log.warning("SIGTERM: stopping at step %d for the preemption save", train_step.step)
+                        done = True
+                        break
                 if max_steps and train_step.step >= max_steps:
                     done = True
                     break

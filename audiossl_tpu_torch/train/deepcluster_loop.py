@@ -22,7 +22,7 @@ On the card a feature batch launches the log-mel kernel once and no block-1
 kernel (block 1's kernels are training-only); a step launches the log-mel
 kernel and block 1's forward, backward sums and weight kernels once each.
 The checkpoint at each epoch's end (and at ``max_steps``) records the next
-epoch, the step, the encoder, the optimizer, the generator and the
+epoch (the same epoch after a SIGTERM stop at the log cadence), the step, the encoder, the optimizer, the generator and the
 sampler's rng; a resumed run starts that epoch from its feature pass and
 does not restore the top layer, which each epoch makes anew (the reference
 deletes it from checkpoints, main_back.py:68-72). One process on one device.
@@ -54,6 +54,7 @@ from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.decar_loop import waves_to_device
 from audiossl_tpu_torch.train.loop import MetricsBuffer, check_parallel_knobs
 from audiossl_tpu_torch.train.optim import sgd_torch
+from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.train.step import TrainStep
 
 log = logging.getLogger("audiossl_tpu_torch.deepcluster")
@@ -185,8 +186,8 @@ def train_deepcluster_v1(
     os.makedirs(ckpt_dir, exist_ok=True)
     keep_last = int(run.get("keep_checkpoints", 0)) or None
     labels = None
-    done = False
-    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file:
+    done = preempted = False
+    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file, PreemptionGuard() as guard:
         buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
         for epoch in range(start_epoch, int(run.get("epochs", 1))):
             feats = feature_pass(net, loader, frontend, epoch, dev)
@@ -213,11 +214,18 @@ def train_deepcluster_v1(
                 t_end = time.time()
                 if buf.push(epoch, step, loss.detach(), batch_time, data_time, kmeans_loss=km_loss):
                     log.info("epoch %d step %d loss %.4f", epoch, step, buf.last_loss)
+                    if guard.should_stop():  # the epoch-end save below runs on break
+                        log.warning("SIGTERM: stopping at step %d for the preemption save", step)
+                        done = preempted = True
+                        break
                 if max_steps and step >= max_steps:
                     done = True
                     break
             buf.flush()
-            state = {"epoch": epoch + 1, "step": step, "encoder": net.encoder.state_dict(),
+            # a preempted epoch records `epoch`, not epoch + 1: DeepCluster is
+            # epoch-granular (features -> k-means -> CE), so a resume re-runs
+            # the interrupted epoch rather than skip its remaining steps
+            state = {"epoch": epoch if preempted else epoch + 1, "step": step, "encoder": net.encoder.state_dict(),
                      "optimizer": optimizer.state_dict(), "generator": generator.get_state(),
                      "order_rng": order_rng.bit_generator.state, "config": config}
             ckpt.save_checkpoint(ckpt_dir, step, state, net.encoder.state_dict(), config, keep_last)

@@ -15,9 +15,13 @@ that was never stopped.
 Kmix (``pretrain.augmentations.Kmix.centroid_path``) loads its centroids
 from the .npy file there, as the JAX loop does.
 
-Not ported yet: the preemption guard (ROADMAP.md Queue 1, item 5) and the
-multi-device paths (item 9): ``check_parallel_knobs`` refuses the knobs
-that ask for them, here and in the DECAR and DeepCluster trainers.
+SIGTERM (``train/preemption.py``) is checked at the log cadence: the loop
+then writes the usual checkpoint at the current step, skips the epoch-end
+one, and returns normally; a resume from it is exact.
+
+Not ported yet: the multi-device paths (ROADMAP.md Queue 1, item 9):
+``check_parallel_knobs`` refuses the knobs that ask for them, here and in
+the DECAR, DeepCluster and fine-tune trainers.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from audiossl_tpu_torch.objectives import init_objective, objective_class
 from audiossl_tpu_torch.ops.stats import RunningNormState
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
+from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.train.step import TrainStep
 
 log = logging.getLogger("audiossl_tpu_torch.train")
@@ -56,6 +61,7 @@ class MetricsBuffer:
         self.stats_file = stats_file
         self.pending: list[tuple[int, int, torch.Tensor, float, float, dict]] = []
         self.last_loss = float("nan")
+        self._loss_sum, self._loss_n = 0.0, 0
 
     def push(self, epoch: int, step: int, loss: torch.Tensor, batch_time: float, data_time: float,
              **extra: float) -> bool:
@@ -75,9 +81,19 @@ class MetricsBuffer:
             print(json.dumps({"epoch": epoch, "step": step, "train_loss": loss, "batch_time": bt, "data_time": dt,
                               **extra}), file=self.stats_file)
             self.last_loss = loss
+            self._loss_sum += loss
+            self._loss_n += 1
             if not math.isfinite(loss):
                 raise FloatingPointError(f"loss became {loss} at step {step}; stopping training")
         self.pending.clear()
+
+    @property
+    def avg_loss(self) -> float:
+        """The mean train_loss of every step flushed since ``reset_avg``."""
+        return self._loss_sum / self._loss_n if self._loss_n else float("nan")
+
+    def reset_avg(self) -> None:
+        self._loss_sum, self._loss_n = 0.0, 0
 
 
 def check_parallel_knobs(config: dict[str, Any]) -> None:
@@ -85,8 +101,10 @@ def check_parallel_knobs(config: dict[str, Any]) -> None:
     ``run.zero_optimizer`` (audiossl_tpu/train/loop.py:117-160, 216-220):
     first its ValueErrors (tp needs a MAST encoder; tp + zero, fsdp + tp and
     fsdp + zero exclude each other), then NotImplementedError for any knob
-    that is set, since the port runs one process on one device."""
-    run, pre = config["run"], config["pretrain"]
+    that is set, or for ``run.world_size > 1``, since the port runs one
+    process on one device. A config with no ``pretrain`` section (the
+    fine-tune's) has no tp."""
+    run, pre = config["run"], config.get("pretrain") or {}
     tp = int(pre.get("tp", 0) or 0)
     fsdp = bool(run.get("fsdp", False))
     zero = bool(run.get("zero_optimizer", False))
@@ -104,7 +122,9 @@ def check_parallel_knobs(config: dict[str, Any]) -> None:
         if zero:
             raise ValueError("run.fsdp is incompatible with run.zero_optimizer: FSDP already shards the "
                              "moments (and params/grads) over the mesh")
-    for knob, on in (("pretrain.tp > 1", tp > 1), ("run.fsdp", fsdp), ("run.zero_optimizer", zero)):
+    world = int(run.get("world_size", 0) or 0)
+    for knob, on in (("pretrain.tp > 1", tp > 1), ("run.fsdp", fsdp), ("run.zero_optimizer", zero),
+                     ("run.world_size > 1", world > 1)):
         if on:
             raise NotImplementedError(f"{knob} is not ported yet: the port trains in one process on one device "
                                       "(ROADMAP.md Queue 1, item 9: parallelism)")
@@ -221,8 +241,8 @@ def train_upstream(
         if start_batch >= steps_per_epoch:
             start_epoch, start_batch, rng_state = start_epoch + 1, 0, None
     best_loss = float("inf")
-    done = False
-    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file:
+    done = preempted = False
+    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file, PreemptionGuard() as guard:
         buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
         t_end = time.time()
         for epoch in range(start_epoch, epochs):
@@ -238,6 +258,12 @@ def train_upstream(
                 if buf.push(epoch, step, loss, batch_time, data_time):
                     log.info("epoch %d step %d loss %.4f (batch %.3fs data %.3fs)",
                              epoch, step, buf.last_loss, batch_time, data_time)
+                    # the preemption check rides the log cadence
+                    if guard.should_stop():
+                        save()
+                        log.warning("SIGTERM: preemption checkpoint saved at step %d; exiting", step)
+                        done = preempted = True
+                        break
                 if save_every and step % save_every == 0:
                     save()
                 if max_steps and step >= max_steps:
@@ -245,8 +271,9 @@ def train_upstream(
                     break
             buf.flush()
             # best-train-loss checkpoint at epoch granularity (the reference's
-            # ModelCheckpoint(monitor='train_loss', save_top_k=1))
-            if buf.last_loss < best_loss or epoch == epochs - 1 or done:
+            # ModelCheckpoint(monitor='train_loss', save_top_k=1)); none after
+            # the preemption save, which is at this step already
+            if (buf.last_loss < best_loss or epoch == epochs - 1 or done) and not preempted:
                 best_loss = min(best_loss, buf.last_loss)
                 save()
             if done:

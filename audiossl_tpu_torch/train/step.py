@@ -81,6 +81,9 @@ class TrainStep:
     def loss_and_grads(self, v1: torch.Tensor, v2: torch.Tensor, labels: torch.Tensor | None = None) -> torch.Tensor:
         f32 = self.objective.compute_dtype == torch.float32
         with no_tf32() if f32 else contextlib.nullcontext():
+            if hasattr(self.objective, "loss_and_backward"):  # an objective that runs its own backward (SS-MAST)
+                self.optimizer.zero_grad(set_to_none=True)
+                return self.objective.loss_and_backward(v1, v2, self.generator, labels=labels)
             loss = self.objective.loss(v1, v2, self.generator, labels=labels)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()

@@ -1,7 +1,8 @@
-"""Training meters and clustering agreement (port of the part of
-``audiossl_tpu.utils.metrics`` the downstream probe and the clustering
-family use: ``AverageMeter``, ``Accuracy`` and ``nmi``). The mAP, AUC and
-d-prime metrics come with the supervised fine-tune (ROADMAP.md Queue 1)."""
+"""Training meters, clustering agreement and multi-label scores (port of the
+part of ``audiossl_tpu.utils.metrics`` the downstream probe, the clustering
+family and the supervised MAST fine-tune use: ``AverageMeter``,
+``Accuracy``, ``nmi``, ``mean_average_precision``, ``auc_roc`` and
+``d_prime``). numpy and scipy only: the card's machine has no sklearn."""
 from __future__ import annotations
 
 import numpy as np
@@ -76,3 +77,43 @@ def nmi(labels_a: np.ndarray, labels_b: np.ndarray) -> float:
     if mi == 0.0:
         return 0.0
     return mi / ((_entropy(a) + _entropy(b)) / 2.0)
+
+
+def mean_average_precision(scores: np.ndarray, targets: np.ndarray) -> float:
+    """Macro mAP over classes (multi-label), average precision per class;
+    classes with no positive are skipped, 0.0 when none is left."""
+    aps = []
+    for c in range(targets.shape[1]):
+        t = targets[:, c]
+        if t.sum() == 0:
+            continue
+        order = np.argsort(-scores[:, c])
+        t_sorted = t[order]
+        cum_pos = np.cumsum(t_sorted)
+        precision = cum_pos / (np.arange(len(t_sorted)) + 1)
+        aps.append(float((precision * t_sorted).sum() / t_sorted.sum()))
+    return float(np.mean(aps)) if aps else 0.0
+
+
+def auc_roc(scores: np.ndarray, targets: np.ndarray) -> float:
+    """Macro ROC-AUC over classes in the rank-statistic form. Ranks are
+    ordinal (``argsort().argsort()``), not tie-averaged, as in the JAX
+    package: tied scores rank in index order. Classes with no positive or no
+    negative are skipped, 0.0 when none is left."""
+    aucs = []
+    for c in range(targets.shape[1]):
+        t = targets[:, c]
+        pos, neg = t.sum(), (1 - t).sum()
+        if pos == 0 or neg == 0:
+            continue
+        ranks = scores[:, c].argsort().argsort().astype(np.float64) + 1
+        auc = (ranks[t > 0].sum() - pos * (pos + 1) / 2) / (pos * neg)
+        aucs.append(float(auc))
+    return float(np.mean(aucs)) if aucs else 0.0
+
+
+def d_prime(auc: float) -> float:
+    """d' from AUC (stats.py:55-60): sqrt(2) * Phi^-1(AUC)."""
+    from scipy.stats import norm
+
+    return float(norm.ppf(auc) * np.sqrt(2.0))

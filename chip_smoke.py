@@ -101,6 +101,19 @@ with 128).
     times at B=256, and the seconds of one DECAR clustering and one
     memory-bank pass.
 
+  * the supervised MAST fine-tune (slice 12), on AudioSet-style data (32
+    distinct 10 s WAVs, a 527-class label CSV, train and eval JSONs): the
+    fine-tune through its CLI on configs/mast_ft.yaml as it stands (MAST-B,
+    128 x 1024 fbank, B=64, bf16, mixup, SpecMask, norm and noise on) for 3
+    steps and an eval of 65 clips (per step 1 Kaldi rows launch, 24
+    attention forwards, 24 dq and 24 dk/dv; per eval batch 1 and 24; mAP
+    and AUC in [0, 1]), its export served behind the fbank; the same at
+    --grad_accum_steps 2 (2 / 48 / 48 / 48 a step); SS-MAST at
+    pretrain.grad_accum_steps 2 (1 / 96 / 48 / 48 a step); an f32 MAST-tiny
+    step card vs CPU with every augmentation on (1e-2 faults refused) and
+    accumulating 2 against 1 on the card; the step's clips/s, split, busy
+    share and peak memory, and eval clips/s.
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
 the attention at MAST-B's shapes and at AST-base's), serving (AudioNTT,
@@ -194,6 +207,15 @@ TOL_EMA = 1e-6  # the key encoder's parameters after the EMA, card vs CPU, relat
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+
+
+def device_kernels_us(averages) -> dict[str, float]:
+    """Device microseconds by kernel from ``prof.key_averages()``, without
+    the profiler's ranges over device work (``Optimizer.step#...``), whose
+    device time is their kernels' again."""
+    return {e.key: e.self_device_time_total for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -520,6 +542,26 @@ def main() -> int:
     cluster_t = clustering_times(csv11, dev, card)
     cluster_tmp.cleanup()
 
+    # phases 25-28 (slice 12): the supervised MAST fine-tune on AudioSet-style
+    # data. Phase 25: the attention kernels at its shapes against their plain
+    # versions; the fine-tune through its CLI on configs/mast_ft.yaml as it
+    # stands and its eval, counts from 0, then its export served
+    ft_attn_err = finetune_attention_checks(dev)
+    ft_tmp = tempfile.TemporaryDirectory()
+    ft_data = audioset_style_data(ft_tmp.name, wav, int(finetune_config()["run"]["batch_size"]))
+    ft_run = finetune_run(ft_data, ft_tmp.name, dev, card)
+    # phase 26: the fine-tune at grad_accum_steps 2, and SS-MAST at
+    # pretrain.grad_accum_steps 2, counts from 0 for each
+    ft_accum = finetune_accum_run(ft_data, ft_tmp.name, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ssmast_accum = ssmast_accum_run(tmp, wav, dev)
+    # phase 27: the f32 fine-tune step gate; phase 28: times, beside the card
+    ft_step_err = finetune_f32_step_check(dev)
+    ft_times = finetune_times(dev, card, ft_data["clips"])
+    ft_tmp.cleanup()
+    slice12 = {"finetune_launches": ft_run["counts"], "finetune_accum_launches": ft_accum,
+               "ssmast_accum_launches": ssmast_accum}
+
     # phase 25: the kernel line
     entries = [{
         "name": "log_mel_fused",
@@ -535,6 +577,7 @@ def main() -> int:
         "extract_launches": {kind: e["launches"] for kind, e in extract.items()},
         **{f"{name}_launches": c["log_mel_fused"] for name, c in slice10_counts.items()},
         **{f"{name}_launches": c["log_mel_fused"] for name, c in slice11_counts.items()},
+        **{key: c["log_mel_fused"] for key, c in slice12.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -554,6 +597,7 @@ def main() -> int:
             "probe_launches": probe_counts[name],
             **{f"{objective}_launches": c[name] for objective, c in slice10_counts.items()},
             **{f"{run}_launches": c[name] for run, c in slice11_counts.items() if run != "make_pseudo_labels"},
+            **{key: c[name] for key, c in slice12.items()},
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -568,8 +612,10 @@ def main() -> int:
             "mast_serve_launches": mast_serve["counts"][name],
             "ast_serve_launches": ast_serve["counts"][name],
             "mast_probe_launches": {mode: c[name] for mode, c in mast_probe_counts.items()},
-            "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name]),
+            **{key: c[name] for key, c in slice12.items()},
+            "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name], ft_attn_err[name]),
             "mast_probe_max_abs_err": probe9_err[name],
+            "finetune_max_abs_err": ft_attn_err[name],
             **attn_times[name],
             "times_are": "summed over the 24 blocks of one SS-MAST step at B=64, bf16",
             "ast": ast_times[name],
@@ -584,6 +630,7 @@ def main() -> int:
             "launches": mast_counts[name] if name == "fused_rows_kaldi" else dispatch["launches"],
             "mast_serve_launches": mast_serve["counts"][name],
             "ast_serve_launches": ast_serve["counts"][name],
+            **{key: c[name] for key, c in slice12.items()},
             "max_abs_err": max(rows_err[name], dispatch["max_abs_err"]) if name == "fused_rows_librosa" else rows_err[name],
             **rows_t[name],
         })
@@ -595,7 +642,10 @@ def main() -> int:
                       "clustering_times": cluster_t, "pseudo_label_nmi": kmix["nmi"],
                       "ssmast_f32_step_rel_err": mast_step_err, "ast_f32_step_rel_err": ast_step_err,
                       "fbank_serving": serving9, "mast_probe_times": mast_probe_t,
-                      "extract_features_err": {kind: e["max_abs_err"] for kind, e in extract.items()}}))
+                      "extract_features_err": {kind: e["max_abs_err"] for kind, e in extract.items()},
+                      "finetune_f32_step_rel_err": ft_step_err, "finetune_times": ft_times,
+                      "finetune_eval": {k: ft_run["stats"][k] for k in ("mAP", "AUC", "d_prime")},
+                      "finetune_serving": {k: v for k, v in ft_run["serve"].items() if k != "counts"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -1125,8 +1175,7 @@ def train_times(name, pool, dev, card, b: int = 256) -> None:
             state, loss = step(state, waves, labels)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    kernels_us = device_kernels_us(prof.key_averages())
     busy = sum(kernels_us.values())
     if not busy:
         print(f"[{card}] training {name} profile: no device time recorded (not measured)")
@@ -1650,8 +1699,7 @@ def ssmast_train_times(dev, card, pool) -> None:
             state, loss = step(state, waves)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    kernels_us = device_kernels_us(prof.key_averages())
     busy = sum(kernels_us.values())
     if not busy:
         print(f"[{card}] SS-MAST training profile: no device time recorded (not measured)")
@@ -2006,8 +2054,7 @@ def ast_train_times(dev, card) -> None:
             loss = step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    kernels_us = device_kernels_us(prof.key_averages())
     busy = sum(kernels_us.values())
     if not busy:
         print(f"[{card}] AST fine-tune profile: no device time recorded (not measured)")
@@ -2219,8 +2266,7 @@ def busy_share(fn, calls: int, card, label: str) -> float | None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     averages = prof.key_averages()
-    kernels_us = {e.key: e.self_device_time_total for e in averages
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    kernels_us = device_kernels_us(averages)
     busy = sum(kernels_us.values())
     if not busy:
         print(f"[{card}] {label} profile: no device time recorded (not measured)")
@@ -2637,6 +2683,324 @@ def clustering_times(csv: str, dev, card) -> dict[str, float]:
           f"{CLUSTER_CLIPS} clips at B=256, d=512, bf16 (decode, log-mel kernel, eval AudioNTT, host clock): "
           f"{bank_s:.4f} s = {CLUSTER_CLIPS / bank_s:.1f} clips/s")
     return {"decar_clustering_s": cluster_s, "memory_bank_pass_s": bank_s}
+
+
+# ---------------------------------------------------------------- slice 12: the supervised MAST fine-tune
+
+FT_CLASSES = 527  # AudioSet's class count (synthetic mids)
+FT_WAVS = 32  # distinct 10 s clips
+FT_STEPS = 3
+FT_ACCUM_STEPS = 2
+FT_EVAL = 65  # a short last eval batch at B=64
+FT_TOL_ACCUM = 1e-5  # accumulating 2 against 1 on the card, augmentations off
+FT_FAULT_TENSORS = ("head.weight", "mast.blocks.1.attn.qkv.weight")
+
+
+FT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "mast_ft.yaml")
+
+
+def finetune_config() -> dict:
+    """configs/mast_ft.yaml as it stands, the slice's path."""
+    from audiossl_tpu_torch import config as cfgmod
+
+    return cfgmod.load_config(FT_CONFIG)
+
+
+def audioset_style_data(tmp: str, wav, batch: int) -> dict:
+    """FT_WAVS distinct 10 s WAVs at 16 kHz (a chord of three partials in
+    noise, each clip its own), a FT_CLASSES-row label CSV with synthetic
+    mids, a train JSON of 4 batches and an eval JSON of FT_EVAL rows that
+    list the WAVs again and again, 1-3 labels a row. Returns the paths and the
+    clips [FT_WAVS, 160000]."""
+    rng = np.random.default_rng(120)
+    t = np.arange(160000) / 16000.0
+    clips, files = [], []
+    for i in range(FT_WAVS):
+        f0 = 80.0 * 2 ** (i / 6)
+        x = sum(a * np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6.3)) for k, a in ((1, 0.3), (2.5, 0.12), (4.1, 0.06)))
+        x = (x * (0.6 + 0.4 * np.sin(2 * np.pi * (0.3 + 0.1 * i) * t)) + 0.02 * rng.standard_normal(t.size))
+        files.append(os.path.join(tmp, f"as{i:02d}.wav"))
+        wav.write_wav(files[-1], x.astype(np.float32))
+        clips.append(wav.load_wave(files[-1]))
+    labels_csv = os.path.join(tmp, "class_labels_indices.csv")
+    with open(labels_csv, "w") as f:
+        f.write("index,mid,display_name\n" + "".join(f"{i},/m/syn{i:03d},class {i}\n" for i in range(FT_CLASSES)))
+    out = {"label_csv": labels_csv, "clips": np.stack(clips).astype(np.float32)}
+    for name, rows in (("train", 4 * batch), ("eval", FT_EVAL)):
+        data = []
+        for r in range(rows):
+            i = int(rng.integers(FT_WAVS))
+            mids = {i * 16 % FT_CLASSES, *rng.integers(FT_CLASSES, size=int(rng.integers(0, 3))).tolist()}
+            data.append({"wav": files[i], "labels": ",".join(f"/m/syn{m:03d}" for m in sorted(mids))})
+        out[name] = os.path.join(tmp, f"{name}.json")
+        with open(out[name], "w") as f:
+            json.dump({"data": data}, f)
+    return out
+
+
+def finetune_counts(per_step: dict[str, int], steps: int, per_eval: dict[str, int] | None = None,
+                    eval_batches: int = 0) -> dict[str, int]:
+    return {k: per_step.get(k, 0) * steps + (per_eval or {}).get(k, 0) * eval_batches
+            for k in set(per_step) | set(per_eval or {})}
+
+
+def finetune_attention_checks(dev) -> dict[str, float]:
+    """The three attention kernels against their plain versions in bf16 at
+    each of the fine-tune's MAST-B shapes (B=64: the SS-MAST query pass's
+    MAST_ATTN shapes at half their batch), the first twice for equal bits."""
+    errs = dict.fromkeys(ATTN_KERNELS, 0.0)
+    for i, ((bh, lq, grid), n) in enumerate(MAST_ATTN):
+        label = f"MAST-B fine-tune [{bh // 2}, {lq}, {grid[0] * grid[1]}] {grid[0]}x{grid[1]} ({n} blocks)"
+        check_attention(label, bh // 2, lq, grid, None, 96, torch.bfloat16, dev, 300 + i, errs, twice=i == 0)
+    return errs
+
+
+def finetune_run(data: dict, tmp: str, dev, card) -> dict:
+    """The fine-tune through its CLI on configs/mast_ft.yaml as it stands
+    (MAST-B, 128 x 1024 fbank, B=64, bf16; mixup, SpecMask, norm and noise
+    on) for FT_STEPS steps and the eval, counts from 0: per step 1 Kaldi rows
+    launch and 24 attention forwards, 24 dq and 24 dk/dv; per eval batch 1
+    rows launch and 24 forwards; nothing else. mAP and AUC finite in [0, 1].
+    Then the export served through serve.export --checkpoint."""
+    from audiossl_tpu_torch.models.mast import mast_config
+    from audiossl_tpu_torch.train.finetune_mast import main as finetune_main
+
+    config = finetune_config()
+    depth = mast_config(config["finetune"]["model_size"]).depth
+    batch = int(config["run"]["batch_size"])
+    reset_launches()
+    t0 = time.perf_counter()
+    stats, ckpt_dir = finetune_main(["-c", FT_CONFIG, "--train_json", data["train"], "--label_csv", data["label_csv"],
+                                     "--eval_json",
+                                     data["eval"], "--max_steps", str(FT_STEPS), "--save_path",
+                                     os.path.join(tmp, "mast_ft"), "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    eval_batches = -(-FT_EVAL // batch)
+    with open(os.path.join(ckpt_dir, "stats.jsonl")) as f:
+        losses = [rec["train_loss"] for rec in map(json.loads, f) if "step" in rec]
+    print(f"fine-tune: finetune_mast CLI on configs/mast_ft.yaml as it stands (MAST-B, B={batch}, 128 x 1024 fbank, "
+          f"bf16, mixup / SpecMask / norm / noise on), {FT_STEPS} steps and an eval of {FT_EVAL} clips in "
+          f"{seconds:.1f} s (set-up, loading, eval and the checkpoint included); losses {losses}; stats {stats}; "
+          f"launches {counts}")
+    if len(losses) != FT_STEPS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"the fine-tune took {len(losses)} steps with losses {losses}")
+    for key in ("mAP", "AUC"):
+        if not (math.isfinite(stats[key]) and 0.0 <= stats[key] <= 1.0):
+            raise RuntimeError(f"fine-tune eval {key} = {stats[key]}")
+    per_step = {"fused_rows_kaldi": 1, "rel_attention_fwd": depth, "rel_attention_bwd_dq": depth,
+                "rel_attention_bwd_dkv": depth}
+    per_eval = {"fused_rows_kaldi": 1, "rel_attention_fwd": depth}
+    expect_counts("fine-tune", counts, finetune_counts(per_step, FT_STEPS, per_eval, eval_batches))
+    rng = np.random.default_rng(121)
+    reps = data["clips"][np.arange(SLICE9_REQUESTS[-1]) % FT_WAVS]
+    pool = np.pad(reps, ((0, 0), (0, SLICE9_CLIP - reps.shape[1])))
+    pool = (rng.uniform(0.5, 1.0, (len(pool), 1)) * pool + 0.005 * rng.standard_normal(pool.shape)).astype(np.float32)
+    serve = fbank_serving_run("MAST-B fine-tuned", ["--checkpoint", ckpt_dir], pool, depth, tmp, dev, card)
+    return {"counts": counts, "per_step": per_step, "per_eval": per_eval, "eval_batches": eval_batches,
+            "stats": stats, "losses": losses, "serve": serve}
+
+
+def finetune_accum_run(data: dict, tmp: str, dev) -> dict[str, int]:
+    """The same CLI with --grad_accum_steps 2 for FT_ACCUM_STEPS steps, no
+    eval, counts from 0: 2 rows, 48 forwards, 48 dq, 48 dk/dv a step."""
+    from audiossl_tpu_torch.models.mast import mast_config
+    from audiossl_tpu_torch.train.finetune_mast import main as finetune_main
+
+    depth = mast_config(finetune_config()["finetune"]["model_size"]).depth
+    reset_launches()
+    finetune_main(["-c", FT_CONFIG, "--train_json", data["train"], "--label_csv", data["label_csv"], "--max_steps",
+                   str(FT_ACCUM_STEPS), "--grad_accum_steps", "2", "--save_path", os.path.join(tmp, "mast_ft_a2"),
+                   "--device", str(dev)])
+    torch.cuda.synchronize()
+    counts = read_launches()
+    print(f"fine-tune with --grad_accum_steps 2: {FT_ACCUM_STEPS} steps; launches {counts}")
+    per_step = {"fused_rows_kaldi": 2, "rel_attention_fwd": 2 * depth, "rel_attention_bwd_dq": 2 * depth,
+                "rel_attention_bwd_dkv": 2 * depth}
+    expect_counts("fine-tune at grad_accum_steps 2", counts, finetune_counts(per_step, FT_ACCUM_STEPS))
+    return counts
+
+
+def ssmast_accum_run(tmp: str, wav, dev) -> dict[str, int]:
+    """SS-MAST through train_upstream on configs/ssmast.yaml with
+    pretrain.grad_accum_steps: 2, for 2 steps, counts from 0: per step 1
+    fbank, 96 attention forwards (the two key passes and the two query
+    passes), 48 dq and 48 dk/dv; the queue pointer at 2B a step."""
+    from audiossl_tpu_torch.models.mast import mast_config
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    config = ssmast_config()
+    config["pretrain"]["grad_accum_steps"] = 2
+    batch = int(config["run"]["batch_size"])
+    steps = 2
+    csv = ssmast_wavs(tmp, wav, batch * steps)
+    config["run"].update(save_path=os.path.join(tmp, "ssmast_a2"), epochs=1)
+    depth = mast_config(config["pretrain"]["model_size"]).depth
+    reset_launches()
+    obj, step, ckpt_dir = train_upstream(config, csv, "ssmast", max_steps=steps, device=dev)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    losses = [rec["train_loss"] for rec in stats_lines(ckpt_dir)]
+    print(f"SS-MAST with pretrain.grad_accum_steps 2: {step} steps, losses {losses}, queue pointer "
+          f"{int(obj.queue_ptr)}; launches {counts}")
+    if step != steps or not all(math.isfinite(v) for v in losses) or int(obj.queue_ptr) != 2 * batch * steps:
+        raise RuntimeError(f"SS-MAST at grad_accum_steps 2: {step} steps, losses {losses}, pointer {int(obj.queue_ptr)}")
+    per_step = {"fused_rows_kaldi": 1, "rel_attention_fwd": 4 * depth, "rel_attention_bwd_dq": 2 * depth,
+                "rel_attention_bwd_dkv": 2 * depth}
+    expect_counts("SS-MAST at grad_accum_steps 2", counts, finetune_counts(per_step, steps))
+    return counts
+
+
+def finetune_tiny_config(augment: bool = True) -> dict:
+    """mast_ft.yaml at MAST tiny, f32, 64 mels x 96 frames (1 s clips), its
+    SpecMask scaled to the grid (12 of 64 bins, 18 of 96 frames)."""
+    ft = finetune_config()["finetune"]
+    ft.update(model_size="tiny", compute_dtype="f32", freqm=12, timem=18)
+    ft["input"].update(n_mels=64, target_length=96, length_wave=1.0)
+    if not augment:
+        ft.update(freqm=0, timem=0, droppath_rate=0.0)
+        ft["input"].update(mixup=0.0, noise=False)
+    return ft
+
+
+def finetune_f32_step_check(dev) -> dict[str, float]:
+    """One f32 fine-tune step of MAST tiny at B=4 (every augmentation and
+    drop path on, the same draws) on the card against the CPU plain path:
+    the loss within TOL_MAST_LOSS, each gradient tensor within TOL_MAST_GRAD
+    of its max|ref| + 1e-2 of the largest (the SS-MAST rule); a 1e-2 fault
+    in each of FT_FAULT_TENSORS must be refused. Then accumulating 2 against
+    1 on the card, augmentations and drop path off, within FT_TOL_ACCUM."""
+    import copy
+
+    from audiossl_tpu_torch.train import finetune_mast as ftm
+
+    ft = finetune_tiny_config()
+    rng = np.random.default_rng(122)
+    t = np.arange(16000) / 16000.0
+    waves = torch.from_numpy((0.3 * np.sin(2 * np.pi * rng.uniform(100, 900, (4, 1)) * t)
+                              + 0.03 * rng.standard_normal((4, 16000))).astype(np.float32))
+    targets = torch.from_numpy((rng.uniform(size=(4, 10)) < 0.3).astype(np.float32))
+    init = ftm.init_classifier(ft, 10, seed=0, device=torch.device("cpu")).train()
+    gen = torch.Generator().manual_seed(5)
+    draws = ftm.sample_step_draws(ft, 4, gen)
+    n_drop = 2 * sum(1 for blk in init.mast.blocks if blk.droppath > 0)
+    drop = [torch.rand(4, generator=gen) for _ in range(n_drop)]
+
+    def on(d, x):  # the draws' tensors on device d
+        if isinstance(x, torch.Tensor):
+            return x.to(d)
+        if x is None:
+            return None
+        return type(x)(*(on(d, v) for v in x)) if hasattr(x, "_fields") else type(x)(on(d, v) for v in x)
+
+    def grads(d, ft_cfg, accum, step_draws, start=init):
+        model = copy.deepcopy(start).to(d)
+        step = ftm.FinetuneStep(model, torch.optim.SGD(model.parameters(), lr=0.0), ft_cfg, torch.Generator(d), accum)
+        loss = step.loss_and_grads(waves.to(d), targets.to(d), step_draws)
+        return float(loss), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+    loss_card, g_card = grads(dev, ft, 1, [on(dev, draws._replace(drop=drop))])
+    loss_cpu, g_cpu = grads(torch.device("cpu"), ft, 1, [draws._replace(drop=drop)])
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+
+    def worst(g):
+        rels = {n: float((g[n] - ref).abs().max()) / (float(ref.abs().max()) + 1e-2 * largest) for n, ref in g_cpu.items()}
+        name = max(rels, key=rels.get)
+        return name, rels[name]
+
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    name, rel = worst(g_card)
+    print(f"f32 fine-tune step (MAST tiny, B=4, every augmentation on), card vs CPU plain path on the same draws: loss "
+          f"{loss_card:.7e} vs {loss_cpu:.7e} (relative {loss_err:.3e}, tol {TOL_MAST_LOSS}); worst gradient tensor {name} "
+          f"{rel:.3e} (tol {TOL_MAST_GRAD})")
+    if not (loss_err <= TOL_MAST_LOSS and rel <= TOL_MAST_GRAD):
+        raise RuntimeError(f"the f32 fine-tune step on the card disagrees with the CPU path: {loss_err}, {name} {rel}")
+    for fault in FT_FAULT_TENSORS:
+        bad = dict(g_card, **{fault: g_card[fault] * (1.0 + STEP_FAULT)})
+        f_name, f_rel = worst(bad)
+        print(f"f32 fine-tune gate, {fault} scaled by 1 + {STEP_FAULT}: worst tensor {f_name} {f_rel:.3e} -> refused")
+        if f_rel <= TOL_MAST_GRAD:
+            raise RuntimeError(f"the f32 fine-tune gate did not refuse a {STEP_FAULT} fault in {fault}: {f_rel}")
+
+    plain = finetune_tiny_config(augment=False)
+    start = ftm.init_classifier(plain, 10, seed=0, device=torch.device("cpu")).train()  # drop path 0
+    l1, g1 = grads(dev, plain, 1, None, start)
+    l2, g2 = grads(dev, plain, 2, None, start)
+    big = max(float(g.abs().max()) for g in g1.values())
+    acc_rel = max(float((g2[n] - g).abs().max()) / (float(g.abs().max()) + 1e-2 * big) for n, g in g1.items())
+    acc_loss = abs(l2 - l1) / abs(l1)
+    print(f"fine-tune on the card, accumulating 2 against 1 (augmentations and drop path off): loss relative "
+          f"{acc_loss:.3e}, worst gradient tensor {acc_rel:.3e} (tol {FT_TOL_ACCUM})")
+    if not (acc_loss <= FT_TOL_ACCUM and acc_rel <= FT_TOL_ACCUM):
+        raise RuntimeError(f"accumulating 2 on the card disagrees with 1: {acc_loss}, {acc_rel}")
+    return {"loss": loss_err, "worst_tensor": rel, "accum_loss": acc_loss, "accum_worst_tensor": acc_rel}
+
+
+def finetune_times(dev, card, clips: np.ndarray) -> dict[str, float]:
+    """The fine-tune's training clips/s at B=64, bf16, full width
+    (configs/mast_ft.yaml) on waves already on the card: the median of 3
+    windows of 4 steps on the host clock; the step split by CUDA events
+    (mean of 4 steps): frontend + augment (mixup, fbank, mask, norm, noise),
+    forward + loss, backward, clip + AdamW; the busy share by torch.profiler;
+    the peak memory of the steps; eval clips/s (sigmoid scores, mean of 5
+    batches by CUDA events)."""
+    from audiossl_tpu_torch.train import finetune_mast as ftm
+    from audiossl_tpu_torch.train.layer_decay import adamw_layer_decay
+
+    config = finetune_config()
+    run, ft = config["run"], config["finetune"]
+    b = int(run["batch_size"])
+    model = ftm.init_classifier(ft, FT_CLASSES, seed=0, device=dev).train()
+    opt = adamw_layer_decay(model.named_parameters(), float(run["learning_rate"]), ftm.MVIT_DEPTH[ft["model_size"]],
+                            float(run["layer_decay"]), float(run["weight_decay"]),
+                            clip_grad_norm=float(run["clip_grad_norm"]))
+    gen = torch.Generator(dev).manual_seed(0)
+    step = ftm.FinetuneStep(model, opt, ft, gen)
+    waves = torch.from_numpy(clips[np.arange(b) % len(clips)]).to(dev)
+    rng = np.random.default_rng(123)
+    targets = torch.from_numpy((rng.uniform(size=(b, FT_CLASSES)) < 3 / FT_CLASSES).astype(np.float32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        loss = step(waves, targets)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            loss = step(waves, targets)
+        torch.cuda.synchronize()
+        rates.append(4 * b / (time.perf_counter() - t0))
+    if not math.isfinite(loss.item()):
+        raise RuntimeError(f"fine-tune loss became {loss.item()}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    names = ("frontend+augment", "forward+loss", "backward", "clip+AdamW")
+    parts = dict.fromkeys(names, 0.0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    for _ in range(4):
+        ev[0].record()
+        x, t = step.inputs(waves, targets, ftm.sample_step_draws(ft, b, gen))
+        ev[1].record()
+        loss = step.forward_loss(x, t, None)
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for name, e0, e1 in zip(names, ev[:-1], ev[1:]):
+            parts[name] += e0.elapsed_time(e1) / 4
+    busy = busy_share(lambda: step(waves, targets), 2, card, "MAST-B fine-tune step")
+    with torch.inference_mode():
+        eval_ms = cuda_ms(lambda: step.scores(waves), iters=5, warmup=2)
+    rate = float(np.median(rates))
+    print(f"[{card}] MAST-B fine-tune B={b} bf16 128 x 1024 (configs/mast_ft.yaml): train_clips_per_sec {rate:.1f} "
+          f"(median of windows {[round(r, 1) for r in rates]}); step split "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+          + f"; peak memory {peak_gib:.2f} GiB; eval {eval_ms:.4f} ms/batch = {b / eval_ms * 1e3:.1f} clips/s")
+    return {"train_clips_per_sec": rate, "windows": rates, **{f"{k}_ms": v for k, v in parts.items()},
+            "busy": busy, "peak_memory_gib": peak_gib, "eval_ms": eval_ms, "eval_clips_per_sec": b / eval_ms * 1e3}
 
 
 if __name__ == "__main__":

@@ -117,10 +117,10 @@ def test_config_parses_like_jax():
      ({"Kmix": {"centroid_path": "c.npy"}}, "Kmix")],
 )
 def test_options_of_later_slices_raise(extra, match):
-    """MAST noise (ROADMAP.md Queue 1 item 4) raises NotImplementedError.
-    Kmix and MixGaussianNoise, now ported, build; Kmix raises, as in
-    JAX, when no centroids are given (tests/test_torch_port_kmix.py holds
-    both against JAX)."""
+    """MAST noise, Kmix and MixGaussianNoise, all ported, build; MAST noise
+    is applied last in a view; Kmix raises, as in JAX, when no centroids are
+    given (tests/test_torch_port_kmix.py holds Kmix and MixGaussianNoise
+    against JAX, tests/test_torch_port_finetune.py MAST noise)."""
     pre = _delores_pretrain()
     if "input" in extra:
         pre["input"].update(extra["input"])
@@ -128,8 +128,15 @@ def test_options_of_later_slices_raise(extra, match):
         pre["augmentations"].update(extra)
     cfg = augment.AugmentConfig.from_dict(pre)
     if match == "MAST noise":
-        with pytest.raises(NotImplementedError, match=match):
-            augment.AugmentPipeline(cfg, epoch_samples=8)
+        pipe = augment.AugmentPipeline(cfg, epoch_samples=8)
+        assert pipe.cfg.mast_noise
+        state = pipe.init_state(F_, T_)
+        draws, _ = pipe.sample_draws(state, 2, F_, T_, torch.Generator().manual_seed(0))
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 1, F_, T_)).astype(np.float32))
+        quiet = draws._replace(mnoise_scale=torch.zeros(2), mnoise_shift=torch.zeros(2, dtype=torch.long))
+        want = augment.mast_noise(pipe._one_view(state.mixup, x, quiet), draws.mnoise_scale, draws.mnoise,
+                                  draws.mnoise_shift)
+        torch.testing.assert_close(pipe._one_view(state.mixup, x, draws), want, rtol=0, atol=0)
     elif match == "Kmix":
         with pytest.raises(ValueError, match="no centroids"):
             augment.AugmentPipeline(cfg, epoch_samples=8)

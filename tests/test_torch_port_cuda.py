@@ -394,6 +394,93 @@ def test_clustering_bf16_step_launch_counts(cuda, name):
     assert tuple(fn.launches for fn in wrappers) == want
 
 
+# ---------------------------------------------------------------- the supervised MAST fine-tune
+
+
+def _finetune_config(**ft):
+    """configs/mast_ft.yaml at MAST tiny, 64 mels x 96 frames (1 s clips),
+    its SpecMask scaled to the grid."""
+    import os
+
+    import yaml
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", "mast_ft.yaml")) as f:
+        cfg = yaml.safe_load(f)["finetune"]
+    cfg.update(model_size="tiny", freqm=12, timem=18, **ft)
+    cfg["input"].update(n_mels=64, target_length=96, length_wave=1.0)
+    return cfg
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_finetune_bf16_step_launch_counts(cuda, accum):
+    """One bf16 fine-tune step of MAST tiny (every augmentation on) at B=4
+    launches, per microbatch, the Kaldi rows kernel once and each attention
+    kernel once a block; an eval batch the rows kernel and the forward."""
+    from audiossl_tpu_torch.ops import attention as A
+    from audiossl_tpu_torch.train import finetune_mast as ftm
+    from audiossl_tpu_torch.train.layer_decay import adamw_layer_decay
+
+    ft = _finetune_config()
+    model = ftm.init_classifier(ft, 10, seed=0, device=cuda).train()
+    opt = adamw_layer_decay(model.named_parameters(), 5e-4, ftm.MVIT_DEPTH["tiny"], 0.75, 0.05, clip_grad_norm=1.0)
+    step = ftm.FinetuneStep(model, opt, ft, torch.Generator(cuda).manual_seed(0), accum)
+    waves = torch.from_numpy((0.3 * np.random.default_rng(6).standard_normal((4, 16000))).astype(np.float32)).to(cuda)
+    targets = (torch.rand((4, 10), generator=torch.Generator().manual_seed(1)) < 0.3).float().to(cuda)
+    wrappers = (A.rel_attention_fwd, A.rel_attention_bwd_dq, A.rel_attention_bwd_dkv)
+    depth = len(model.mast.blocks)
+
+    def counts():
+        return (fused_stft.fused_rows.launches["kaldi"], *(fn.launches for fn in wrappers))
+
+    before = counts()
+    loss = step(waves, targets)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (accum, accum * depth, accum * depth, accum * depth)
+    before = counts()
+    scores = step.scores(waves)
+    torch.cuda.synchronize()
+    assert scores.shape == (4, 10) and bool(((scores >= 0) & (scores <= 1)).all())
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, depth, 0, 0)
+
+
+@pytest.mark.parametrize("batched", [True, False])
+def test_ssmast_accumulation_on_the_card_matches_one_pass(cuda, batched):
+    """SS-MAST (MAST tiny, f32, drop path 0, B=4, a 64-key queue) at
+    grad_accum_steps 2 against 1 on the card, from the same state: the
+    loss within 1e-5 (relative), each gradient tensor within 1e-5 of its
+    max|ref| + 1e-2 of the largest, the queue within 1e-6, the pointer equal."""
+    import copy
+    import os
+
+    import yaml
+
+    from audiossl_tpu_torch.objectives import init_objective
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", "ssmast.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["pretrain"].update(model_size="tiny", num_negatives=64, contrastive_dim=16, droppath_rate=0.0,
+                           compute_dtype="f32", batched_views=batched)
+    cfg["pretrain"]["input"].update(n_mels=64, target_length=96)
+    init = init_objective("ssmast", cfg, seed=0, device=cuda).train()
+    r = np.random.default_rng(8)
+    v1, v2 = (torch.from_numpy(r.standard_normal((4, 1, 64, 96)).astype(np.float32)).to(cuda) for _ in range(2))
+    out = []
+    for accum in (1, 2):
+        obj = copy.deepcopy(init)
+        obj.grad_accum = accum
+        loss = obj.loss_and_backward(v1, v2)
+        out.append((float(loss), {n: p.grad for n, p in obj.encoder.named_parameters()}, obj.queue, int(obj.queue_ptr)))
+    (l1, g1, q1, p1), (l2, g2, q2, p2) = out
+    largest = max(float(g.abs().max()) for g in g1.values())
+    assert abs(l2 - l1) <= 1e-5 * abs(l1)
+    for n, g in g1.items():
+        assert float((g2[n] - g).abs().max()) <= 1e-5 * (float(g.abs().max()) + 1e-2 * largest), n
+    assert float((q2 - q1).abs().max()) <= 1e-6 and p1 == p2 == 8
+
+
 # ---------------------------------------------------------------- rel-pos attention
 
 

@@ -188,3 +188,40 @@ def test_audiontt_objective_trainers_raise_without_cuda_unless_given_cpu(no_cuda
     config["pretrain"].update(num_negatives=64, task_label=3)
     _, step, _ = train_upstream(config, str(csv), name, device="cpu")  # an empty manifest: no step
     assert step == 0
+
+
+def test_finetune_modules_are_scanned_and_need_no_sklearn():
+    """The supervised fine-tune's modules are among the scanned files and
+    import no sklearn (mAP, AUC and d' are numpy and scipy)."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    family = [os.path.join("audiossl_tpu_torch", m) for m in (
+        "data/multilabel.py", "data/norm_stats.py", "train/accum.py", "train/finetune_mast.py",
+        "train/layer_decay.py", "train/preemption.py", "utils/metrics.py")]
+    assert set(family) <= files, set(family) - files
+    bad = [(p, m) for p in family for m in _imports(os.path.join(ROOT, p)) if m.split(".")[0] == "sklearn"]
+    assert not bad, bad
+
+
+def test_finetune_and_norm_stats_raise_without_cuda_unless_given_cpu(no_cuda, tmp_path):
+    from audiossl_tpu_torch.config import load_config
+    from audiossl_tpu_torch.data.norm_stats import main as norm_stats_main
+    from audiossl_tpu_torch.train.finetune_mast import main as finetune_main
+    from audiossl_tpu_torch.train.finetune_mast import train_finetune_mast
+
+    (tmp_path / "labels.csv").write_text("index,mid,display_name\n0,/m/0,a\n")
+    (tmp_path / "d.json").write_text('{"data": []}')
+    csv = tmp_path / "m.csv"
+    csv.write_text("files\n")
+    args = (str(tmp_path / "d.json"), str(tmp_path / "labels.csv"))
+    config = load_config(os.path.join(ROOT, "configs", "mast_ft.yaml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_finetune_mast(config, *args)  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        finetune_main(["--train_json", args[0], "--label_csv", args[1]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        norm_stats_main(["--csv", str(csv), "--fbank"])
+    config["run"].update(save_path=str(tmp_path / "ft"), epochs=1)
+    config["finetune"]["model_size"] = "tiny"
+    config["finetune"]["input"].update(n_mels=64, target_length=48)
+    _, stats, _ = train_finetune_mast(config, *args, device="cpu")  # an empty datafile: no step
+    assert stats["epoch"] == 0 and config["run"]["epochs"] == 1

@@ -21,6 +21,17 @@ D = 32
 TASK_LABEL = 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch intra-op thread for these tiny models: with the suite's
+    workers sharing the cores, torch's default of a thread a core makes each
+    small op wait for threads the other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def manifest(tmp_path_factory):
     """16 sine WAVs of 0.5-2 s and a manifest with a ``label`` column (ids

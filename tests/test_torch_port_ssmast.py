@@ -137,10 +137,10 @@ def test_init_and_config_guards():
     assert torch.equal(ln.weight, torch.ones_like(ln.weight)) and not ln.bias.any()
     rel = obj.encoder.mast.blocks[0].attn.rel_pos_h.detach()
     assert rel.abs().max() <= 0.04 and 0.01 < float(rel.std()) < 0.02
-    bad = copy.deepcopy(cfg)
-    bad["pretrain"]["grad_accum_steps"] = 2
-    with pytest.raises(NotImplementedError, match="grad_accum_steps"):
-        init_objective("ssmast", bad, seed=0)
+    accum = copy.deepcopy(cfg)
+    accum["pretrain"]["grad_accum_steps"] = 2  # builds; a batch of 3 it does not divide raises JAX's ValueError
+    with pytest.raises(ValueError, match="not divisible by pretrain.grad_accum_steps 2"):
+        init_objective("ssmast", accum, seed=0).loss_and_backward(torch.zeros(3, 1, F_, T_), torch.zeros(3, 1, F_, T_))
     with pytest.raises(ValueError, match="divisible"):  # 64 queue slots, batches of 3
         obj.loss(torch.zeros(3, 1, F_, T_), torch.zeros(3, 1, F_, T_))
 

@@ -30,6 +30,19 @@ from audiossl_tpu_torch.train_upstream import main as train_main
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIP = 15200  # 0.95 s at 16 kHz: views of 64 mels x 96 frames
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch intra-op thread for these tiny models: with the suite's
+    workers sharing the cores, torch's default of a thread a core makes each
+    small op wait for threads the other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, D = 8, 64
 
 
