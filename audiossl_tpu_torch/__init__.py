@@ -14,11 +14,14 @@ a tensor on the CPU, and on a CUDA tensor launches the kernel or raises.
 Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining,
 the downstream probe with AST, the SS-MAST checkpoint served and probed,
 DeLoRes-M, SLICER and UnFuSeD pretraining, the clustering family, the
-supervised MAST fine-tune):
+supervised MAST fine-tune, data parallelism across processes with its host
+data):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
   data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches,
-                      labelled and class-balanced
+                      labelled and class-balanced, host_shard, tar rows
+  data/tar.py         tar-shard manifests (shard.tar::member rows, write_shards)
+  data/native.py      the C++ batch WAV loader (csrc/wavloader.cpp, g++)
   data/hf.py          HFLoader: the HF-hosted speech_commands tasks
   data/multilabel.py  AudioSet-style JSON datafile + label CSV -> multi-hot loader
   data/norm_stats.py  feature mean / std over a manifest (CLI)
@@ -48,6 +51,8 @@ supervised MAST fine-tune):
                       (prototypes, memory bank), the clustering toolbox
                       (PCA-whitening, k-means, kNN, PIC), make_pseudo_labels,
                       the DINO loss
+  parallel/           launch.py: joining a process group (torchrun, AUDIOSSL_*,
+                      SLURM); dist.py: the data-parallel collectives
   train/              optimizers (SGD, Adam, AdamW, LARS, LARC, layer-decay
                       AdamW), train step, gradient accumulation, checkpoints,
                       loop, the SIGTERM guard; the DECAR-v2, DeepCluster-v1

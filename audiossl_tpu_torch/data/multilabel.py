@@ -56,6 +56,7 @@ def multilabel_loader(
     num_workers: int = 8,
     wire_dtype: str = "int16",
     on_error: str = "raise",
+    host_shard: tuple[int, int] | None = None,
 ) -> tuple[ManifestLoader, int]:
     """-> (loader yielding (waves [B, L], targets [B, C]), n_classes). Train
     loaders shuffle and drop the short last batch; eval loaders take
@@ -65,7 +66,7 @@ def multilabel_loader(
     loader = ManifestLoader(
         pd.DataFrame({"files": files}), batch_size, clip_samples, sample_rate,
         shuffle=shuffle, drop_last=drop_last, seed=seed, num_workers=num_workers,
-        wire_dtype=wire_dtype, on_error=on_error,
+        wire_dtype=wire_dtype, on_error=on_error, host_shard=host_shard,
     )
     loader.labels = targets  # [N, C]: a batch indexes its rows -> [B, C]
     return loader, len(index_dict)

@@ -7,6 +7,7 @@ run read their WAVs through it.
 """
 from __future__ import annotations
 
+import io
 import wave
 
 import numpy as np
@@ -45,13 +46,19 @@ def decode_wav(path) -> tuple[np.ndarray, int]:
     return data, sr
 
 
-def load_wave(path: str, target_sr: int = 16000) -> np.ndarray:
-    """Decode + resample to ``target_sr`` (librosa.load equivalent)."""
+def load_wave(path, target_sr: int = 16000) -> np.ndarray:
+    """Decode + resample to ``target_sr`` (librosa.load equivalent);
+    ``path`` may be a binary file-like object."""
     data, sr = decode_wav(path)
     if sr != target_sr:
         g = np.gcd(sr, target_sr)
         data = resample_poly(data, target_sr // g, sr // g).astype(np.float32)
     return data
+
+
+def load_wave_bytes(buf: bytes, target_sr: int = 16000) -> np.ndarray:
+    """``load_wave`` of a WAV held in memory (a tar-shard member's bytes)."""
+    return load_wave(io.BytesIO(buf), target_sr)
 
 
 def write_wav(path: str, wave_f32: np.ndarray, sr: int = 16000) -> None:

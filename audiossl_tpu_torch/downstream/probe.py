@@ -29,9 +29,16 @@ so that its BatchNorm statistics still update as in the reference
 (utils.py:223-227), and MAST still draws its drop path, as JAX does.
 
 HF-hosted tasks (speech_commands) load through ``data/hf.py`` when no CSVs
-are given. One process on one device: the CUDA kernels on the card (log-mel,
-block 1 in training mode, the attention kernels), their plain versions
-with ``device="cpu"``. Not ported: ``downstream.tp``.
+are given. The CUDA kernels run on the card (log-mel, block 1 in training
+mode, the attention kernels), their plain versions with ``device="cpu"``.
+
+Data parallel across processes (torchrun or the ``AUDIOSSL_*`` environment,
+parallel/launch.py), as JAX's single-host probe splits each batch over its
+``data`` mesh: every process reads the same global batches and takes its
+contiguous share (rows ``rank·B/W`` up to ``(rank+1)·B/W``), the BatchNorms
+are SyncBN, and the step's gradients and loss are the group's means (JAX
+probe.py:283-284); the eval accuracy counts every process's share. Rank 0
+writes the stats. Not ported: ``downstream.tp`` (ROADMAP.md Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -52,6 +59,8 @@ from audiossl_tpu_torch.frontend.stft import LogMelConfig
 from audiossl_tpu_torch.models import surgery
 from audiossl_tpu_torch.models.surgery import newest_encoder
 from audiossl_tpu_torch.objectives.unfused import cross_entropy
+from audiossl_tpu_torch.parallel import dist
+from audiossl_tpu_torch.train.loop import global_batch, join_group, stats_log
 from audiossl_tpu_torch.utils.metrics import Accuracy, AverageMeter
 
 log = logging.getLogger("audiossl_tpu_torch.downstream")
@@ -166,24 +175,32 @@ def features(waves: torch.Tensor, mel_cfg: LogMelConfig) -> torch.Tensor:
 
 def probe_step(model: DownstreamModel, optimizer: torch.optim.Optimizer, mel_cfg: LogMelConfig, waves: torch.Tensor,
                labels: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-    """One training step on device tensors; returns the loss (on the device)."""
+    """One training step on device tensors (this process's share of the
+    batch); returns the loss (on the device), the group's mean."""
     loss = cross_entropy(model(features(waves, mel_cfg), generator), labels)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    dist.all_reduce_grads_(model.parameters())
     optimizer.step()
-    return loss.detach()
+    return dist.all_reduce_mean(loss.detach())
 
 
 @torch.no_grad()
 def evaluate(model: DownstreamModel, loader, mel_cfg: LogMelConfig, dev: torch.device) -> float:
-    """Accuracy over one pass of ``loader`` in eval mode (every clip once)."""
+    """Accuracy over one pass of ``loader`` in eval mode (every clip once,
+    across processes each in one process's share)."""
     model.eval()
     acc = Accuracy()
     for waves, labels in loader.epoch(0):
-        logits = model(features(torch.from_numpy(waves).to(dev), mel_cfg))
-        acc.update(logits.argmax(dim=1).cpu().numpy() == labels)
+        waves, labels = dist.share(waves), dist.share(labels)
+        if len(labels):
+            logits = model(features(torch.from_numpy(waves).to(dev), mel_cfg))
+            acc.update(logits.argmax(dim=1).cpu().numpy() == labels)
     model.train()
-    return acc.avg
+    if not dist.active():
+        return acc.avg
+    hits = dist.all_reduce_sum(torch.tensor([acc.correct, acc.total], dtype=torch.float64, device=dev))
+    return float(hits[0] / hits[1].clamp_min(1.0))
 
 
 def run_downstream(config: dict[str, Any], args: dict[str, Any], device: str | torch.device = "cuda") -> dict[str, Any]:
@@ -192,6 +209,10 @@ def run_downstream(config: dict[str, Any], args: dict[str, Any], device: str | t
     if int(config["downstream"].get("tp", 0) or 0) > 1:
         raise NotImplementedError("downstream.tp is not ported yet (ROADMAP.md Queue 1, item 9)")
     dev = resolve_device(device)
+    world = join_group(config["run"], dev)
+    if world > 1:  # the global batch, a multiple of the world size
+        batch = global_batch(int(config["run"]["batch_size"]), world)
+        config = {**config, "run": {**config["run"], "batch_size": batch}}
     train_loader, valid_loader, test_loader, clip = build_loaders(config, args)
     num_classes = len(train_loader.label_to_id)
     ds = config["downstream"]
@@ -206,17 +227,19 @@ def run_downstream(config: dict[str, Any], args: dict[str, Any], device: str | t
     if freeze:
         model.encoder.requires_grad_(False)
     optimizer = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=float(config["run"].get("lr", 1e-3)))
-    generator = torch.Generator(dev).manual_seed(7)
+    generator = torch.Generator(dev).manual_seed(dist.rank_seed(7))
 
     exp_root = os.path.join(str(args.get("exp_dir", "./exp")), str(args.get("task", "task")))
-    os.makedirs(exp_root, exist_ok=True)
+    if dist.rank() == 0:
+        os.makedirs(exp_root, exist_ok=True)
     epochs = int(config["run"].get("epochs", 100))
     test_acc_hist, step_losses = [], []
-    with open(os.path.join(exp_root, "downstream_stats.txt"), "a", buffering=1) as stats_file:
+    with stats_log(os.path.join(exp_root, "downstream_stats.txt")) as stats_file:
         for epoch in range(epochs):
             t0 = time.time()
             losses = AverageMeter()
             for waves, labels in train_loader.epoch(epoch):
+                waves, labels = dist.share(waves), dist.share(labels)
                 loss = probe_step(model, optimizer, mel_cfg, torch.from_numpy(waves).to(dev),
                                   torch.from_numpy(labels).to(dev), generator)
                 step_losses.append(float(loss))
@@ -228,7 +251,11 @@ def run_downstream(config: dict[str, Any], args: dict[str, Any], device: str | t
             if valid_loader is not None:
                 stats["Valid_Accuracy"] = evaluate(model, valid_loader, mel_cfg, dev)
             log.info("%s", stats)
-            print(json.dumps(stats), file=stats_file)
+            if stats_file is not None:
+                print(json.dumps(stats), file=stats_file)
+    if dist.rank() != 0:
+        return {"best_test_acc": max(test_acc_hist), "history": test_acc_hist, "losses": step_losses, "model": model,
+                "num_classes": num_classes}
     try:
         import matplotlib
 

@@ -23,6 +23,14 @@ are f32. In eval mode BN uses its running statistics. In training mode:
   batch variance (flax's rule; ``nn.BatchNorm2d``'s own update stores the
   unbiased one);
 * dropout draws its mask from the ``generator`` passed to ``forward``.
+
+Across processes (parallel/dist.py) every training-mode BatchNorm is
+SyncBN as flax's ``BatchNorm(axis_name=...)`` is: the group's mean of the
+batch mean and of the mean of squares, through an all-reduce whose backward
+sums the cotangents, and the running statistics fed the group's biased
+variance. Not ``nn.SyncBatchNorm``, which combines per-process variances by
+count and stores the unbiased one. Block 1's kernels do the same
+(ops/block1.py).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from torch import nn
 
 from audiossl_tpu_torch import no_tf32
 from audiossl_tpu_torch.ops import block1
+from audiossl_tpu_torch.parallel import dist
 
 
 def _conv_block(c_in: int) -> nn.Sequential:
@@ -63,15 +72,24 @@ def update_running_stats(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
 
 
+def sync_moments(x: torch.Tensor, axes: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x²]) over ``axes``, the group's mean of each across processes
+    (flax's pmean of the two under ``axis_name``); differentiable."""
+    mean, msq = x.mean(axes), (x * x).mean(axes)
+    if dist.active():
+        mean, msq = dist.all_reduce_mean(torch.stack([mean, msq]), "syncbn").unbind(0)
+    return mean, msq
+
+
 def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """flax ``BatchNorm(use_running_average=False, dtype=f32)`` over every
-    axis but 1: batch mean and fast biased variance in f32, running stats
-    updated, f32 output."""
+    axis but 1: batch mean and fast biased variance in f32 (the group's,
+    across processes), running stats updated, f32 output."""
     axes = [0] + list(range(2, x.dim()))
     shape = [1, -1] + [1] * (x.dim() - 2)
     xf = x.float()
-    mean = xf.mean(axes)
-    var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+    mean, msq = sync_moments(xf, axes)
+    var = (msq - mean * mean).clamp_min(0.0)
     update_running_stats(bn, mean.detach(), var.detach())
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)

@@ -45,6 +45,11 @@ names; both run freq-major, so only the kernels' axis order changes.
 Checkpoints and serving artifacts hold every encoder in the reference
 layout; ``port_layout`` and ``reference_layout`` convert a state_dict of
 any encoder type between that and the port's modules.
+
+``aug_state_from_flax`` / ``aug_state_to_flax`` carry JAX's world-sized
+augmentation state (``P(DATA_AXIS)``: one mixup bank and RunningNorm a
+device) to the port checkpoint's world-sized layout (one a process) and
+back, so that both sides of a data-parallel test start from one state.
 """
 from __future__ import annotations
 
@@ -423,3 +428,46 @@ def efficientnet_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torc
     put_conv("_conv_head", params["head_conv"])
     put_bn("_bn1", params["head_bn"], stats["head_bn"])
     return sd
+
+
+def aug_state_from_flax(aug_state: Any) -> dict[str, Any]:
+    """JAX's world-sized augmentation state (``AugmentState`` sharded as
+    ``P(DATA_AXIS)``: every leaf with a leading dim of the mesh's size, as
+    NumPy arrays or anything ``np.asarray`` takes) -> the port checkpoint's
+    world-sized ``augment`` entry (train/loop.py:world_aug_state): the bank
+    in bf16, the counts int64, the RunningNorm moments f32, and ``world``."""
+    out: dict[str, Any] = {}
+    world = None
+    if aug_state.mixup is not None:
+        m = aug_state.mixup
+        bank = torch.from_numpy(np.asarray(m.bank, np.float32)).to(torch.bfloat16)
+        world = bank.shape[0]
+        out["mixup"] = {"bank": bank, "fill": torch.from_numpy(np.asarray(m.fill, np.int64)),
+                        "ptr": torch.from_numpy(np.asarray(m.ptr, np.int64))}
+    if aug_state.running_norm is not None:
+        rn = aug_state.running_norm
+        out["running_norm"] = {"n": torch.from_numpy(np.asarray(rn.n, np.int64)),
+                               "mean": torch.from_numpy(np.asarray(rn.mean, np.float32)),
+                               "var": torch.from_numpy(np.asarray(rn.var, np.float32)),
+                               "max_update": torch.from_numpy(np.asarray(rn.max_update, np.int64))}
+        world = out["running_norm"]["n"].shape[0]
+    if world is None:
+        raise ValueError("an augmentation state with neither a mixup bank nor RunningNorm carries no world size")
+    return {"world": int(world), **out}
+
+
+def aug_state_to_flax(augment: Mapping[str, Any]) -> dict[str, dict[str, np.ndarray]]:
+    """The inverse: a world-sized ``augment`` entry -> ``{"mixup": {bank
+    (f32), fill, ptr (int32)}, "running_norm": {n, mean, var, max_update}}``
+    of NumPy arrays with the leading world dim, the fields of JAX's
+    ``MixupBankState`` and ``RunningNormState`` (cast the bank to bf16 there)."""
+    out: dict[str, dict[str, np.ndarray]] = {}
+    if "mixup" in augment:
+        m = augment["mixup"]
+        out["mixup"] = {"bank": m["bank"].float().numpy(), "fill": m["fill"].numpy().astype(np.int32),
+                        "ptr": m["ptr"].numpy().astype(np.int32)}
+    if "running_norm" in augment:
+        rn = augment["running_norm"]
+        out["running_norm"] = {"n": rn["n"].numpy().astype(np.int32), "mean": rn["mean"].numpy(),
+                               "var": rn["var"].numpy(), "max_update": rn["max_update"].numpy().astype(np.int32)}
+    return out

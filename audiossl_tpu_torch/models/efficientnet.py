@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiossl_tpu_torch import no_tf32
+from audiossl_tpu_torch.models.audiontt import sync_moments
 
 B0_STAGES = (
     # expand_ratio, out_ch, repeats, kernel, stride
@@ -54,8 +55,8 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, training: bool) -> torch.Ten
     """flax ``BatchNorm(momentum=0.99, epsilon=1e-3)`` on NCHW."""
     if not training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, training=False, eps=bn.eps)
-    mean = x.mean((0, 2, 3))
-    var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)  # flax's fast biased variance
+    mean, msq = sync_moments(x, [0, 2, 3])  # SyncBN across processes, as flax's axis_name
+    var = (msq - mean * mean).clamp_min(0.0)  # flax's fast biased variance
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)

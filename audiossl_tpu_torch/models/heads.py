@@ -15,8 +15,12 @@ the biased variance); the projection is f32.
 (UnFuSeD's classifier) are biased Linears that run in the dtype of their
 input, f32 on the objectives' paths, with TF32 off for an f32 input.
 
-No all-reduce: with world size 1 the JAX package's psum of the
-cross-correlation is the identity. DDP is ROADMAP.md Queue 1, slice 6.
+Across processes (parallel/dist.py) the projector's BatchNorms are SyncBN
+(``batch_norm_train``), ``batch_standardize`` takes the group's moments, and
+the Barlow cross-correlation is divided by the world size and summed over
+the group, as the JAX package does under ``axis_name``; the all-reduces'
+backward sums the cotangents, so the mean of the gradients is the
+one-process gradient of the whole batch. One process: no collective.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from torch import nn
 
 from audiossl_tpu_torch import no_tf32
 from audiossl_tpu_torch.models.audiontt import batch_norm_train
+from audiossl_tpu_torch.parallel import dist
 
 
 class MLPProjector(nn.Module):
@@ -91,9 +96,12 @@ class ClusterProjector(nn.Sequential):
 
 def batch_standardize(z: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """BatchNorm1d(affine=False) in training, as a function: standardize
-    each feature over the batch with the biased variance E[z²] − E[z]²."""
-    mean = z.mean(0)
-    var = z.square().mean(0) - mean.square()
+    each feature over the batch with the biased variance E[z²] − E[z]²,
+    the group's moments across processes (JAX heads.py:67-76)."""
+    mean, sq = z.mean(0), z.square().mean(0)
+    if dist.active():
+        mean, sq = dist.all_reduce_mean(torch.stack([mean, sq]), "barlow").unbind(0)
+    var = sq - mean.square()
     return (z - mean) * torch.rsqrt(var + eps)
 
 
@@ -106,10 +114,13 @@ def barlow_loss(z1: torch.Tensor, z2: torch.Tensor, lambd: float | None = 5e-5, 
     """The unified framework's Barlow-Twins loss (``variant="src"``,
     src/upstream/delores_s/upstream_expert.py:30-46):
     lambd * scale * (on_diag + off_diag) over the cross-correlation of the
-    standardized projections, an f32 product with TF32 off."""
+    standardized projections, an f32 product with TF32 off; across
+    processes divided by the world size and summed (JAX heads.py:108-112)."""
     b = z1.shape[0]
     with no_tf32():
         c = batch_standardize(z1).T @ batch_standardize(z2) / b
+    if dist.active():
+        c = dist.all_reduce_sum(c / dist.world(), "barlow")
     on_diag = (torch.diagonal(c) - 1.0).square().sum()
     off_diag = off_diagonal_sq_sum(c)
     if lambd:

@@ -13,8 +13,11 @@ Reference behaviour (extras/decar-v2):
     ``freeze_prototypes_niters`` steps, the bank refreshed with the
     detached view-1 embeddings (main.py:216-291).
 
-One process: the bank is one shard and ``kmeans_on_mesh`` runs with no
-all-reduce (the JAX package's ``axis_name`` None). The k-means products run
+Across processes each holds its shard of the bank and ``kmeans_on_mesh``
+runs the JAX package's collectives: the initial centroids from rank 0's
+shard (broadcast), the counts and sums summed over the group each
+iteration, and every shard's assignments and indices gathered; with one
+process it is the shard of one. The k-means products run
 in f32 with TF32 off (the JAX package's Precision.HIGHEST); ``argmax`` ties
 take the first index on both sides. The initial centroids' pick comes in as
 an argument. The head runs in f32: BN on batch statistics with running
@@ -32,6 +35,7 @@ from audiossl_tpu_torch import no_tf32
 from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6, batch_norm_train, max_mean_pool
 from audiossl_tpu_torch.objectives.api import Objective, register
 from audiossl_tpu_torch.objectives.delores_s import DTYPES
+from audiossl_tpu_torch.parallel import dist
 
 IGNORE_INDEX = -100
 
@@ -89,19 +93,21 @@ def kmeans_on_mesh(mem_emb: torch.Tensor, mem_idx: torch.Tensor, n_total: int, k
         raise ValueError(f"nmb_prototypes={k} exceeds per-shard memory {m}; reduce the number "
                          "of centroids (reference assert, utils.py:287)")
     valid = mem_idx >= 0
-    cents = mem_emb[pick.to(mem_emb.device)]
+    cents = dist.broadcast_from(mem_emb[pick.to(mem_emb.device)])  # rank 0's shard (JAX: a masked psum)
     arange_k = torch.arange(k, device=mem_emb.device)
     with no_tf32():
         for _ in range(n_iters):
             assign = (mem_emb @ cents.T).argmax(dim=1)
             onehot = ((assign[:, None] == arange_k[None, :]) & valid[:, None]).to(mem_emb.dtype)
-            counts = onehot.sum(dim=0)
-            sums = onehot.T @ mem_emb
+            counts = dist.all_reduce_sum(onehot.sum(dim=0), "kmeans")
+            sums = dist.all_reduce_sum(onehot.T @ mem_emb, "kmeans")
             cents = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1.0)[:, None], cents)
             cents = cents / torch.linalg.vector_norm(cents, dim=1, keepdim=True).clamp_min(1e-12)
         assign = (mem_emb @ cents.T).argmax(dim=1)
+    all_assign, all_idx = dist.all_gather(assign), dist.all_gather(mem_idx)
     assignments = torch.full((n_total + 1,), IGNORE_INDEX, dtype=torch.long, device=mem_emb.device)
-    assignments[torch.where(valid, mem_idx.long(), n_total)] = assign  # unfilled slots land in the dropped last entry
+    # unfilled slots land in the dropped last entry
+    assignments[torch.where(all_idx >= 0, all_idx.long(), n_total)] = all_assign
     return cents, assignments[:n_total]
 
 

@@ -15,8 +15,16 @@ The key pass runs in training mode under ``torch.no_grad()``: its BatchNorm
 uses batch statistics and updates the key encoder's own running statistics
 (JAX's ``batch_stats_k``), and block 1 runs the fused forward kernel with no
 backward. The key encoder, the queue and its pointer are part of the
-state_dict, so a checkpoint carries the whole MoCo state. ``shuffle_bn`` is
-read and changes nothing on one process, as in JAX with ``axis_name=None``.
+state_dict, so a checkpoint carries the whole MoCo state.
+
+Across processes (parallel/dist.py), as in JAX under the ``data`` axis: the
+queue takes the all-gathered keys of every process, in rank order; every
+BatchNorm, the key tower's included, is SyncBN; the taps' Barlow losses sum
+their cross-correlations over the group. ``pretrain.shuffle_bn`` (a
+compatibility mode) also shuffles the key batch across processes by one
+agreed permutation (rank 0's draw, broadcast; JAX's ``pmax`` of key bits)
+before the key pass and unshuffles the embedding and the three taps after
+it (the reference forgets the taps). With one process it changes nothing.
 
 ``info_nce`` and ``queue_update`` are shared with SLICER and SS-MAST;
 ``MocoObjective`` holds what DeLoRes-M and SLICER share (the key encoder
@@ -37,6 +45,7 @@ from audiossl_tpu_torch.models.heads import MLPProjector, barlow_loss
 from audiossl_tpu_torch.objectives.api import Objective, register
 from audiossl_tpu_torch.objectives.delores_s import DTYPES
 from audiossl_tpu_torch.ops.stats import l2_normalize
+from audiossl_tpu_torch.parallel import dist
 
 # the taps' widths at 64 mels, which the JAX objectives hard-code
 # (delores_m.py:147, unfused.py:86)
@@ -55,15 +64,40 @@ def info_nce(q: torch.Tensor, k: torch.Tensor, queue: torch.Tensor, temperature:
 
 def queue_update(queue: torch.Tensor, ptr: torch.Tensor, keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Write keys [B, d] into a copy of queue [d, N] at columns ptr .. ptr + B
-    (dequeue-and-enqueue) -> (queue', (ptr + B) % N). ``ptr`` stays a device
+    (dequeue-and-enqueue) -> (queue', (ptr + B) % N); across processes the
+    keys are every process's, all-gathered in rank order (JAX
+    delores_m.py:115-117), so B is the global batch. ``ptr`` stays a device
     tensor, so nothing waits for the card. The copy keeps the old queue intact
     for the backward of a loss that used it."""
+    keys = dist.all_gather(keys)
     b, n = keys.shape[0], queue.shape[1]
     if n % b:
         # the reference asserts this too (upstream_expert.py:166)
-        raise ValueError(f"num_negatives={n} must be divisible by the batch {b} (MoCo queue simplicity assert)")
+        raise ValueError(f"num_negatives={n} must be divisible by the global batch {b} "
+                         "(MoCo queue simplicity assert)")
     cols = ptr + torch.arange(b, device=queue.device)
     return queue.index_copy(1, cols, keys.T.to(queue.dtype)), (ptr + b) % n
+
+
+def agreed_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
+    """A permutation of the group's n clips that every process holds: rank
+    0's draw from its generator, broadcast (JAX agrees on one key by ``pmax``
+    of the key bits)."""
+    dev = generator.device
+    perm = torch.randperm(n, generator=generator, device=dev) if dist.rank() == 0 else \
+        torch.empty(n, dtype=torch.long, device=dev)
+    return dist.broadcast_from(perm)
+
+
+def batch_shuffle(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """This process's share of the gathered batch permuted by ``perm``
+    (MoCo shuffle-BN; JAX delores_m.py:92-105)."""
+    return dist.all_gather(x)[perm.view(dist.world(), -1)[dist.rank()]]
+
+
+def batch_unshuffle(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``batch_shuffle``: this process's own clips back."""
+    return dist.all_gather(x)[torch.argsort(perm).view(dist.world(), -1)[dist.rank()]]
 
 
 def parse_scale(scale: Any) -> float:
@@ -131,7 +165,7 @@ class MocoObjective(Objective):
         self.num_negatives = int(pre.get("num_negatives", 65536))
         self.momentum = float(pre.get("encoder_momentum", 0.999))
         self.temperature = float(pre.get("softmax_temperature", 0.07))
-        self.shuffle_bn = bool(pre.get("shuffle_bn", False))  # one process: nothing to shuffle across
+        self.shuffle_bn = bool(pre.get("shuffle_bn", False))  # acted on across processes (_key_pass)
         self.encoder_k.requires_grad_(False)
         self.register_buffer("queue", torch.zeros(emb_dim, self.num_negatives))
         self.register_buffer("queue_ptr", torch.zeros((), dtype=torch.long))
@@ -159,6 +193,16 @@ class MocoObjective(Objective):
         pk = list(self.encoder_k.parameters())
         torch._foreach_mul_(pk, self.momentum)
         torch._foreach_add_(pk, list(self.encoder.parameters()), alpha=1.0 - self.momentum)
+
+    def _key_pass(self, v: torch.Tensor, generator: torch.Generator | None) -> tuple:
+        """The key encoder's outputs for ``v`` under ``no_grad``; with
+        ``shuffle_bn`` across processes, on a batch shuffled by an agreed
+        permutation and every output unshuffled."""
+        with torch.no_grad():
+            if not (self.shuffle_bn and dist.active()):
+                return self.encoder_k(v, generator)
+            perm = agreed_permutation(v.shape[0] * dist.world(), generator)
+            return tuple(batch_unshuffle(o, perm) for o in self.encoder_k(batch_shuffle(v, perm), generator))
 
     def _enqueue(self, keys: torch.Tensor) -> None:
         # new tensors: the backward of a loss that read the old queue keeps it
@@ -193,9 +237,8 @@ class DeloresM(MocoObjective):
         q, *q_taps = self.encoder(v1, generator)
         q = l2_normalize(q, dim=1)
         self._ema_()
-        with torch.no_grad():
-            k, *k_taps = self.encoder_k(v2, generator)
-            k = l2_normalize(k, dim=1)
+        k, *k_taps = self._key_pass(v2, generator)
+        k = l2_normalize(k, dim=1)
         nce = info_nce(q, k, self.queue, self.temperature)
         barlow = 0.0
         for i, (tq, tk) in enumerate(zip(q_taps, k_taps), 1):

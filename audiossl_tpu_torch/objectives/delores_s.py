@@ -5,7 +5,8 @@ Reference behaviour (src/upstream/delores_s/upstream_expert.py:191-203):
 both views through one AudioNTT encoder (view 1 then view 2, each updating
 the BatchNorm running statistics in turn), max+mean temporal pooling, a
 d -> P -> P -> P projector, and the Barlow loss with lambda 5e-5 and scale
-1/32. World size 1: no all-reduce of the cross-correlation yet.
+1/32. Across processes the BatchNorms are SyncBN and the cross-correlation
+is summed over the group (models/heads.py), as in JAX.
 """
 from __future__ import annotations
 

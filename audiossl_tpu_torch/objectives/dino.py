@@ -4,8 +4,8 @@ reference: extras/decar-v2/dino_loss.py:7-65).
 The reference keeps this beside DECAR as an unused variant; nothing in the
 JAX package calls it either. Teacher outputs are centred by an EMA centre,
 sharpened by a warm-up-scheduled temperature, and the student is trained by
-CE against them. One process: the centre's batch mean is the local one (the
-JAX package's psum over ``axis_name`` is the identity here).
+CE against them. Across processes the centre's batch mean is the group's
+(the JAX package's psum over ``axis_name``, parallel/dist.py).
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from audiossl_tpu_torch.parallel import dist
 
 
 class DinoState(NamedTuple):
@@ -44,5 +46,5 @@ def dino_loss(student_out: torch.Tensor, teacher_out: torch.Tensor, state: DinoS
     else:
         t = torch.softmax((teacher_out - state.center) / teacher_temp, dim=-1)
         loss = (-t * torch.log_softmax(student_out / student_temp, dim=-1)).sum(dim=-1).mean()
-    batch_center = teacher_out.sum(dim=0, keepdim=True) / teacher_out.shape[0]
+    batch_center = dist.all_reduce_sum(teacher_out.sum(dim=0, keepdim=True)) / (teacher_out.shape[0] * dist.world())
     return loss, DinoState(center=state.center * center_momentum + batch_center * (1.0 - center_momentum))

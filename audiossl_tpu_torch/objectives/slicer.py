@@ -14,8 +14,10 @@ autograd graph.
 
 The loss is ce_12 + ce_21 + the cluster loss of the two query passes'
 assignments, the JAX package's combined loss (the reference backpropagates
-only ce_12, upstream_expert.py:237; JAX's choice is kept). ``shuffle_bn``
-changes nothing on one process.
+only ce_12, upstream_expert.py:237; JAX's choice is kept). Across
+processes the queue takes every process's keys and the BatchNorms are SyncBN;
+``shuffle_bn`` shuffles each key pass's batch across them
+(``MocoObjective._key_pass``) and changes nothing on one process.
 """
 from __future__ import annotations
 
@@ -100,8 +102,7 @@ class Slicer(MocoObjective):
         q, q_clus = self.encoder(vq, generator)
         q = l2_normalize(q, dim=1)
         self._ema_()
-        with torch.no_grad():
-            k = l2_normalize(self.encoder_k(vk, generator)[0], dim=1)
+        k = l2_normalize(self._key_pass(vk, generator)[0], dim=1)
         ce = info_nce(q, k, self.queue, self.temperature)
         self._enqueue(k)
         return ce, q_clus

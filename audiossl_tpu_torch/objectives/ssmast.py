@@ -14,8 +14,15 @@ concat(v2, v1) in one key pass after both EMA steps, as the JAX package does;
 key encoder's parameters take no gradient and are not the optimizer's; they,
 the queue, its pointer and the step counter are part of the state_dict, so a
 checkpoint carries the whole MoCo state. Both passes run in training mode
-(drop path on), with draws from the step's generator. Shuffle-BN is a no-op
-for the LayerNorm-only MAST on one device.
+(drop path on), with draws from the step's generator.
+
+Across processes (parallel/dist.py) every enqueue takes the all-gathered
+keys of the group in rank order, as JAX's ``queue_update`` does. With
+``pretrain.shuffle_bn`` there the step takes the sequential path (JAX
+excludes the batched views under shuffle-BN, ssmast.py:126) and each key
+pass runs on the batch shuffled across processes by an agreed permutation,
+unshuffled after; MAST has no batch statistics, so this moves only which
+clip takes which drop-path draw. On one process shuffle-BN changes nothing.
 
 ``pretrain.grad_accum_steps: A`` (``loss_and_backward``) runs the batch as A
 microbatches with one microbatch's activations live at a time, exact
@@ -36,8 +43,10 @@ import torch
 from audiossl_tpu_torch.models.convert import mvit_reference_layout
 from audiossl_tpu_torch.models.mast import MASTWithHead
 from audiossl_tpu_torch.objectives.api import Objective, register
-from audiossl_tpu_torch.objectives.delores_m import info_nce, queue_update
+from audiossl_tpu_torch.objectives.delores_m import (agreed_permutation, batch_shuffle, batch_unshuffle, info_nce,
+                                                     queue_update)
 from audiossl_tpu_torch.ops.stats import l2_normalize
+from audiossl_tpu_torch.parallel import dist
 from audiossl_tpu_torch.train.accum import microbatched_value_and_grad, set_grads, split_batch
 
 
@@ -58,7 +67,8 @@ class SSMast(Objective):
         self.steps_per_epoch = int(pre.get("steps_per_epoch", 1000))
         self.batched_views = bool(pre.get("batched_views", True))
         self.grad_accum = max(1, int(pre.get("grad_accum_steps", 1)))
-        if self.grad_accum > 1 and bool(pre.get("shuffle_bn", False)):
+        self.shuffle_bn = bool(pre.get("shuffle_bn", False))
+        if self.grad_accum > 1 and self.shuffle_bn:
             raise ValueError("pretrain.grad_accum_steps > 1 is incompatible with shuffle_bn")
         inp = pre["input"]
         kw = dict(
@@ -105,16 +115,20 @@ class SSMast(Objective):
         torch._foreach_mul_(pk, m)
         torch._foreach_add_(pk, torch._foreach_mul(p, 1.0 - m))
 
-    def _keys(self, v: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    def _keys(self, v: torch.Tensor, generator: torch.Generator | None, shuffle: bool = False) -> torch.Tensor:
         with torch.no_grad():
-            return l2_normalize(self.encoder_k(v, generator), dim=1)
+            if not shuffle:
+                return l2_normalize(self.encoder_k(v, generator), dim=1)
+            perm = agreed_permutation(v.shape[0] * dist.world(), generator)
+            return l2_normalize(batch_unshuffle(self.encoder_k(batch_shuffle(v, perm), generator), perm), dim=1)
 
     def loss(self, v1: torch.Tensor, v2: torch.Tensor, generator: torch.Generator | None = None,
              labels: torch.Tensor | None = None) -> torch.Tensor:
         """The step's InfoNCE sum; advances the key encoder, queue, pointer and step."""
         m = self.momentum()
         queue, ptr = self.queue, self.queue_ptr
-        if self.batched_views:
+        shuffle = self.shuffle_bn and dist.active()
+        if self.batched_views and not shuffle:
             b = v1.shape[0]
             self._ema_(m)
             self._ema_(m)
@@ -129,7 +143,7 @@ class SSMast(Objective):
             for vq, vk in ((v1, v2), (v2, v1)):
                 self._ema_(m)  # reference-exact: one EMA application per forward pass
                 q = l2_normalize(self.encoder(vq, generator), dim=1)
-                k = self._keys(vk, generator)
+                k = self._keys(vk, generator, shuffle)
                 total = total + info_nce(q, k, queue, self.temperature)
                 queue, ptr = queue_update(queue, ptr, k)
         self.queue, self.queue_ptr = queue, ptr  # new tensors: the loss's backward keeps the old queue

@@ -29,6 +29,14 @@ The maxpool gradient goes to the window's FIRST maximum in the JAX package's
 time-major order (t0,f0), (t0,f1), (t1,f0), (t1,f1) — not ``F.max_pool2d``'s
 (f, t) order — so the plain versions route dy explicitly. The input gradient
 is not computed: ``fused_block1`` raises for an input that requires grad.
+
+SyncBN across processes (parallel/dist.py), as the JAX block does under
+``axis_name``: the forward all-reduces the batch mean and mean of squares
+between ``batch_moments`` and ``block1_fwd`` (``_batch_stats``'s pmean), and
+the backward all-reduces Σ dxhat and Σ dxhat·xhat between
+``block1_bwd_sums`` and ``block1_bwd_weight`` and divides by the global
+count (``_bwd``'s psum). The kernels see only their process's clips. With no
+process group nothing changes: the same launches and the same bits.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from audiossl_tpu_torch import kernels, no_tf32
+from audiossl_tpu_torch.parallel import dist
 
 BN_EPS = 1e-5  # ConvBlock's BatchNorm epsilon
 N_PARAMS = 16
@@ -65,8 +74,8 @@ def banded_matrix(weight: torch.Tensor, f: int) -> torch.Tensor:
     return m.reshape(3 * f, f * weight.shape[0])
 
 
-def batch_stats(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batch mean and biased variance per channel of conv(x) + bias over
+def batch_moments(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch mean and mean of squares per channel of conv(x) + bias over
     (B, F, T), from the f32 weights, as ``_batch_stats`` computes them:
     sum(y) = (1ᵀX) M and sum(y²) = Σ M ⊙ ((XᵀX) M) over rows X of the three
     time shifts, so only a [3F, 3F] Gram matrix is formed. No gradient."""
@@ -88,7 +97,14 @@ def batch_stats(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> tu
         n = n2 * f
         mean = s_raw.view(f, c).sum(0) / n
         msq = ssq_raw.view(f, c).sum(0) / n
-        return mean, msq - mean**2
+        return mean, msq
+
+
+def batch_stats(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch mean and biased variance (E[y²] − E[y]²) per channel of
+    conv(x) + bias over this process's (B, F, T). No gradient."""
+    mean, msq = batch_moments(x, weight, bias)
+    return mean, msq - mean**2
 
 
 def pack_params(
@@ -321,7 +337,10 @@ class FusedBlock1(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, gamma, beta):
-        mean, var = batch_stats(x, weight, bias)
+        mean, msq = batch_moments(x, weight, bias)
+        if dist.active():  # SyncBN: the group's moments (JAX pmean, ops/block1.py:368-370)
+            mean, msq = dist.all_reduce_mean(torch.stack([mean, msq]), "syncbn").unbind(0)
+        var = msq - mean**2
         istd = torch.rsqrt(var + BN_EPS)
         a = gamma.detach() * istd
         b2 = beta.detach() - mean * a
@@ -342,9 +361,13 @@ class FusedBlock1(torch.autograd.Function):
         dbeta = sdy
         dgamma = (sdyy - mean * sdy) * istd  # sum(dy * xhat)
         b, _, f, t = x.shape
-        n = b * f * t
-        s1 = gamma * sdy / n
-        s2 = gamma * dgamma / n
+        s1 = gamma * sdy  # Σ dxhat
+        s2 = gamma * dgamma  # Σ dxhat · xhat
+        if dist.active():  # the group's sums over its global count (JAX psum, ops/block1.py:470-478)
+            s1, s2 = dist.all_reduce_sum(torch.stack([s1, s2]), "syncbn").unbind(0)
+        n = b * f * t * dist.world()
+        s1 = s1 / n
+        s2 = s2 / n
         k1 = istd * gamma
         k2 = -(istd**2) * s2
         k3 = -istd * s1 + istd**2 * s2 * mean

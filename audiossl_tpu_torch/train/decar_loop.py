@@ -22,7 +22,17 @@ stopped; it re-clusters only where that run would, at an epoch's start (the
 JAX trainer restarts at epoch 0 and re-clusters at once). SIGTERM stops the
 epoch at the log cadence, and that save is the preemption checkpoint. The k-means
 initial picks come from ``np.random.default_rng((seed, 10_000 + epoch,
-head))``. One process on one device.
+head))``.
+
+Data parallel across processes as the JAX trainer splits its step over the
+``data`` mesh (torchrun or the ``AUDIOSSL_*`` environment,
+parallel/launch.py): every process reads the global batch and takes its
+contiguous share, holds its shard of the bank (``steps_per_epoch ·
+batch / world`` slots, filled from its shares), clusters with the group
+(``kmeans_on_mesh``'s collectives), and the step's gradients and loss are
+the group's means. Rank 0 writes the checkpoints, with every shard of the
+bank and of the augmentation state in one world-sized layout; a resume
+takes the world size it was saved at.
 """
 from __future__ import annotations
 
@@ -43,9 +53,11 @@ from audiossl_tpu_torch.data.pipeline import ManifestLoader
 from audiossl_tpu_torch.frontend import build_frontend
 from audiossl_tpu_torch.objectives import init_objective
 from audiossl_tpu_torch.objectives.decar import IGNORE_INDEX, DecarV2, kmeans_on_mesh, memory_update
+from audiossl_tpu_torch.parallel import dist
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.loop import (
-    MetricsBuffer, aug_state_dict, aug_state_from_dict, check_parallel_knobs, kmix_centroids,
+    MetricsBuffer, aug_state_from_world, check_parallel_knobs, gather_generators, global_batch, join_group,
+    kmix_centroids, stats_log, world_aug_state,
 )
 from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
@@ -64,10 +76,12 @@ def waves_to_device(waves: np.ndarray, dev: torch.device) -> torch.Tensor:
 def fill_memory(objective: DecarV2, loader: ManifestLoader, frontend, mem_emb: torch.Tensor,
                 mem_idx: torch.Tensor) -> None:
     """The bank from an eval-mode pass over epoch 0's batches, slot by slot
-    in batch order, on the raw log-mel (no RunningNorm)."""
+    in batch order, on the raw log-mel (no RunningNorm); across processes
+    each fills its shard from its share of every batch."""
     objective.eval()
     pos = 0
     for waves, idxs in loader.epoch(0):
+        waves, idxs = dist.share(waves), dist.share(idxs)
         emb, _ = objective.net(frontend(waves_to_device(waves, mem_emb.device))[:, None])
         mem_emb[pos:pos + len(idxs)] = emb
         mem_idx[pos:pos + len(idxs)] = torch.from_numpy(idxs).to(mem_idx.device)
@@ -117,8 +131,9 @@ class DecarStep(TrainStep):
             loss, emb = self.objective.step_loss(v1, v2, self.assignments[:, labels], self.generator)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        dist.all_reduce_grads_(self.objective.parameters())
         self._pending = (emb, labels)
-        return loss.detach()
+        return dist.all_reduce_mean(loss.detach())
 
     def update(self) -> None:
         self.objective.freeze_prototype_grads(self.step)
@@ -139,11 +154,12 @@ def train_decar(
 ):
     """DECAR-v2 pretraining on the manifest ``input_csv`` -> (objective,
     final step, checkpoint directory). ``config`` is not changed."""
-    check_parallel_knobs(config)
     dev = resolve_device(device)
+    world = join_group(config["run"], dev)
+    check_parallel_knobs(config)
     config = copy.deepcopy(config)
     run, pre = config["run"], config["pretrain"]
-    batch = int(run["batch_size"])
+    batch = global_batch(int(run["batch_size"]), world)  # every process reads it and takes its share
     frontend = build_frontend(pre["input"])
     loader = ManifestLoader(
         input_csv, batch_size=batch, clip_samples=cfgmod.clip_samples(config), sample_rate=frontend.sample_rate,
@@ -162,10 +178,11 @@ def train_decar(
                           end_lr_factor=final_lr / max(base_lr, 1e-9))
     optimizer, scheduler = build_optimizer("larc", objective.parameters(), sched, momentum=0.9, weight_decay=1e-6,
                                            trust_coefficient=0.001, clip=False)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev).manual_seed(dist.rank_seed(seed))
     aug_state = pipeline.init_state(frontend.n_mels, frontend.num_frames(loader.clip_samples), dev)
-    mem_emb = torch.zeros((steps_per_epoch * batch, objective.feat_dim), dtype=torch.float32, device=dev)
-    mem_idx = torch.full((steps_per_epoch * batch,), -1, dtype=torch.long, device=dev)
+    slots = steps_per_epoch * (batch // world)  # this process's shard of the bank
+    mem_emb = torch.zeros((slots, objective.feat_dim), dtype=torch.float32, device=dev)
+    mem_idx = torch.full((slots,), -1, dtype=torch.long, device=dev)
     assignments = torch.full((len(objective.nmb_prototypes), n_total), IGNORE_INDEX, dtype=torch.long, device=dev)
     step, epoch_step, position = 0, 0, None
     if load_checkpoint:
@@ -173,10 +190,10 @@ def train_decar(
         objective.load_state_dict(saved["objective"])
         optimizer.load_state_dict(saved["optimizer"])
         scheduler.load_state_dict(saved["scheduler"])
-        aug_state = aug_state_from_dict(saved["augment"], dev)
-        generator.set_state(saved["generator"])
-        mem_emb.copy_(saved["memory"]["emb"])
-        mem_idx.copy_(saved["memory"]["index"])
+        aug_state = aug_state_from_world(saved["augment"], dev)  # raises at another world size
+        generator.set_state(saved["generator"][dist.rank()])
+        mem_emb.copy_(saved["memory"]["emb"][dist.rank()])
+        mem_idx.copy_(saved["memory"]["index"][dist.rank()])
         assignments.copy_(saved["assignments"])
         step, epoch_step, position = int(saved["step"]), int(saved["epoch_step"]), saved["loader"]
         log.info("resumed from %s at step %d", load_checkpoint, step)
@@ -188,15 +205,21 @@ def train_decar(
     train_step.step, train_step.epoch_step = step, epoch_step
 
     ckpt_dir = run.get("save_path", "./runs/decar_v2") + "_chkp"
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if dist.rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
     keep_last = int(run.get("keep_checkpoints", 0)) or None
 
     def save() -> None:
+        # collectives: every process's augmentation state, generator and bank shard
+        augment, generators = world_aug_state(aug_state), gather_generators(generator)
+        memory = {"emb": dist.all_gather(mem_emb[None]), "index": dist.all_gather(mem_idx[None])}
+        if dist.rank() != 0:
+            return
         state = {
             "objective": objective.state_dict(), "optimizer": optimizer.state_dict(),
-            "scheduler": scheduler.state_dict(), "augment": aug_state_dict(aug_state),
-            "generator": generator.get_state(), "loader": loader.position, "step": train_step.step,
-            "epoch_step": train_step.epoch_step, "memory": {"emb": mem_emb, "index": mem_idx},
+            "scheduler": scheduler.state_dict(), "augment": augment,
+            "generator": generators, "loader": loader.position, "step": train_step.step,
+            "epoch_step": train_step.epoch_step, "memory": memory,
             "assignments": train_step.assignments, "config": config,
         }
         ckpt.save_checkpoint(ckpt_dir, train_step.step, state, objective.export_state_dict(), config, keep_last)
@@ -207,7 +230,7 @@ def train_decar(
         if start_batch >= steps_per_epoch:
             start_epoch, start_batch, rng_state = start_epoch + 1, 0, None
     done = False
-    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file, PreemptionGuard() as guard:
+    with stats_log(os.path.join(ckpt_dir, "stats.jsonl")) as stats_file, PreemptionGuard() as guard:
         buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
         for epoch in range(start_epoch, epochs):
             first = epoch == start_epoch
@@ -216,6 +239,7 @@ def train_decar(
                 train_step.epoch_step = 0
             t_end = time.time()
             for waves, idxs in loader.epoch(epoch, start_batch if first else 0, rng_state if first else None):
+                waves, idxs = dist.share(waves), dist.share(idxs)
                 data_time = time.time() - t_end
                 aug_state, loss = train_step(aug_state, torch.from_numpy(waves).to(dev), torch.from_numpy(idxs).to(dev))
                 batch_time = time.time() - t_end

@@ -25,7 +25,15 @@ The checkpoint at each epoch's end (and at ``max_steps``) records the next
 epoch (the same epoch after a SIGTERM stop at the log cadence), the step, the encoder, the optimizer, the generator and the
 sampler's rng; a resumed run starts that epoch from its feature pass and
 does not restore the top layer, which each epoch makes anew (the reference
-deletes it from checkpoints, main_back.py:68-72). One process on one device.
+deletes it from checkpoints, main_back.py:68-72).
+
+Data parallel across processes as the JAX trainer shards its feature pass
+and step over the ``data`` mesh (torchrun or the ``AUDIOSSL_*``
+environment, parallel/launch.py): every process reads the global batches
+and embeds or trains on its contiguous share; the features are gathered
+in manifest order, rank 0's clustering is broadcast, and the step's
+gradients and loss are the group's means. Rank 0 writes the checkpoints,
+with every process's generator.
 """
 from __future__ import annotations
 
@@ -52,7 +60,9 @@ from audiossl_tpu_torch.objectives.delores_s import DTYPES
 from audiossl_tpu_torch.objectives.unfused import cross_entropy
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.decar_loop import waves_to_device
-from audiossl_tpu_torch.train.loop import MetricsBuffer, check_parallel_knobs
+from audiossl_tpu_torch.parallel import dist
+from audiossl_tpu_torch.train.loop import (MetricsBuffer, check_parallel_knobs, gather_generators, global_batch,
+                                           join_group, stats_log)
 from audiossl_tpu_torch.train.optim import sgd_torch
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.train.step import TrainStep
@@ -131,11 +141,14 @@ def build_net(pre: dict[str, Any], seed: int, device: torch.device) -> DeepClust
 
 @torch.no_grad()
 def feature_pass(net: DeepClusterNet, loader: ManifestLoader, frontend, epoch: int, dev: torch.device) -> torch.Tensor:
-    """Eval-mode features [N, d] of every clip in manifest order."""
+    """Eval-mode features [N, d] of every clip in manifest order; across
+    processes each embeds its share of every batch and the shares are
+    gathered in rank order (JAX's sharded embed step)."""
     net.eval()
     feats = []
     for waves, _ in loader.epoch(epoch, order=np.arange(loader.num_samples)):
-        feats.append(net.features(frontend(waves_to_device(waves, dev))[:, None]))
+        part = net.features(frontend(waves_to_device(dist.share(waves), dev))[:, None])
+        feats += [p.to(dev) for p in dist.gather_objects(part.cpu())] if dist.active() else [part]
     net.train()
     return torch.cat(feats)
 
@@ -150,11 +163,12 @@ def train_deepcluster_v1(
 ):
     """DeepCluster-v1 pretraining on ``input_csv`` -> (net, final step,
     checkpoint directory, the last epoch's cluster ids [N] or None)."""
-    check_parallel_knobs(config)
     dev = resolve_device(device)
+    world = join_group(config["run"], dev)
+    check_parallel_knobs(config)
     config = copy.deepcopy(config)
     run, pre = config["run"], config["pretrain"]
-    batch = int(run["batch_size"])
+    batch = global_batch(int(run["batch_size"]), world)  # every process reads it and trains on its share
     frontend = build_frontend(pre["input"])
     loader = ManifestLoader(
         input_csv, batch_size=batch, clip_samples=cfgmod.clip_samples(config), sample_rate=frontend.sample_rate,
@@ -166,7 +180,7 @@ def train_deepcluster_v1(
     net = build_net(pre, seed, dev).train()
     n_clusters, d = net.top_layer.out_features, net.top_layer.in_features
     optimizer = sgd_torch(net.parameters(), float(run.get("learning_rate", 0.05)), momentum=0.9, weight_decay=1e-5)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev).manual_seed(dist.rank_seed(seed))
     # no augmentation and no norm (the config has none): both views are the raw log-mel
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=n_total)
     aug_state = pipeline.init_state(frontend.n_mels, frontend.num_frames(loader.clip_samples), dev)
@@ -177,17 +191,21 @@ def train_deepcluster_v1(
         saved = ckpt.load_checkpoint(load_checkpoint)
         net.encoder.load_state_dict(saved["encoder"])  # the top layer is made anew each epoch
         optimizer.load_state_dict(saved["optimizer"])
-        generator.set_state(saved["generator"])
+        if len(saved["generator"]) != world:
+            raise ValueError(f"the checkpoint was written by {len(saved['generator'])} process(es), this run has "
+                             f"{world}: resume at the world size it was saved at")
+        generator.set_state(saved["generator"][dist.rank()])
         order_rng.bit_generator.state = saved["order_rng"]
         start_epoch, step = int(saved["epoch"]), int(saved["step"])
         log.info("resumed from %s at epoch %d step %d", load_checkpoint, start_epoch, step)
 
     ckpt_dir = run.get("save_path", "./runs/decar_v1") + "_chkp"
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if dist.rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
     keep_last = int(run.get("keep_checkpoints", 0)) or None
     labels = None
     done = preempted = False
-    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file, PreemptionGuard() as guard:
+    with stats_log(os.path.join(ckpt_dir, "stats.jsonl")) as stats_file, PreemptionGuard() as guard:
         buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
         for epoch in range(start_epoch, int(run.get("epochs", 1))):
             feats = feature_pass(net, loader, frontend, epoch, dev)
@@ -196,6 +214,9 @@ def train_deepcluster_v1(
             labels = np.full((n_total,), -1, np.int64)
             for c, members in enumerate(km.images_lists):
                 labels[np.asarray(members, np.int64)] = c
+            if dist.active():  # rank 0's clustering on every process (the JAX trainer clusters once, on the host)
+                labels, km_loss = dist.gather_objects((labels, km_loss))[0]
+                km.images_lists = [np.flatnonzero(labels == c).tolist() for c in range(n_clusters)]
             log.info("epoch %d: k-means objective %.6g over %d clips, %d non-empty of %d clusters",
                      epoch, km_loss, n_total, sum(1 for m in km.images_lists if m), n_clusters)
             order = uniform_label_epoch(km.images_lists, n_total, order_rng)
@@ -207,8 +228,8 @@ def train_deepcluster_v1(
                 if len(waves) < batch:
                     continue  # the tail batch
                 data_time = time.time() - t_end
-                y = labels_dev[torch.from_numpy(order[b * batch:(b + 1) * batch]).to(dev)]
-                aug_state, loss = train_step(aug_state, torch.from_numpy(waves).to(dev), y)
+                y = labels_dev[torch.from_numpy(dist.share(order[b * batch:(b + 1) * batch])).to(dev)]
+                aug_state, loss = train_step(aug_state, torch.from_numpy(dist.share(waves)).to(dev), y)
                 step += 1
                 batch_time = time.time() - t_end
                 t_end = time.time()
@@ -225,10 +246,12 @@ def train_deepcluster_v1(
             # a preempted epoch records `epoch`, not epoch + 1: DeepCluster is
             # epoch-granular (features -> k-means -> CE), so a resume re-runs
             # the interrupted epoch rather than skip its remaining steps
-            state = {"epoch": epoch if preempted else epoch + 1, "step": step, "encoder": net.encoder.state_dict(),
-                     "optimizer": optimizer.state_dict(), "generator": generator.get_state(),
-                     "order_rng": order_rng.bit_generator.state, "config": config}
-            ckpt.save_checkpoint(ckpt_dir, step, state, net.encoder.state_dict(), config, keep_last)
+            generators = gather_generators(generator)  # a collective
+            if dist.rank() == 0:
+                state = {"epoch": epoch if preempted else epoch + 1, "step": step, "encoder": net.encoder.state_dict(),
+                         "optimizer": optimizer.state_dict(), "generator": generators,
+                         "order_rng": order_rng.bit_generator.state, "config": config}
+                ckpt.save_checkpoint(ckpt_dir, step, state, net.encoder.state_dict(), config, keep_last)
             if done:
                 break
     return net, step, ckpt_dir, labels

@@ -33,8 +33,16 @@ the epoch at the log cadence; its save is the epoch-end one, without eval.
         [--load_checkpoint DIR] [--max_steps N] [--epochs N] [--batch_size N] \\
         [--grad_accum_steps A] [--save_path PATH] [--device cuda|cpu]
 
-One process on one device: ``--fsdp`` / ``run.fsdp`` and ``run.world_size >
-1`` are refused (ROADMAP.md Queue 1, item 9).
+Data parallel across processes (torchrun or the ``AUDIOSSL_*`` environment,
+parallel/launch.py), as JAX's ``shard_map`` step: each process reads its
+rank-strided share of the datafile (``host_shard``) at ``batch_size //
+world`` clips, draws from its own generator, and the step's gradients and
+loss are the group's means (JAX finetune_mast.py:242-246). The eval loader
+is sharded the same way and the scores come back to every process in the
+datafile's order (JAX :269); the sharded order is padded by wrapping to a
+multiple of the world size, so at world W the eval metrics count the first
+(−N mod W) clips twice. Rank 0 writes the checkpoints and the stats.
+``--fsdp`` / ``run.fsdp`` is refused (ROADMAP.md Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -61,10 +69,12 @@ from audiossl_tpu_torch.models.mast import MASTEncoder
 from audiossl_tpu_torch.objectives.api import flax_init_
 from audiossl_tpu_torch.ops.masking import MaskDraws, sample_mask_draws, spec_mask
 from audiossl_tpu_torch.ops.stats import precomputed_norm
+from audiossl_tpu_torch.parallel import dist
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.accum import microbatched_value_and_grad, set_grads
 from audiossl_tpu_torch.train.layer_decay import adamw_layer_decay
-from audiossl_tpu_torch.train.loop import MetricsBuffer, check_parallel_knobs
+from audiossl_tpu_torch.train.loop import (MetricsBuffer, check_parallel_knobs, gather_generators, global_batch,
+                                           join_group, stats_log)
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.utils.metrics import auc_roc, d_prime, mean_average_precision
 
@@ -223,7 +233,8 @@ class FinetuneStep:
         with self.precision():
             loss, grads = microbatched_value_and_grad(micro_loss, self.accum)(self.params, (waves, targets))
         set_grads(self.params, grads)
-        return loss
+        dist.all_reduce_grads_(self.params)  # once, after the last microbatch
+        return dist.all_reduce_mean(loss)
 
     def __call__(self, waves: torch.Tensor, targets: torch.Tensor, draws: list[StepDraws] | None = None) -> torch.Tensor:
         loss = self.loss_and_grads(waves, targets, draws)
@@ -264,14 +275,28 @@ def init_classifier(ft: dict[str, Any], n_classes: int, seed: int, device: torch
     return model.to(device)
 
 
-def evaluate(step: FinetuneStep, loader, device: torch.device) -> dict[str, float]:
-    """Sigmoid scores over the eval loader (its short last batch as it is:
-    each clip's score does not depend on the batch), then mAP, AUC, d'."""
+def eval_scores(step: FinetuneStep, loader, device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+    """Sigmoid scores and targets over the eval loader (its short last batch
+    as it is: each clip's score does not depend on the batch); across
+    processes every rank-strided share, interleaved back into the padded
+    global order and cut to the datafile's clips, so that the wrapped tail
+    counts once, as JAX drops its padding's scores."""
     scores, targets = [], []
     for waves, t in loader.epoch(0):
         scores.append(step.scores(torch.from_numpy(waves).to(device)).float().cpu().numpy())
         targets.append(np.asarray(t))
     s, t = np.concatenate(scores), np.concatenate(targets)
+    if dist.active():
+        parts = dist.gather_objects((s, t))
+        s = np.stack([p[0] for p in parts], 1).reshape(-1, s.shape[1])
+        t = np.stack([p[1] for p in parts], 1).reshape(-1, t.shape[1])
+        s, t = s[:loader.num_samples], t[:loader.num_samples]
+    return s, t
+
+
+def evaluate(step: FinetuneStep, loader, device: torch.device) -> dict[str, float]:
+    """mAP, AUC and d' of ``eval_scores``."""
+    s, t = eval_scores(step, loader, device)
     auc = auc_roc(s, t)
     return {"mAP": mean_average_precision(s, t), "AUC": auc, "d_prime": d_prime(auc)}
 
@@ -288,21 +313,23 @@ def train_finetune_mast(
 ):
     """Fine-tune on ``train_json`` -> (model, last epoch's stats, checkpoint
     directory). ``config`` is not changed."""
-    check_parallel_knobs(config)
     dev = resolve_device(device)
+    world = join_group(config["run"], dev)
+    check_parallel_knobs(config)
     config = copy.deepcopy(config)
     run, ft = config["run"], config["finetune"]
-    batch = int(run["batch_size"])
+    batch = global_batch(int(run["batch_size"]), world) // world  # this process's share
     inp = ft["input"]
     sr = int(inp.get("sampling_rate", 16000))
     clip = int(float(inp.get("length_wave", 10.0)) * sr)
     workers = int(run.get("num_dataloader_workers", 8))
+    shard = (dist.rank(), world) if world > 1 else None
     loader, n_classes = multilabel_loader(train_json, label_csv, batch, clip, sr, num_workers=workers, seed=seed,
-                                          on_error=str(run.get("data_on_error", "raise")))
+                                          on_error=str(run.get("data_on_error", "raise")), host_shard=shard)
     eval_loader = None
     if eval_json:
         eval_loader, _ = multilabel_loader(eval_json, label_csv, batch, clip, sr, shuffle=False, drop_last=False,
-                                           num_workers=workers)
+                                           num_workers=workers, host_shard=shard)
     accum = max(1, int(run.get("grad_accum_steps", 1)))
     if batch % accum:
         raise ValueError(f"per-chip batch {batch} not divisible by grad_accum_steps {accum}")
@@ -314,24 +341,34 @@ def train_finetune_mast(
         layer_decay=float(run.get("layer_decay", 0.75)), weight_decay=float(run.get("weight_decay", 0.05)),
         clip_grad_norm=float(run.get("clip_grad_norm", 1.0)),
     )
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev).manual_seed(dist.rank_seed(seed))
     step, position = 0, None
     if load_checkpoint:
         saved = ckpt.load_checkpoint(load_checkpoint)
+        if len(saved["generator"]) != world:
+            raise ValueError(f"the checkpoint was written by {len(saved['generator'])} process(es), this run has "
+                             f"{world}: resume at the world size it was saved at")
         model.load_state_dict(saved["model"])
         optimizer.load_state_dict(saved["optimizer"])
-        generator.set_state(saved["generator"])
+        generator.set_state(saved["generator"][dist.rank()])
         step, position = int(saved["step"]), saved["loader"]
+        if position is not None:
+            position = {**position, "rng": saved["loader_rngs"][dist.rank()]}
         log.info("resumed from %s at step %d", load_checkpoint, step)
     train_step = FinetuneStep(model, optimizer, ft, generator, accum)
 
     ckpt_dir = run.get("save_path", "./runs/mast_ft") + "_chkp"
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if dist.rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
     keep_last = int(run.get("keep_checkpoints", 0)) or None
 
     def save() -> None:
-        state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "generator": generator.get_state(),
-                 "loader": loader.position, "step": step, "config": config}
+        generators = gather_generators(generator)  # collectives
+        loader_rngs = dist.gather_objects(None if loader.position is None else loader.position["rng"])
+        if dist.rank() != 0:
+            return
+        state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "generator": generators,
+                 "loader": loader.position, "loader_rngs": loader_rngs, "step": step, "config": config}
         ckpt.save_checkpoint(ckpt_dir, step, state, mvit_reference_layout(model.mast.state_dict()), config, keep_last)
 
     steps_per_epoch = max(len(loader), 1)
@@ -343,7 +380,7 @@ def train_finetune_mast(
     epochs = int(run.get("epochs", 1))
     stats: dict = {}
     done = preempted = False
-    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file, PreemptionGuard() as guard:
+    with stats_log(os.path.join(ckpt_dir, "stats.jsonl")) as stats_file, PreemptionGuard() as guard:
         buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
         for epoch in range(start_epoch, epochs):
             first = epoch == start_epoch
@@ -369,7 +406,8 @@ def train_finetune_mast(
             if eval_loader is not None and not preempted:
                 stats.update(evaluate(train_step, eval_loader, dev))
             log.info("%s", stats)
-            print(json.dumps(stats), file=stats_file)
+            if stats_file is not None:
+                print(json.dumps(stats), file=stats_file)
             save()
             if done:
                 break

@@ -19,12 +19,24 @@ SIGTERM (``train/preemption.py``) is checked at the log cadence: the loop
 then writes the usual checkpoint at the current step, skips the epoch-end
 one, and returns normally; a resume from it is exact.
 
-Not ported yet: the multi-device paths (ROADMAP.md Queue 1, item 9):
-``check_parallel_knobs`` refuses the knobs that ask for them, here and in
+Data parallel across processes (one per card, started by torchrun or the
+``AUDIOSSL_*`` environment, parallel/launch.py): the loop joins the group
+the launcher describes (NCCL on the card, gloo on the CPU), reads the
+manifest's rank-strided share (``host_shard=(rank, world)``) at
+``batch_size // world`` clips a step (a batch the world does not divide is
+rounded down to a multiple of it, as in JAX), and each step's gradients and
+loss are the group's means (train/step.py). Rank 0 writes the checkpoints,
+the stats and the exports; the checkpoint's augmentation state holds every
+process's mixup bank and RunningNorm in one world-sized layout (leading dim
+``world``, JAX's ``P(DATA_AXIS)`` aug state), and a resume at another world
+size raises, as JAX's restore does. ``run.world_size`` (0: the group's size)
+must equal the group's size; ``pretrain.tp``, ``run.fsdp`` and
+``run.zero_optimizer`` are refused (ROADMAP.md Queue 1, item 9), here and in
 the DECAR, DeepCluster and fine-tune trainers.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -43,6 +55,8 @@ from audiossl_tpu_torch.data.pipeline import ManifestLoader
 from audiossl_tpu_torch.frontend import build_frontend
 from audiossl_tpu_torch.objectives import init_objective, objective_class
 from audiossl_tpu_torch.ops.stats import RunningNormState
+from audiossl_tpu_torch.parallel import dist
+from audiossl_tpu_torch.parallel.launch import maybe_init_distributed
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
@@ -78,8 +92,9 @@ class MetricsBuffer:
             return
         losses = torch.stack([p[2] for p in self.pending]).float().cpu().tolist()  # one host sync
         for (epoch, step, _, bt, dt, extra), loss in zip(self.pending, losses):
-            print(json.dumps({"epoch": epoch, "step": step, "train_loss": loss, "batch_time": bt, "data_time": dt,
-                              **extra}), file=self.stats_file)
+            if self.stats_file is not None:  # None off rank 0
+                print(json.dumps({"epoch": epoch, "step": step, "train_loss": loss, "batch_time": bt,
+                                  "data_time": dt, **extra}), file=self.stats_file)
             self.last_loss = loss
             self._loss_sum += loss
             self._loss_n += 1
@@ -101,8 +116,8 @@ def check_parallel_knobs(config: dict[str, Any]) -> None:
     ``run.zero_optimizer`` (audiossl_tpu/train/loop.py:117-160, 216-220):
     first its ValueErrors (tp needs a MAST encoder; tp + zero, fsdp + tp and
     fsdp + zero exclude each other), then NotImplementedError for any knob
-    that is set, or for ``run.world_size > 1``, since the port runs one
-    process on one device. A config with no ``pretrain`` section (the
+    that is set: the port is data parallel only (``join_group`` checks
+    ``run.world_size``). A config with no ``pretrain`` section (the
     fine-tune's) has no tp."""
     run, pre = config["run"], config.get("pretrain") or {}
     tp = int(pre.get("tp", 0) or 0)
@@ -122,12 +137,38 @@ def check_parallel_knobs(config: dict[str, Any]) -> None:
         if zero:
             raise ValueError("run.fsdp is incompatible with run.zero_optimizer: FSDP already shards the "
                              "moments (and params/grads) over the mesh")
-    world = int(run.get("world_size", 0) or 0)
-    for knob, on in (("pretrain.tp > 1", tp > 1), ("run.fsdp", fsdp), ("run.zero_optimizer", zero),
-                     ("run.world_size > 1", world > 1)):
+    for knob, on in (("pretrain.tp > 1", tp > 1), ("run.fsdp", fsdp), ("run.zero_optimizer", zero)):
         if on:
-            raise NotImplementedError(f"{knob} is not ported yet: the port trains in one process on one device "
+            raise NotImplementedError(f"{knob} is not ported yet: the port is data-parallel only "
                                       "(ROADMAP.md Queue 1, item 9: parallelism)")
+
+
+def check_world_size(run: dict[str, Any]) -> int:
+    """``run.world_size`` against the process group: 0 (or absent) means the
+    group's size, 1 with no group (JAX: every visible device); any other
+    value must equal it. Returns the world size."""
+    want, have = int(run.get("world_size", 0) or 0), dist.world()
+    if want and want != have:
+        raise ValueError(f"run.world_size is {want} but the process group has {have} process(es); start {want} "
+                         "processes (torchrun --nproc_per_node, or the AUDIOSSL_* environment) or set "
+                         "run.world_size: 0")
+    return have
+
+
+def join_group(run: dict[str, Any], device: torch.device) -> int:
+    """Join the process group a launcher describes (parallel/launch.py),
+    then check ``run.world_size``; the world size."""
+    maybe_init_distributed(device)
+    return check_world_size(run)
+
+
+def global_batch(batch: int, world: int) -> int:
+    """``batch`` rounded down to a multiple of the world size (at least one
+    clip a process), with JAX's warning (loop.py:163-166)."""
+    if batch % world:
+        batch = world * max(1, batch // world)
+        log.warning("batch_size adjusted to %d to divide %d processes", batch, world)
+    return batch
 
 
 def aug_state_dict(state: AugmentState) -> dict[str, Any]:
@@ -140,6 +181,30 @@ def aug_state_dict(state: AugmentState) -> dict[str, Any]:
     return out
 
 
+def world_aug_state(state: AugmentState) -> dict[str, Any]:
+    """Every process's augmentation state in one world-sized layout (a
+    collective: each tensor stacked in rank order along a new leading dim,
+    each count a [world] int64 tensor; JAX's ``P(DATA_AXIS)`` aug state)."""
+    dev = state.mixup.bank.device if state.mixup is not None else \
+        state.running_norm.mean.device if state.running_norm is not None else torch.device("cpu")
+    out: dict[str, Any] = {"world": dist.world()}
+    for name, fields in aug_state_dict(state).items():
+        out[name] = {k: dist.all_gather(torch.as_tensor(v, device=dev)[None]) for k, v in fields.items()}
+    return out
+
+
+def aug_state_from_world(d: dict[str, Any], device: torch.device) -> AugmentState:
+    """This process's row of a world-sized augmentation state; raises for a
+    checkpoint of another world size, as JAX's restore of a ``P(DATA_AXIS)``
+    array of another length does."""
+    world, r = int(d["world"]), dist.rank()
+    if world != dist.world():
+        raise ValueError(f"the checkpoint holds the augmentation state of {world} process(es), this run has "
+                         f"{dist.world()}: resume at the world size it was saved at (JAX's restore refuses too)")
+    return aug_state_from_dict({name: {k: v[r] for k, v in fields.items()}
+                                for name, fields in d.items() if name != "world"}, device)
+
+
 def aug_state_from_dict(d: dict[str, Any], device: torch.device) -> AugmentState:
     mix = d.get("mixup")
     rn = d.get("running_norm")
@@ -148,6 +213,20 @@ def aug_state_from_dict(d: dict[str, Any], device: torch.device) -> AugmentState
         running_norm=RunningNormState(int(rn["n"]), rn["mean"].to(device), rn["var"].to(device), int(rn["max_update"]))
         if rn else None,
     )
+
+
+def gather_generators(generator: torch.Generator) -> list[torch.Tensor]:
+    """Every process's generator state in rank order (a collective)."""
+    st = generator.get_state()
+    return list(dist.all_gather(st[None].to(generator.device)).cpu()) if dist.active() else [st]
+
+
+def stats_log(path: str):
+    """``path`` opened for appending on rank 0; elsewhere a context that
+    yields None (the metrics are the group's, written once)."""
+    if dist.rank() != 0:
+        return contextlib.nullcontext(None)
+    return open(path, "a", buffering=1)
 
 
 def kmix_centroids(pre: dict[str, Any]) -> np.ndarray | None:
@@ -175,17 +254,19 @@ def train_upstream(
     (objective, final step, checkpoint directory). ``config`` is not
     changed: the run writes ``pretrain.steps_per_epoch`` into its own copy
     (the one its checkpoints store)."""
-    check_parallel_knobs(config)
     dev = resolve_device(device)
+    world = join_group(config["run"], dev)
+    check_parallel_knobs(config)
     config = copy.deepcopy(config)
     run, pre = config["run"], config["pretrain"]
-    batch = int(run["batch_size"])
+    batch = global_batch(int(run["batch_size"]), world)
     frontend = build_frontend(pre["input"])
     clip = cfgmod.clip_samples(config)
     loader = ManifestLoader(
-        input_csv, batch_size=batch, clip_samples=clip, sample_rate=frontend.sample_rate,
+        input_csv, batch_size=batch // world, clip_samples=clip, sample_rate=frontend.sample_rate,
         labeled=objective_class(upstream).labeled, num_workers=int(run.get("num_dataloader_workers", 8)), seed=seed,
         wire_dtype=str(run.get("wire_dtype", "int16")), on_error=str(run.get("data_on_error", "raise")),
+        host_shard=(dist.rank(), world) if world > 1 else None,
     )
     normalization = str(pre.get("normalization", "mean_var"))
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=loader.num_samples,
@@ -202,7 +283,7 @@ def train_upstream(
         str(run.get("optimizer", "sgd")), [p for p in objective.parameters() if p.requires_grad], lr,
         **(run.get("optimizer_args") or {}),
     )
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev).manual_seed(dist.rank_seed(seed))
     aug_state = pipeline.init_state(frontend.n_mels, frontend.num_frames(clip), dev)
     step, position = 0, None
     if load_checkpoint:
@@ -211,25 +292,34 @@ def train_upstream(
         optimizer.load_state_dict(saved["optimizer"])
         if scheduler is not None:
             scheduler.load_state_dict(saved["scheduler"])
-        aug_state = aug_state_from_dict(saved["augment"], dev)
-        generator.set_state(saved["generator"])
+        aug_state = aug_state_from_world(saved["augment"], dev)
+        generator.set_state(saved["generator"][dist.rank()])
         step, position = int(saved["step"]), saved["loader"]
+        if position is not None:
+            position = {**position, "rng": saved["loader_rngs"][dist.rank()]}
         log.info("resumed from %s at step %d", load_checkpoint, step)
     train_step = TrainStep(objective, pipeline, frontend, optimizer, generator, scheduler, normalization)
 
     save_path = run.get("save_path", "./runs/" + upstream)
     ckpt_dir = save_path + "_chkp"
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if dist.rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
     keep_last = int(run.get("keep_checkpoints", 0)) or None
 
     def save() -> None:
+        # collectives: every process's augmentation, generator and window-rng state
+        augment, generators = world_aug_state(aug_state), gather_generators(generator)
+        loader_rngs = dist.gather_objects(None if loader.position is None else loader.position["rng"])
+        if dist.rank() != 0:
+            return
         state = {
             "objective": objective.state_dict(),
             "optimizer": optimizer.state_dict(),
             "scheduler": scheduler.state_dict() if scheduler is not None else None,
-            "augment": aug_state_dict(aug_state),
-            "generator": generator.get_state(),
+            "augment": augment,
+            "generator": generators,
             "loader": loader.position,
+            "loader_rngs": loader_rngs,
             "step": step,
             "config": config,
         }
@@ -242,7 +332,7 @@ def train_upstream(
             start_epoch, start_batch, rng_state = start_epoch + 1, 0, None
     best_loss = float("inf")
     done = preempted = False
-    with open(os.path.join(ckpt_dir, "stats.jsonl"), "a", buffering=1) as stats_file, PreemptionGuard() as guard:
+    with stats_log(os.path.join(ckpt_dir, "stats.jsonl")) as stats_file, PreemptionGuard() as guard:
         buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
         t_end = time.time()
         for epoch in range(start_epoch, epochs):

@@ -6,8 +6,18 @@
 
 On the card the log-mel frontend is the Hopper log-mel kernel and the fbank
 frontend the dense-rows kernel; block 1 of AudioNTT runs the fused block-1
-kernels and MViT's attention the rel-pos attention kernels. One process, one device: no mesh and no
-gradient all-reduce (DDP is ROADMAP.md Queue 1, slice 6).
+kernels and MViT's attention the rel-pos attention kernels.
+
+Data parallel across processes (parallel/dist.py), JAX's ``shard_map`` step
+over the ``data`` axis: each process takes its share of the global batch
+and its own generator (``dist.rank_seed``, for JAX's ``fold_in(key,
+axis_index)``); the objectives' collectives (SyncBN, the Barlow all-reduce,
+the queue's all-gather) run inside the loss; after the backward, and after
+the last microbatch under gradient accumulation, the gradients are
+all-reduced as a mean in one flat buffer and the returned loss is the
+group's mean (JAX ``pmean`` of gradients and metrics, step.py:127,130).
+The augmentation state (mixup bank, RunningNorm) stays per process, as
+JAX's ``aug_state`` is sharded over the axis.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from audiossl_tpu_torch.data.augment import AugmentPipeline, AugmentState, ViewD
 from audiossl_tpu_torch.frontend import FrontendSpec
 from audiossl_tpu_torch.frontend.fbank import WaveMixDraws, batch_waveform_mixup
 from audiossl_tpu_torch.ops.stats import l2_normalize
+from audiossl_tpu_torch.parallel import dist
 
 
 def prepare_views(
@@ -51,7 +62,8 @@ class TrainStep:
     loss, backward and one optimizer (and scheduler) step. ``labels`` (the
     ids of a labelled batch, on the waves' device) go to the objective's
     loss. The views' random numbers and the dropout masks come from
-    ``generator``; an f32 objective runs forward and backward with TF32 off."""
+    ``generator``; an f32 objective runs forward and backward with TF32 off.
+    Across processes the gradients and the loss are the group's means."""
 
     def __init__(
         self,
@@ -83,11 +95,13 @@ class TrainStep:
         with no_tf32() if f32 else contextlib.nullcontext():
             if hasattr(self.objective, "loss_and_backward"):  # an objective that runs its own backward (SS-MAST)
                 self.optimizer.zero_grad(set_to_none=True)
-                return self.objective.loss_and_backward(v1, v2, self.generator, labels=labels)
-            loss = self.objective.loss(v1, v2, self.generator, labels=labels)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        return loss.detach()
+                loss = self.objective.loss_and_backward(v1, v2, self.generator, labels=labels)
+            else:
+                loss = self.objective.loss(v1, v2, self.generator, labels=labels)
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+        dist.all_reduce_grads_(self.objective.parameters())
+        return dist.all_reduce_mean(loss.detach())
 
     def update(self) -> None:
         self.optimizer.step()

@@ -9,8 +9,10 @@ package's ``train_downstream.py``, plus ``--device``):
 CSVs have columns ``wav`` and ``label``; a LAPE registry task
 (``downstream/tasks.py``) reads its own CSV layout under ``--data_root``.
 ``--freeze`` is a store_true flag (the reference's ``type=bool`` footgun is
-not copied). One process on one device; ``--device cpu`` runs the plain
-PyTorch path, the default ``cuda`` raises without a CUDA device.
+not copied). ``--device cpu`` runs the plain PyTorch path, the default
+``cuda`` raises without a CUDA device. Under torchrun (or the ``AUDIOSSL_*``
+environment) each process takes its share of every batch
+(downstream/probe.py).
 """
 from __future__ import annotations
 

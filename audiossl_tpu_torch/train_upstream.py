@@ -5,10 +5,16 @@ JAX package's ``train_upstream.py``, plus ``--device``):
         [-c config.yaml] [--load_checkpoint DIR] [--max_steps N] [--epochs N] \\
         [--batch_size N] [--save_path PATH] [--device cuda|cpu]
 
-One process on one device, seed 31. ``--device cpu`` runs the plain PyTorch
-path; the default ``cuda`` raises without a CUDA device. ``decar_v2`` and
-``decar_v1`` (DeepCluster-v1) have trainers of their own, as in the JAX
-package (its train_upstream.py:59-76).
+Seed 31. ``--device cpu`` runs the plain PyTorch path; the default ``cuda``
+raises without a CUDA device. ``decar_v2`` and ``decar_v1`` (DeepCluster-v1)
+have trainers of their own, as in the JAX package (its
+train_upstream.py:59-76). Data parallel over N processes, one card each,
+started by torchrun or with the ``AUDIOSSL_*`` environment
+(parallel/launch.py), e.g.
+
+    torchrun --nproc_per_node 4 -m audiossl_tpu_torch.train_upstream --upstream delores_s --input pre_train.csv
+
+``run.batch_size`` is the global batch; each process reads its share.
 """
 from __future__ import annotations
 

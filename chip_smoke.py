@@ -114,6 +114,25 @@ with 128).
     accumulating 2 against 1 on the card; the step's clips/s, split, busy
     share and peak memory, and eval clips/s.
 
+  * data parallelism and its host data (slice 13): the native WAV loader,
+    built with g++ from the port's csrc/wavloader.cpp, decodes as the NumPy
+    path does and gives its batches where no crop is drawn; DeLoRes-S trains
+    3 steps through the CLI on a tar-sharded manifest (data/tar.py), on the
+    native path, the loaders' default (1/2/2/2 a step). Two gloo ranks share
+    the card (NCCL refuses two ranks on one GPU; the script, not the
+    package, chooses gloo): DeLoRes-S at full width, B=256 as 2 x 128, one
+    step held against one process's on the same views and dropout masks, in
+    bf16 within 4 times the distance of one process on the same rows in
+    another order, in f32 within 1e-5 on the loss and the parameters and
+    that band of the f32 yardstick on the gradient, which two planted
+    faults (SyncBN on local moments, a gradient sum for the mean) must
+    fail, with exact launches and collectives a rank; train_upstream at world 2
+    (2 steps, the checkpoint's world-sized augmentation state); SS-MAST on
+    configs/ssmast.yaml at world 2 (32 clips a rank, 2 steps), then with
+    shuffle-BN (1 step), each checkpoint's queue holding both ranks' keys in
+    rank order. Last, NCCL at world 1 through ``maybe_init_distributed()``
+    from torchrun-style env gives the bits of no process group.
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
 the attention at MAST-B's shapes and at AST-base's), serving (AudioNTT,
@@ -132,6 +151,7 @@ nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -562,6 +582,23 @@ def main() -> int:
     slice12 = {"finetune_launches": ft_run["counts"], "finetune_accum_launches": ft_accum,
                "ssmast_accum_launches": ssmast_accum}
 
+    # phases 29-32 (slice 13): host data and data parallelism. Phase 29: the
+    # native loader and a tar-sharded DeLoRes-S run through the CLI, counts
+    # from 0; phases 30-31: two gloo ranks on this card, DeLoRes-S (one step
+    # against one process, then train_upstream at world 2) and SS-MAST with
+    # and without shuffle-BN, counts from 0 in each rank; phase 32: NCCL at
+    # world 1 from torchrun-style env gives the bits of no group
+    with tempfile.TemporaryDirectory() as tmp:
+        tar_run = native_tar_run(wav, tmp, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp = ddp_runs(pool, wav, tmp, dev, card)
+    nccl = nccl_world_one_check(pool, dev)
+    slice13 = {"tar_native_launches": tar_run["counts"],
+               "ddp_delores_s_step_launches_per_rank": ddp["delores_s_counts_per_rank"],
+               "ddp_delores_s_loop_launches_per_rank": ddp["delores_s_loop_counts_per_rank"],
+               "ddp_ssmast_launches_per_rank": ddp["ssmast"]["counts_per_rank"],
+               "ddp_ssmast_shuffle_launches_per_rank": ddp["ssmast_shuffle"]["counts_per_rank"]}
+
     # phase 25: the kernel line
     entries = [{
         "name": "log_mel_fused",
@@ -578,6 +615,7 @@ def main() -> int:
         **{f"{name}_launches": c["log_mel_fused"] for name, c in slice10_counts.items()},
         **{f"{name}_launches": c["log_mel_fused"] for name, c in slice11_counts.items()},
         **{key: c["log_mel_fused"] for key, c in slice12.items()},
+        **{key: c["log_mel_fused"] for key, c in slice13.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -598,6 +636,7 @@ def main() -> int:
             **{f"{objective}_launches": c[name] for objective, c in slice10_counts.items()},
             **{f"{run}_launches": c[name] for run, c in slice11_counts.items() if run != "make_pseudo_labels"},
             **{key: c[name] for key, c in slice12.items()},
+            **{key: c[name] for key, c in slice13.items()},
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -613,6 +652,7 @@ def main() -> int:
             "ast_serve_launches": ast_serve["counts"][name],
             "mast_probe_launches": {mode: c[name] for mode, c in mast_probe_counts.items()},
             **{key: c[name] for key, c in slice12.items()},
+            **{key: c[name] for key, c in slice13.items()},
             "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name], ft_attn_err[name]),
             "mast_probe_max_abs_err": probe9_err[name],
             "finetune_max_abs_err": ft_attn_err[name],
@@ -631,6 +671,7 @@ def main() -> int:
             "mast_serve_launches": mast_serve["counts"][name],
             "ast_serve_launches": ast_serve["counts"][name],
             **{key: c[name] for key, c in slice12.items()},
+            **{key: c[name] for key, c in slice13.items()},
             "max_abs_err": max(rows_err[name], dispatch["max_abs_err"]) if name == "fused_rows_librosa" else rows_err[name],
             **rows_t[name],
         })
@@ -645,7 +686,9 @@ def main() -> int:
                       "extract_features_err": {kind: e["max_abs_err"] for kind, e in extract.items()},
                       "finetune_f32_step_rel_err": ft_step_err, "finetune_times": ft_times,
                       "finetune_eval": {k: ft_run["stats"][k] for k in ("mAP", "AUC", "d_prime")},
-                      "finetune_serving": {k: v for k, v in ft_run["serve"].items() if k != "counts"}}))
+                      "finetune_serving": {k: v for k, v in ft_run["serve"].items() if k != "counts"},
+                      "data_parallel": {k: v for k, v in ddp.items() if not k.endswith("_per_rank")},
+                      "tar_native": {k: v for k, v in tar_run.items() if k != "counts"}, "nccl_world_one": nccl}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -3001,6 +3044,442 @@ def finetune_times(dev, card, clips: np.ndarray) -> dict[str, float]:
           + f"; peak memory {peak_gib:.2f} GiB; eval {eval_ms:.4f} ms/batch = {b / eval_ms * 1e3:.1f} clips/s")
     return {"train_clips_per_sec": rate, "windows": rates, **{f"{k}_ms": v for k, v in parts.items()},
             "busy": busy, "peak_memory_gib": peak_gib, "eval_ms": eval_ms, "eval_clips_per_sec": b / eval_ms * 1e3}
+
+
+
+# ---------------------------------------------------------------- slice 13: host data and data parallelism
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DDP_WORLD = 2  # gloo ranks sharing the one card (NCCL refuses two ranks on one GPU)
+DDP_LR = 0.03  # configs/delores_s.yaml's SGD rate
+# the 2-rank DeLoRes-S step against one process at B=256 on the same views and
+# dropout masks, bf16: the two differ only in the order of the sums that the
+# all-reduces split (BN moments, the Barlow cross-correlation, the gradients),
+# and a last-bit change of a BN statistic can move a bf16 rounding downstream.
+# One process on the same clips in another row order changes those sums as
+# much, so its distance from the one-process step is the yardstick: the loss
+# (relative), the whole gradient (relative in norm) and the parameters after
+# the step (max|d|) of each rank must land within DDP_SPREAD times it, plus
+# f32 round-off (DDP_FLOOR), DDP_SPREAD as the DeLoRes-M trajectory test's
+DDP_SPREAD = 4.0
+DDP_FLOOR = {"loss": 1e-6, "grad": 1e-5, "param": 1e-7}
+# the same step in f32 (the block-1 FFMA kernels, TF32 off), where nothing
+# rounds to bf16: the loss and the parameters are held to the CPU
+# data-parallel test's fixed 1e-5; the whole gradient to DDP_SPREAD times the
+# f32 yardstick plus DDP_FLOOR, since a last-bit change can flip a max-pool's
+# routing and move whole gradient entries (the f32 yardstick measured 2.1e-4
+# of the norm on the H100, where round-off alone predicted <= 1e-5)
+TOL_DDP_F32 = {"loss": 1e-5, "param": 1e-5}
+# faults planted in the 2-rank step (the package is not changed: the script
+# swaps a collective for the run): SyncBN on each rank's own moments, and the
+# gradients summed over the ranks where their mean is due. Each must fail the
+# f32 gate, or it cannot see what it is for; whether the bf16 band (wide,
+# as bf16 rounding is) sees them too is printed
+DDP_FAULTS = ("local_moments", "grad_sum")
+DDP_SSMAST_STEPS = 2
+# collectives a DeLoRes-S step makes on each rank: SyncBN forward and backward
+# per view in block 1 (1 + 1), blocks 2-3 (2 + 2) and the projector (2 + 2);
+# the Barlow loss's two moments and cross-correlation (3 + 3); the gradients'
+# flat buffer; the loss's mean
+DDP_DELORES_S_CALLS = {"syncbn": 20, "barlow": 6, "all_reduce_grads": 1, "all_reduce": 1}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def native_tar_run(wav, tmp: str, dev) -> dict:
+    """Phase 29: the native loader, built from the port's csrc/wavloader.cpp,
+    decodes as the NumPy path does, gives its batches where no clip is
+    longer than the window (no crop draw), and the same batch twice for a
+    seed; then DeLoRes-S trains 3 steps through the pretraining CLI on a
+    tar-sharded manifest (data/tar.py's write_shards), configs/delores_s.yaml
+    as it stands, its loader on the native path (the default wherever the
+    library builds), counts from 0. Returns the launches and the seconds."""
+    import yaml
+
+    from audiossl_tpu_torch.data import native, tar
+    from audiossl_tpu_torch.data.pipeline import ManifestLoader
+    from audiossl_tpu_torch.train_upstream import main as upstream_main
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("the native wav loader did not build from audiossl_tpu_torch/csrc/wavloader.cpp")
+    build_s = time.perf_counter() - t0
+    config = ntt_config("delores_s")
+    batch = int(config["run"]["batch_size"])
+    plain = write_manifest(tmp, wav, 64)
+    files = sorted({line.strip() for line in open(plain).readlines()[1:]})
+    for f in files[:4]:
+        if not np.array_equal(native.decode(f), wav.load_wave(f)):
+            raise RuntimeError(f"the native decode of {f} differs from the NumPy decode")
+    long = dict(batch_size=16, clip_samples=40000, sample_rate=16000, shuffle=False)  # 2 s clips in 2.5 s windows
+    got = next(iter(ManifestLoader(plain, native=True, **long).epoch(0)))[0]
+    want = next(iter(ManifestLoader(plain, num_workers=1, native=False, **long).epoch(0)))[0]
+    crop = dict(batch_size=16, clip_samples=CLIP, sample_rate=16000, seed=5)
+    twice = [next(iter(ManifestLoader(plain, native=True, **crop).epoch(0)))[0] for _ in range(2)]
+    if not (np.array_equal(got, want) and np.array_equal(*twice) and twice[0].any()):
+        raise RuntimeError("the native loader's batches differ from the NumPy path's, or from themselves")
+    entries = tar.write_shards(files, os.path.join(tmp, "shards"), shard_clips=5)
+    sharded = os.path.join(tmp, "sharded.csv")
+    with open(sharded, "w") as f:
+        f.write("files\n" + "".join(f"{entries[r % len(entries)]}\n" for r in range(batch * TRAIN_STEPS)))
+    config["run"].update(save_path=os.path.join(tmp, "tar_delores_s"), epochs=1)
+    cfg_path = os.path.join(tmp, "delores_s_native.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(config, f)
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logging.getLogger("audiossl_tpu_torch.data").addHandler(handler)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        upstream_main(["--upstream", "delores_s", "--input", sharded, "-c", cfg_path, "--max_steps", str(TRAIN_STEPS)])
+    finally:
+        logging.getLogger("audiossl_tpu_torch.data").removeHandler(handler)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    losses = [line["train_loss"] for line in stats_lines(os.path.join(tmp, "tar_delores_s_chkp"))]
+    print(f"host data: native loader built in {build_s:.1f} s ({native.library_path()}); decode = NumPy decode; "
+          f"padded batch = NumPy batch; cropped batch twice equal; {len(entries)} clips in "
+          f"{len({e.split('::')[0] for e in entries})} tar shards; DeLoRes-S B={batch} through the CLI on the sharded "
+          f"manifest: {TRAIN_STEPS} steps in {seconds:.1f} s, losses {losses}, loader log {seen}, launches {counts}")
+    if not any("native C++ decode" in m for m in seen):
+        raise RuntimeError(f"the CLI's loader did not take the native path: {seen}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"the tar-sharded DeLoRes-S run logged losses {losses}")
+    expect_counts(f"DeLoRes-S on tar shards, {TRAIN_STEPS} steps", counts,
+                  {k: n * TRAIN_STEPS for k, n in zip(NTT_KERNELS, TRAIN_LAUNCHES["delores_s"])})
+    return {"counts": counts, "seconds": seconds, "build_s": build_s}
+
+
+@contextlib.contextmanager
+def planted_fault(fault: str | None):
+    """``fault`` planted in the package's collectives for the block: SyncBN
+    on local moments (the BN all-reduces skipped), or the gradients' sum
+    over the group in place of their mean."""
+    from audiossl_tpu_torch.parallel import dist
+
+    saved = dist.all_reduce_mean, dist.all_reduce_sum, dist.all_reduce_grads_
+    if fault == "local_moments":
+        dist.all_reduce_mean = lambda x, kind="all_reduce": x if kind == "syncbn" else saved[0](x, kind)
+        dist.all_reduce_sum = lambda x, kind="all_reduce": x if kind == "syncbn" else saved[1](x, kind)
+    elif fault == "grad_sum":
+        def summed(params):
+            params = list(params)
+            saved[2](params)
+            for p in params:
+                if p.grad is not None:
+                    p.grad *= dist.world()
+        dist.all_reduce_grads_ = summed
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        dist.all_reduce_mean, dist.all_reduce_sum, dist.all_reduce_grads_ = saved
+
+
+def step_distance(a: dict, b: dict) -> dict[str, float]:
+    """Step ``a`` from step ``b``: the loss (relative), the whole gradient
+    (relative in norm) and the parameters after the step (max|d|)."""
+    ga = torch.cat([v.flatten() for v in a["grads"].values()])
+    gb = torch.cat([b["grads"][k].flatten() for k in a["grads"]])
+    return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]), "grad": float((ga - gb).norm() / gb.norm()),
+            "param": max(float((a["params"][k] - v).abs().max()) for k, v in b["params"].items())}
+
+
+def ddp_delores_s_step(waves: np.ndarray, dev, timed: bool = False, perm: np.ndarray | None = None,
+                       f32: bool = False, fault: str | None = None) -> dict:
+    """One DeLoRes-S SGD step at full width (configs/delores_s.yaml, bf16 or
+    with ``f32`` in f32, seed TRAIN_SEED) on this process's share of
+    ``waves``, ``fault`` planted (planted_fault): every process
+    makes the views of the whole batch with one generator (seed 0; the
+    log-mel kernel once) and takes its rows; the two dropout masks are the
+    one-process run's, drawn from a generator of seed 1, at this process's
+    rows; then TrainStep's loss and all-reduced gradients and the update.
+    Counts from 0. ``perm`` reorders the batch's rows (views and masks
+    alike) before the step. ``timed``: then 3 more steps on host clocks and
+    the busy share of 2 by torch.profiler."""
+    from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.parallel import dist
+    from audiossl_tpu_torch.train.optim import sgd_torch
+    from audiossl_tpu_torch.train.step import TrainStep
+
+    cfg = ntt_config("delores_s")
+    pre = cfg["pretrain"]
+    if f32:
+        pre["base_encoder"]["compute_dtype"] = "float32"
+    frontend = build_frontend(pre["input"])
+    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
+    obj = init_objective("delores_s", cfg, seed=TRAIN_SEED, device=dev).train()
+    step = TrainStep(obj, pipeline, frontend, sgd_torch([p for p in obj.parameters() if p.requires_grad], DDP_LR),
+                     torch.Generator(dev).manual_seed(0))
+    state = pipeline.init_state(frontend.n_mels, frontend.num_frames(CLIP), dev)
+    n = waves.shape[0]
+    rows = slice(dist.rank() * n // dist.world(), (dist.rank() + 1) * n // dist.world())
+    d, rate = obj.encoder.d, obj.encoder.fc[2].p
+    g = torch.Generator(dev).manual_seed(1)
+    masks = [torch.rand((n, frontend.num_frames(CLIP) // 8, d), generator=g, device=dev) < 1.0 - rate
+             for _ in range(2)]
+    calls = iter(masks)
+    original = AudioNTT2020Task6._dropout
+    AudioNTT2020Task6._dropout = lambda self, h, generator: torch.where(next(calls)[rows], h / (1.0 - rate), 0.0)
+    reset_launches()
+    dist.calls.clear()
+    try:
+        state, v1, v2 = step.views(state, torch.from_numpy(waves).to(dev))
+        if perm is not None:
+            order = torch.from_numpy(perm).to(dev)
+            v1, v2, masks[:] = v1[order], v2[order], [m[order] for m in masks]
+        with planted_fault(fault):
+            loss = step.loss_and_grads(v1[rows], v2[rows])
+    finally:
+        AudioNTT2020Task6._dropout = original
+    grads = {k: p.grad.detach().float().cpu().clone() for k, p in obj.named_parameters()}
+    step.update()
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "grads": grads, "counts": read_launches(), "calls": dict(dist.calls),
+           "params": {k: p.detach().float().cpu().clone() for k, p in obj.named_parameters()}}
+    if timed:
+        v1, v2 = v1[rows], v2[rows]
+        step_s = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step.loss_and_grads(v1, v2)
+            step.update()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step.loss_and_grads(v1, v2)
+                step.update()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy = sum(device_kernels_us(prof.key_averages()).values())
+        out.update(step_ms=float(np.median(step_s[1:])) * 1e3, busy=busy / wall_us if busy else None)
+    return out
+
+
+def ddp_ssmast_run(tmp: str, csv: str, rank: int, shuffle: bool, steps: int, dev) -> dict:
+    """SS-MAST through train_upstream on configs/ssmast.yaml as it stands
+    (with ``shuffle``: a copy with pretrain.shuffle_bn true) in this rank's
+    group, ``steps`` steps, counts from 0; every enqueue's local keys are
+    recorded (``queue_update`` wrapped) for the parent to find in the
+    checkpoint's queue."""
+    from audiossl_tpu_torch.objectives import ssmast
+    from audiossl_tpu_torch.parallel import dist
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    config = ssmast_config()
+    name = "ssmast_shuffle" if shuffle else "ssmast"
+    config["pretrain"]["shuffle_bn"] = shuffle
+    config["run"].update(save_path=os.path.join(tmp, name), epochs=1)
+    keys, original = [], ssmast.queue_update
+    ssmast.queue_update = lambda queue, ptr, k: (keys.append(k.detach().float().cpu()), original(queue, ptr, k))[1]
+    reset_launches()
+    dist.calls.clear()
+    t0 = time.perf_counter()
+    try:
+        obj, step, ckpt_dir = train_upstream(config, csv, "ssmast", max_steps=steps, device=dev)
+    finally:
+        ssmast.queue_update = original
+    torch.cuda.synchronize()
+    return {"keys": keys, "counts": read_launches(), "calls": dict(dist.calls), "step": step, "ckpt_dir": ckpt_dir,
+            "queue": obj.queue.float().cpu(), "ptr": int(obj.queue_ptr), "seconds": time.perf_counter() - t0}
+
+
+def ddp_rank(rank: int, world: int, port: int, in_path: str, out_dir: str) -> None:
+    """One gloo rank on the one card (phases 30-31): the DeLoRes-S step on
+    its half of the batch (bf16, f32, and with each planted fault), each
+    held against the parent's one-process step, 2 steps of train_upstream on
+    DeLoRes-S at world 2,
+    and SS-MAST through train_upstream (then with shuffle-BN); the results to
+    ``out_dir/rank<r>.pt``. Gloo is chosen here, by the script: the package
+    takes NCCL for CUDA, which refuses two ranks on one GPU."""
+    sys.path.insert(0, ROOT)
+    logging.basicConfig(level=logging.WARNING)
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    d = torch.load(in_path, weights_only=False)
+    dev = torch.device(d["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    try:  # the kernels load from the parent's build at first launch
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        ref = torch.load(d["ref"], weights_only=False)
+        brief = lambda st, prec: {"err": step_distance(st, ref[prec]), **{k: v for k, v in st.items()
+                                                                          if k not in ("grads", "params")}}
+        out = {"delores_s_step": brief(ddp_delores_s_step(d["waves"], dev, timed=True), "bf16"),
+               "delores_s_f32": brief(ddp_delores_s_step(d["waves"], dev, f32=True), "f32"),
+               "faults": {f"{prec} {fault}": brief(ddp_delores_s_step(d["waves"], dev, f32=prec == "f32",
+                                                                      fault=fault), prec)["err"]
+                          for prec in ("bf16", "f32") for fault in DDP_FAULTS}}
+        config = ntt_config("delores_s")
+        config["run"].update(save_path=os.path.join(d["tmp"], "ddp_delores_s"), epochs=1)
+        reset_launches()
+        _, step, _ = train_upstream(config, d["ntt_csv"], "delores_s", max_steps=2, device=dev)
+        out["delores_s_loop"] = {"step": step, "counts": read_launches()}
+        out["ssmast"] = ddp_ssmast_run(d["tmp"], d["mast_csv"], rank, False, DDP_SSMAST_STEPS, dev)
+        out["ssmast_shuffle"] = ddp_ssmast_run(d["tmp"], d["mast_csv"], rank, True, 1, dev)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def ddp_runs(pool: np.ndarray, wav, tmp: str, dev, card) -> dict:
+    """Phases 30-31: two gloo ranks share the card (one spawn). (b) DeLoRes-S
+    at full width, global B=256, 128 clips a rank: the bf16 step equals one
+    process's B=256 step on the same views and masks within DDP_SPREAD times
+    the yardstick, the f32 step within TOL_DDP_F32 and that band of the f32
+    yardstick, which each planted fault (DDP_FAULTS) must fail; the launches per rank exact (log-mel 1 for the
+    whole batch's views, block 1 2 / 2 / 2), the collectives per rank exact
+    (DDP_DELORES_S_CALLS); then
+    train_upstream at world 2 (host_shard, batch // world), 2 steps: 1 / 2 /
+    2 / 2 a step a rank, rank 0's checkpoint holding both ranks' augmentation
+    state. (c) SS-MAST on configs/ssmast.yaml as it stands (B=64, 32 a rank,
+    batched views) for 2 steps, then with shuffle-BN (sequential views) for
+    1: the checkpoint's queue holds both ranks' keys in JAX's order; the
+    launches per rank exact."""
+    ntt_csv = write_manifest(tmp, wav, 2 * int(ntt_config("delores_s")["run"]["batch_size"]))
+    mast_batch = int(ssmast_config()["run"]["batch_size"])
+    mast_csv = ssmast_wavs(tmp, wav, DDP_SSMAST_STEPS * mast_batch)
+    waves = pool[:SERVE_BATCH]
+    # (b)'s references, before the ranks start: one process's step in bf16 and
+    # in f32, and the yardstick, one process on the same rows in another order
+    perm = np.random.default_rng(7).permutation(waves.shape[0])
+    one = {"bf16": ddp_delores_s_step(waves, dev), "f32": ddp_delores_s_step(waves, dev, f32=True)}
+    spread = {prec: step_distance(ddp_delores_s_step(waves, dev, perm=perm, f32=prec == "f32"), ref)
+              for prec, ref in one.items()}
+    bound = {k: DDP_SPREAD * v + DDP_FLOOR[k] for k, v in spread["bf16"].items()}
+    bound32 = {**TOL_DDP_F32, "grad": DDP_SPREAD * spread["f32"]["grad"] + DDP_FLOOR["grad"]}
+    torch.save(one, os.path.join(tmp, "ddp_ref.pt"))
+    del one
+    torch.save({"waves": waves, "tmp": tmp, "ntt_csv": ntt_csv, "mast_csv": mast_csv, "device": str(dev),
+                "ref": os.path.join(tmp, "ddp_ref.pt")}, os.path.join(tmp, "ddp_in.pt"))
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(ddp_rank, args=(DDP_WORLD, free_port(), os.path.join(tmp, "ddp_in.pt"), tmp),
+                                nprocs=DDP_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DDP_WORLD)]
+
+    fmt = lambda e: f"loss rel {e['loss']:.2e}, gradient rel norm {e['grad']:.3e}, params max|d| {e['param']:.3e}"
+    for prec, e in spread.items():
+        print(f"[{card}] DeLoRes-S B=256 {prec}, one process in another row order against one process: {fmt(e)}")
+    report = {"one_process_reordered": spread["bf16"], "one_process_reordered_f32": spread["f32"], "bound_f32": bound32}
+    step_counts = {"log_mel_fused": 1, "block1_fwd": 2, "block1_bwd_sums": 2, "block1_bwd_weight": 2}
+    for r, res in enumerate(ranks):
+        st, st32 = res["delores_s_step"], res["delores_s_f32"]
+        err, err32 = st["err"], st32["err"]
+        print(f"[{card}] DeLoRes-S data parallel, rank {r} of {DDP_WORLD} (gloo, both ranks on this one card), "
+              f"B=256 as 2 x 128, bf16, against one process: loss {st['loss']:.6f} (rel "
+              f"{err['loss']:.2e}, tol {bound['loss']:.2e}); gradient rel norm {err['grad']:.3e} (tol "
+              f"{bound['grad']:.3e}); params after the step max|d| {err['param']:.3e} (tol {bound['param']:.3e}); "
+              f"launches {st['counts']}; collectives {st['calls']}; step {st['step_ms']:.1f} ms = "
+              f"{128 / st['step_ms'] * 1e3:.1f} clips/s for this rank's 128 (two ranks sharing one card over gloo: "
+              f"not a multi-GPU rate); busy " + (f"{st['busy']:.1%}" if st["busy"] is not None else "not measured"))
+        print(f"[{card}] the same in f32, rank {r}: {fmt(err32)} (tol {bound32}); launches {st32['counts']}")
+        failures = []
+        if not all(err[k] <= bound[k] for k in err):
+            failures.append(f"rank {r}'s DeLoRes-S step strays from one process's: {err} against {bound}")
+        if not all(err32[k] <= bound32[k] for k in err32):
+            failures.append(f"rank {r}'s f32 DeLoRes-S step strays from one process's: {err32} against {bound32}")
+        for name, e in res["faults"].items():
+            gate = bound if name.startswith("bf16") else bound32
+            caught = [k for k in e if e[k] > gate[k]]
+            print(f"[{card}] planted fault, rank {r}, {name}: {fmt(e)}; "
+                  + (f"fails the {name.split()[0]} gate on {caught}" if caught else f"passes the {name.split()[0]} gate"))
+            if name.startswith("f32") and not caught:
+                failures.append(f"the f32 gate does not catch the planted fault {name}: {e}")
+        if failures:
+            raise RuntimeError("; ".join(failures))
+        for key, res_st in (("bf16", st), ("f32", st32)):
+            expect_counts(f"DeLoRes-S step {key}, rank {r}", res_st["counts"], step_counts)
+            if res_st["calls"] != DDP_DELORES_S_CALLS:
+                raise RuntimeError(f"rank {r}'s {key} DeLoRes-S step made collectives {res_st['calls']}, "
+                                   f"expected {DDP_DELORES_S_CALLS}")
+        loop = res["delores_s_loop"]
+        expect_counts(f"train_upstream delores_s at world {DDP_WORLD}, rank {r}", loop["counts"],
+                      {k: 2 * n for k, n in zip(NTT_KERNELS, TRAIN_LAUNCHES["delores_s"])})
+        report[f"rank{r}"] = {**{f"{k}_err": v for k, v in err.items()}, **{f"{k}_err_f32": v for k, v in err32.items()},
+                              "faults": res["faults"], "step_ms": st["step_ms"], "busy": st["busy"],
+                              "calls": st["calls"]}
+    saved = torch.load(os.path.join(tmp, "ddp_delores_s_chkp", "state", "2.pt"), map_location="cpu", weights_only=True)
+    aug = saved["augment"]
+    if aug["world"] != DDP_WORLD or aug["mixup"]["bank"].shape[0] != DDP_WORLD or len(saved["generator"]) != DDP_WORLD:
+        raise RuntimeError(f"the world-2 checkpoint's augmentation state is not world-sized: {aug['world']}")
+    print(f"DeLoRes-S train_upstream at world {DDP_WORLD}: 2 steps a rank, launches a rank "
+          f"{ranks[0]['delores_s_loop']['counts']}; rank 0's checkpoint holds the mixup banks "
+          f"{tuple(aug['mixup']['bank'].shape)} and {len(saved['generator'])} generators; spawn + all phases {spawn_s:.1f} s")
+
+    # (c) SS-MAST: the queue holds both ranks' keys in JAX's (rank) order
+    depth = 24
+    for name, steps, fwd, bwd in (("ssmast", DDP_SSMAST_STEPS, 2 * depth, depth), ("ssmast_shuffle", 1, 4 * depth,
+                                                                                   2 * depth)):
+        saved = torch.load(os.path.join(ranks[0][name]["ckpt_dir"], "state", f"{steps}.pt"), map_location="cpu",
+                           weights_only=True)
+        queue, ptr = saved["objective"]["queue"].float(), 0
+        for k0, k1 in zip(ranks[0][name]["keys"], ranks[1][name]["keys"]):
+            both = torch.cat([k0, k1])
+            if not torch.equal(queue[:, ptr:ptr + both.shape[0]].T, both):
+                raise RuntimeError(f"{name}: the queue at {ptr} does not hold rank 0's then rank 1's keys")
+            ptr += both.shape[0]
+        if int(saved["objective"]["queue_ptr"]) != ptr or ptr != steps * 2 * mast_batch:
+            raise RuntimeError(f"{name}: the queue pointer is {int(saved['objective']['queue_ptr'])}, expected {ptr}")
+        if not torch.equal(ranks[0][name]["queue"], ranks[1][name]["queue"]):
+            raise RuntimeError(f"{name}: the two ranks' queues differ")
+        for r, res in enumerate(ranks):
+            expect_counts(f"{name} at world {DDP_WORLD}, rank {r}", res[name]["counts"],
+                          {"fused_rows_kaldi": steps, "rel_attention_fwd": steps * fwd,
+                           "rel_attention_bwd_dq": steps * bwd, "rel_attention_bwd_dkv": steps * bwd})
+        print(f"{name} through train_upstream at world {DDP_WORLD} ({mast_batch // DDP_WORLD} clips a rank): {steps} "
+              f"step(s); the queue holds both ranks' keys in rank order at columns 0..{ptr} ({len(ranks[0][name]['keys'])} "
+              f"enqueues of {2 * ranks[0][name]['keys'][0].shape[0]}); launches a rank {ranks[0][name]['counts']}; "
+              f"collectives a rank {ranks[0][name]['calls']}; {ranks[0][name]['seconds']:.1f} s on rank 0")
+        report[name] = {"counts_per_rank": ranks[0][name]["counts"], "calls_per_rank": ranks[0][name]["calls"],
+                        "steps": steps}
+    report["delores_s_counts_per_rank"] = ranks[0]["delores_s_step"]["counts"]
+    report["delores_s_loop_counts_per_rank"] = ranks[0]["delores_s_loop"]["counts"]
+    return report
+
+
+def nccl_world_one_check(pool: np.ndarray, dev) -> dict:
+    """Phase 32: the NCCL group of one process, joined through
+    ``maybe_init_distributed()`` from torchrun-style env, gives the DeLoRes-S
+    step's bits without a group (every helper is the identity at world 1)."""
+    from audiossl_tpu_torch.parallel import dist, launch
+
+    waves = pool[:64]
+    alone = ddp_delores_s_step(waves, dev)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    if not launch.maybe_init_distributed(dev, env=env):
+        raise RuntimeError("maybe_init_distributed did not join the torchrun-style group")
+    try:
+        backend, world = torch.distributed.get_backend(), dist.world()
+        grouped = ddp_delores_s_step(waves, dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    same = alone["loss"] == grouped["loss"] and all(torch.equal(v, grouped["grads"][k]) for k, v in alone["grads"].items()) \
+        and all(torch.equal(v, grouped["params"][k]) for k, v in alone["params"].items())
+    print(f"{backend} at world 1 (from torchrun env): the DeLoRes-S step on 64 clips gives "
+          f"{'the same bits as' if same else 'OTHER bits than'} no process group; collectives {grouped['calls']}")
+    if backend != launch.backend_for(dev) or world != 1 or not same or grouped["calls"]:
+        raise RuntimeError("the NCCL group of one process changed the step")
+    return {"backend": backend, "same_bits": same}
 
 
 if __name__ == "__main__":

@@ -766,3 +766,50 @@ def test_fused_rows_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         fused_stft.log_mel_dense_fused(w.bfloat16())
     with pytest.raises(ValueError, match="do not fit the bank"):
         fused_stft.fused_rows(torch.zeros((4, 512), device=cuda), FbankConfig(), "kaldi")
+
+
+# ---------------------------------------------------------------- data parallelism (slice 13)
+
+
+def test_syncbn_block1_kernels_across_two_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks share the card (NCCL refuses two ranks on one GPU),
+    each with 2 of 4 clips: block 1's kernels with the group's statistics
+    and summed backward terms give the one-process kernels' output on all 4
+    clips (forward and statistics 1e-5 of max(1, max|ref|); the mean of the
+    gradients 1e-4 of each tensor's max|ref| (TOL_B1_GRAD of chip_smoke.py)
+    plus 1e-5 of the largest gradient, since the conv bias before a
+    batch-statistics BN has an exactly zero gradient and only round-off is
+    left there), each kernel launched once a rank, two SyncBN all-reduces a
+    rank."""
+    import socket
+
+    from audiossl_tpu_torch.ops import block1
+    from tests import torch_ddp_worker as worker
+
+    rng = np.random.default_rng(0)
+    c, f, t = 64, 16, 24
+    d = {"x": rng.standard_normal((4, f, t)).astype(np.float32),
+         "w": (0.3 * rng.standard_normal((c, 1, 3, 3))).astype(np.float32),
+         "bias": (0.1 * rng.standard_normal(c)).astype(np.float32),
+         "gamma": (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+         "beta": (0.1 * rng.standard_normal(c)).astype(np.float32),
+         "cot": rng.standard_normal((4, c, f // 2, t // 2)).astype(np.float32)}
+    torch.save(d, str(tmp_path / "in.pt"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.multiprocessing.spawn(worker.run_on_card, args=(2, port, str(tmp_path / "in.pt"), str(tmp_path)), nprocs=2,
+                                join=True)
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    want = worker.block1_check({**d, "device": "cuda"})
+    assert want["launches"] == [1, 1, 1]
+    pooled = np.concatenate([r["pooled"] for r in ranks])
+    assert np.abs(pooled - want["pooled"]).max() <= 1e-5 * max(1.0, np.abs(want["pooled"]).max())
+    largest = max(float(np.abs(want[k]).max()) for k in ("dw", "dbias", "dgamma", "dbeta"))
+    for r in ranks:
+        assert r["launches"] == [1, 1, 1] and r["calls"] == {"syncbn": 2, "all_reduce_grads": 1}
+        for k in ("mean", "var"):
+            assert np.abs(r[k] - want[k]).max() <= 1e-5 * max(1.0, np.abs(want[k]).max()), k
+        for k in ("dw", "dbias", "dgamma", "dbeta"):
+            assert np.abs(r[k] - want[k]).max() <= 1e-4 * np.abs(want[k]).max() + 1e-5 * largest, k
+    assert block1.block1_fwd.launches >= 1

@@ -219,11 +219,13 @@ def _jax_extract(monkeypatch, argv):
 
 @pytest.mark.parametrize("l2_norm", [False, True])
 def test_extract_logmel_files_match_jax(manifest, tmp_path, monkeypatch, l2_norm):
+    from audiossl_tpu_torch.data import native
     from audiossl_tpu_torch.downstream.extract_features import main
 
     csv, _ = manifest
     flags = ["--csv", csv, "--batch_size", "6"] + (["--l2_norm"] if l2_norm else [])
     _jax_extract(monkeypatch, flags + ["--out", str(tmp_path / "jax")])
+    monkeypatch.setattr(native, "available", lambda: False)  # the port's loader on the NumPy path too
     assert main(flags + ["--out", str(tmp_path / "port"), "--device", "cpu"]) == 6
     files = _files(tmp_path / "jax")
     assert files == _files(tmp_path / "port") and files == [f"{c}/clip{i}.wav.npy" for c in "ab" for i in range(3)]

@@ -43,6 +43,31 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def _code_strings(path):
+    """The string constants of a file's code, its docstrings left out."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) and node.body
+            and isinstance(node.body[0], ast.Expr) and isinstance(node.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_package_file_names_a_path_under_the_jax_package():
+    """The port reads nothing under audiossl_tpu/: no string its code builds
+    a path from is, or runs through, that directory (the native loader
+    builds its own csrc/wavloader.cpp into .torch_build/, never beside the
+    JAX package's copy); nor does the code import anything of it
+    (test_no_file_imports_jax_or_the_jax_package). The scan sees
+    every package file."""
+    files = [p for p in _port_files() if os.sep + "audiossl_tpu_torch" + os.sep in p]
+    assert os.path.join(ROOT, "audiossl_tpu_torch", "data", "native.py") in files
+    bad = [(os.path.relpath(p, ROOT), v) for p in files for v in _code_strings(p)
+           if v.strip("/") == "audiossl_tpu" or "audiossl_tpu/" in v or "audiossl_tpu\\" in v or "_native" in v]
+    assert not bad, bad
+
+
 def test_clustering_family_is_scanned_and_needs_no_sklearn():
     """The clustering family's modules are among the scanned files, and
     none of them (nor the metrics) imports sklearn, which the card's machine

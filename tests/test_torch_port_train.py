@@ -78,7 +78,7 @@ def test_loader_matches_jax(wav_manifest, monkeypatch, wire_dtype):
     for epoch in (0, 1):
         ref = list(JaxManifestLoader(wav_manifest, num_workers=1, **kw).epoch(epoch))
         for workers in (1, 3):
-            got = list(ManifestLoader(wav_manifest, num_workers=workers, **kw).epoch(epoch))
+            got = list(ManifestLoader(wav_manifest, num_workers=workers, native=False, **kw).epoch(epoch))
             assert len(got) == len(ref) == 3
             for (g, gl), (r, rl) in zip(got, ref):
                 assert g.dtype == r.dtype and gl is None and rl is None
@@ -88,7 +88,8 @@ def test_loader_matches_jax(wav_manifest, monkeypatch, wire_dtype):
 def test_loader_resumes_mid_epoch_and_substitutes_silence(wav_manifest, tmp_path):
     df = pd.read_csv(wav_manifest)
     df.loc[2, "files"] = str(tmp_path / "missing.wav")
-    loader = ManifestLoader(df, batch_size=4, clip_samples=CLIP, seed=1, num_workers=2, on_error="zeros")
+    loader = ManifestLoader(df, batch_size=4, clip_samples=CLIP, seed=1, num_workers=2, on_error="zeros",
+                            native=False)
     full = list(loader.epoch(0))
     it = loader.epoch(0)
     next(it)
@@ -100,18 +101,20 @@ def test_loader_resumes_mid_epoch_and_substitutes_silence(wav_manifest, tmp_path
         np.testing.assert_array_equal(a, b)
     assert any((w == 0).all() for batch, _ in full for w in batch)
     with pytest.raises(FileNotFoundError):
-        list(ManifestLoader(df, batch_size=4, clip_samples=CLIP, num_workers=2).epoch(0))
+        list(ManifestLoader(df, batch_size=4, clip_samples=CLIP, num_workers=2, native=False).epoch(0))
 
 
 def test_loader_options_of_later_items_raise(wav_manifest):
-    """host_shard and tar rows are not ported; labelled manifests and balanced
-    sampling are (tests/test_torch_port_probe.py), and balanced needs labels."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ManifestLoader(wav_manifest, 4, CLIP, host_shard=(0, 2))
+    """host_shard and tar rows are ported (tests/test_torch_port_host_data.py),
+    as are labelled manifests and balanced sampling (tests/test_torch_port_probe.py);
+    what stays refused: balanced without labels, a host_shard rank outside
+    the world, and bare tar rows in a labelled manifest."""
     with pytest.raises(ValueError, match="labeled"):
         ManifestLoader(wav_manifest, 4, CLIP, balanced=True)
-    with pytest.raises(NotImplementedError, match="tar"):
-        ManifestLoader(pd.DataFrame({"files": ["a.tar::x.wav"]}), 4, CLIP)
+    with pytest.raises(ValueError, match="host_shard"):
+        ManifestLoader(wav_manifest, 4, CLIP, host_shard=(2, 2))
+    with pytest.raises(ValueError, match="bare .tar"):
+        ManifestLoader(pd.DataFrame({"files": ["a.tar"], "label": ["x"]}), 4, CLIP, labeled=True)
 
 
 # ---------------------------------------------------------------- heads and objective
