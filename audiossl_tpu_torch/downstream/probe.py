@@ -38,7 +38,17 @@ parallel/launch.py), as JAX's single-host probe splits each batch over its
 contiguous share (rows ``rank·B/W`` up to ``(rank+1)·B/W``), the BatchNorms
 are SyncBN, and the step's gradients and loss are the group's means (JAX
 probe.py:283-284); the eval accuracy counts every process's share. Rank 0
-writes the stats. Not ported: ``downstream.tp`` (ROADMAP.md Queue 1, item 9).
+writes the stats.
+
+Tensor parallel (``downstream.tp: M``, JAX probe.py:107-147,236-283; AST
+only): the world is a (world // M) x M grid (parallel/dist.py), the batch
+is split over its data axis only, the AST encoder is head-sharded over the
+model axis (parallel/tp_ast.py: each rank runs H/M heads through the
+attention kernels, a 1/M share of every qkv, attn.proj and MLP weight and
+of their Adam moments) and the linear head is replicated. A checkpoint's
+encoder loads whole and is sharded after. The loss and the gradients are
+means over the data axis's global batch; eval runs on the same grid;
+``--freeze`` keeps the frozen shards.
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ from audiossl_tpu_torch.models import surgery
 from audiossl_tpu_torch.models.surgery import newest_encoder
 from audiossl_tpu_torch.objectives.unfused import cross_entropy
 from audiossl_tpu_torch.parallel import dist
+from audiossl_tpu_torch.parallel.tp_ast import shard_ast_
 from audiossl_tpu_torch.train.loop import global_batch, join_group, stats_log
 from audiossl_tpu_torch.utils.metrics import Accuracy, AverageMeter
 
@@ -197,7 +208,7 @@ def evaluate(model: DownstreamModel, loader, mel_cfg: LogMelConfig, dev: torch.d
             logits = model(features(torch.from_numpy(waves).to(dev), mel_cfg))
             acc.update(logits.argmax(dim=1).cpu().numpy() == labels)
     model.train()
-    if not dist.active():
+    if not dist.data_active():
         return acc.avg
     hits = dist.all_reduce_sum(torch.tensor([acc.correct, acc.total], dtype=torch.float64, device=dev))
     return float(hits[0] / hits[1].clamp_min(1.0))
@@ -206,21 +217,25 @@ def evaluate(model: DownstreamModel, loader, mel_cfg: LogMelConfig, dev: torch.d
 def run_downstream(config: dict[str, Any], args: dict[str, Any], device: str | torch.device = "cuda") -> dict[str, Any]:
     """Train and evaluate the probe; returns the best test accuracy, the
     per-epoch test accuracies, the per-step losses and the model."""
-    if int(config["downstream"].get("tp", 0) or 0) > 1:
-        raise NotImplementedError("downstream.tp is not ported yet (ROADMAP.md Queue 1, item 9)")
+    ds = config["downstream"]
+    tp = max(1, int(ds.get("tp", 0) or 0))
+    if tp > 1 and str(ds["base_encoder"].get("type")) != "AST":
+        raise ValueError("downstream.tp requires base_encoder.type: AST (head-sharded plain-ViT attention, "
+                         f"parallel/tp_ast.py); got {ds['base_encoder'].get('type')!r}")
     dev = resolve_device(device)
-    world = join_group(config["run"], dev)
-    if world > 1:  # the global batch, a multiple of the world size
-        batch = global_batch(int(config["run"]["batch_size"]), world)
+    n_data = join_group(config["run"], dev, tp, "downstream.tp") // tp
+    if n_data > 1:  # the global batch, a multiple of the data axis's size
+        batch = global_batch(int(config["run"]["batch_size"]), n_data)
         config = {**config, "run": {**config["run"], "batch_size": batch}}
     train_loader, valid_loader, test_loader, clip = build_loaders(config, args)
     num_classes = len(train_loader.label_to_id)
-    ds = config["downstream"]
     mel_cfg = LogMelConfig(sample_rate=int(ds["input"]["sampling_rate"]), n_mels=int(ds["input"]["n_mels"]))
     model = build_model(config, num_classes, mel_cfg.num_frames(clip))
     if args.get("checkpoint"):
         path = load_encoder(model, args["checkpoint"], (mel_cfg.num_frames(clip), mel_cfg.n_mels))
         log.info("loaded pretrained encoder from %s", path)
+    if tp > 1:
+        shard_ast_(model.encoder)
     model = model.to(dev).train()
 
     freeze = bool(args.get("freeze") or config["run"].get("freeze", False))

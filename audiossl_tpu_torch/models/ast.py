@@ -31,6 +31,13 @@ card passes torch.float32. The port has no ``auto`` size or train-only gate
 (that gate is a TPU measurement): on CUDA the kernels run in training and in
 eval. Attention dropout > 0 takes the plain attention with its dropout, as
 the JAX gate does (models/ast.py:86-92).
+
+Tensor parallelism (parallel/tp_ast.py): after ``shard_ast_`` each block's
+attention holds the q, k and v rows of its H/tp heads and runs them end to
+end (the kernels see [B·H/tp, L, Dh]); ``attn.proj`` and ``mlp.fc2`` are
+row-parallel and all-reduce, ``mlp.fc1`` column-parallel. Attention
+dropout draws the whole [B, H, L, L] mask and keeps this rank's heads, so
+the ranks together apply the mask one process would.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ from audiossl_tpu_torch import no_tf32
 from audiossl_tpu_torch.ops.attention import fused_rel_attention
 from audiossl_tpu_torch.ops.tokens import gather_tokens
 from audiossl_tpu_torch.ops.tokens import patch_drop as drop_tokens
+from audiossl_tpu_torch.parallel import dist
+from audiossl_tpu_torch.parallel import tp as tpar
 
 LN_EPS = 1e-6
 
@@ -85,6 +94,7 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, dim // num_heads
         self.dropout, self.attention_dtype = dropout, attention_dtype
+        self.tp = 1
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
@@ -94,14 +104,18 @@ class Attention(nn.Module):
         if self.training and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("AST attention dropout in training mode needs an explicit torch.Generator")
-            keep = torch.rand(p.shape, generator=generator, device=generator.device).to(p.device) < 1.0 - self.dropout
+            b, h = p.shape[:2]
+            draw = torch.rand((b, h * self.tp, *p.shape[2:]), generator=generator, device=generator.device)
+            keep = draw[:, dist.tp_rank() * h:(dist.tp_rank() + 1) * h].to(p.device) < 1.0 - self.dropout
             p = torch.where(keep, p / (1.0 - self.dropout), 0.0)
         return p @ v
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        b, n, d = x.shape
-        h, dh = self.num_heads, self.head_dim
-        qkv = F.linear(x, self.qkv.weight, self.qkv.bias).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+        b, n, _ = x.shape
+        h, dh = self.num_heads // self.tp, self.head_dim
+        sharded = tpar.sharded(self.tp)
+        linear = tpar.column_parallel if sharded else F.linear
+        qkv = linear(x, self.qkv.weight, self.qkv.bias).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # [B, H, L, Dh]
         if self.dropout > 0.0:
             out = self._plain(q, k, v, generator)
@@ -109,8 +123,9 @@ class Attention(nn.Module):
             dt = self.attention_dtype or (torch.bfloat16 if x.device.type == "cuda" else x.dtype)
             fold = lambda t: t.reshape(b * h, n, dh).to(dt)
             out = fused_rel_attention(fold(q), fold(k), fold(v), None, None, dh**-0.5).to(x.dtype).reshape(b, h, n, dh)
-        out = out.transpose(1, 2).reshape(b, n, d)
-        return F.linear(out, self.proj.weight, self.proj.bias)
+        out = out.transpose(1, 2).reshape(b, n, h * dh)
+        linear = tpar.row_parallel if sharded else F.linear  # row-parallel over the heads
+        return linear(out, self.proj.weight, self.proj.bias)
 
 
 class Mlp(nn.Module):
@@ -118,8 +133,11 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.tp = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tpar.sharded(self.tp):  # column -> GELU -> row
+            return tpar.tp_mlp(x, self.fc1.weight, self.fc2.weight, self.fc1.bias, self.fc2.bias, F.gelu)
         return self.fc2(F.gelu(self.fc1(x)))
 
 

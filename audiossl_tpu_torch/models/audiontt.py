@@ -76,7 +76,7 @@ def sync_moments(x: torch.Tensor, axes: list[int]) -> tuple[torch.Tensor, torch.
     """(E[x], E[x²]) over ``axes``, the group's mean of each across processes
     (flax's pmean of the two under ``axis_name``); differentiable."""
     mean, msq = x.mean(axes), (x * x).mean(axes)
-    if dist.active():
+    if dist.data_active():
         mean, msq = dist.all_reduce_mean(torch.stack([mean, msq]), "syncbn").unbind(0)
     return mean, msq
 

@@ -46,6 +46,14 @@ Checkpoints and serving artifacts hold every encoder in the reference
 layout; ``port_layout`` and ``reference_layout`` convert a state_dict of
 any encoder type between that and the port's modules.
 
+``shard_state_dict`` cuts a state_dict into one rank's tensor-parallel
+shards, for both encoders, under ``parallel.tp_ast.ast_spec`` or
+``parallel.tp_mvit.mvit_spec`` (a resume at tp > 1 loads the dense
+checkpoint through it): after ``ast_from_flax`` / ``mast_from_flax``, rank
+t's shard equals JAX's addressable shard t of the same tree under
+``ast_tp_specs`` / ``mvit_tp_specs``; ``parallel.tp.gather`` joins the
+shards back (``dense_state_dict`` across the ranks).
+
 ``aug_state_from_flax`` / ``aug_state_to_flax`` carry JAX's world-sized
 augmentation state (``P(DATA_AXIS)``: one mixup bank and RunningNorm a
 device) to the port checkpoint's world-sized layout (one a process) and
@@ -53,7 +61,7 @@ back, so that both sides of a data-parallel test start from one state.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -383,6 +391,16 @@ def reference_layout(sd: Mapping[str, torch.Tensor], encoder_type: str,
     if encoder_type == "AST":
         return ast_reference_layout(sd, grid_ft)
     return dict(sd)
+
+
+def shard_state_dict(sd: Mapping[str, torch.Tensor], spec_of: Callable[[str], Any], tp_rank: int,
+                     tp: int) -> dict[str, torch.Tensor]:
+    """Rank ``tp_rank``'s shards of ``sd``; ``spec_of(key)`` is the key's
+    spec (dim, groups), or None for a replicated tensor, which is kept whole
+    (``tp_mvit.mvit_spec``, ``tp_ast.ast_spec``)."""
+    from audiossl_tpu_torch.parallel.tp import piece
+
+    return {k: v if spec_of(k) is None else piece(v, spec_of(k), tp_rank, tp) for k, v in sd.items()}
 
 
 def efficientnet_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:

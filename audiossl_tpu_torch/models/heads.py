@@ -99,7 +99,7 @@ def batch_standardize(z: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     each feature over the batch with the biased variance E[z²] − E[z]²,
     the group's moments across processes (JAX heads.py:67-76)."""
     mean, sq = z.mean(0), z.square().mean(0)
-    if dist.active():
+    if dist.data_active():
         mean, sq = dist.all_reduce_mean(torch.stack([mean, sq]), "barlow").unbind(0)
     var = sq - mean.square()
     return (z - mean) * torch.rsqrt(var + eps)
@@ -119,8 +119,8 @@ def barlow_loss(z1: torch.Tensor, z2: torch.Tensor, lambd: float | None = 5e-5, 
     b = z1.shape[0]
     with no_tf32():
         c = batch_standardize(z1).T @ batch_standardize(z2) / b
-    if dist.active():
-        c = dist.all_reduce_sum(c / dist.world(), "barlow")
+    if dist.data_active():
+        c = dist.all_reduce_sum(c / dist.dp_world(), "barlow")
     on_diag = (torch.diagonal(c) - 1.0).square().sum()
     off_diag = off_diagonal_sq_sum(c)
     if lambd:

@@ -24,7 +24,20 @@ Attention: every block runs ops/attention.py's ``fused_rel_attention``: the
 Hopper kernels on a CUDA tensor, their plain versions on a CPU tensor.
 ``fused_attention`` is kept because the JAX configs carry it, and checked,
 but the port does not act on it: the JAX package's "auto" gate (Lq * Lk >=
-2^18, engaged only on the TPU) is a TPU v5e measurement.
+2^18, engaged only on the TPU) is a TPU v5e measurement; under tensor
+parallelism, where JAX turns its kernel off, the port keeps its kernels on.
+
+Pooling: each depthwise pooling conv runs as a grouped conv. ``pool_impl``
+("conv" | "unrolled") is kept because the JAX configs carry it, and
+checked, but not acted on: JAX's ``_UnrolledDepthwise`` works around its
+SPMD partitioner's grouped-conv gradients under ``pretrain.tp``; the port
+has no partitioner, and pools replicated q, k and v with replicated weights.
+
+Tensor parallelism (parallel/tp_mvit.py): after ``shard_mvit_`` each
+block's attention and Mlp hold their shards (``tp`` > 1) and run the
+Megatron forward: qkv column-parallel and all-gathered, the pooling and
+the attention replicated, ``attn.proj`` row-parallel on this rank's
+columns of the attention output, then the column / row Mlp.
 """
 from __future__ import annotations
 
@@ -40,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from audiossl_tpu_torch import no_tf32
 from audiossl_tpu_torch.ops.attention import fused_rel_attention
+from audiossl_tpu_torch.parallel import tp as tpar
 
 LN_EPS = 1e-6
 
@@ -79,7 +93,7 @@ class MViTConfig:
     dropout_rate: float = 0.0
     compute_dtype: Any = None  # torch.bfloat16, or None for exact f32
     fused_attention: str = "auto"  # "auto" | "on" | "off": the JAX configs' key, not acted on
-    pool_impl: str = "conv"  # "conv"; "unrolled" (tensor parallelism only) is not ported
+    pool_impl: str = "conv"  # "conv" | "unrolled": the JAX configs' key, not acted on
 
     @staticmethod
     def _variant(depth: int, droppath: float, stage_blocks: tuple[int, ...], kw) -> "MViTConfig":
@@ -161,9 +175,13 @@ def _rel_dist_index(q_size: int, k_size: int) -> np.ndarray:
     return dist.astype(np.int64)
 
 
+def _bias(m: nn.Linear, dt: torch.dtype) -> torch.Tensor | None:
+    return m.bias.to(dt) if m.bias is not None else None
+
+
 def _linear(x: torch.Tensor, m: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     """A dense layer in the compute dtype on f32 parameters."""
-    return F.linear(x.to(dt), m.weight.to(dt), m.bias.to(dt) if m.bias is not None else None)
+    return F.linear(x.to(dt), m.weight.to(dt), _bias(m, dt))
 
 
 def _layer_norm(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
@@ -183,11 +201,9 @@ def drop_path(x: torch.Tensor, rate: float, keep_draw: torch.Tensor | None) -> t
 class MultiScaleAttention(nn.Module):
     def __init__(self, dim: int, dim_out: int, num_heads: int, input_hw: tuple[int, int],
                  kernel_q, kernel_kv, stride_q, stride_kv, qkv_bias: bool, rel_pos_spatial: bool,
-                 residual_pooling: bool, pool_impl: str = "conv"):
+                 residual_pooling: bool):
         super().__init__()
-        if pool_impl != "conv":
-            raise NotImplementedError(
-                "pool_impl 'unrolled' exists for tensor parallelism, which is not ported (ROADMAP.md Queue 1)")
+        self.tp = 1
         self.dim_out, self.num_heads = dim_out, num_heads
         self.head_dim = dim_out // num_heads
         self.scale = self.head_dim**-0.5
@@ -236,7 +252,11 @@ class MultiScaleAttention(nn.Module):
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         b, n, _ = x.shape
         heads, c = self.num_heads, self.head_dim
-        qkv = _linear(x, self.qkv, dt).reshape(b, n, 3, heads, c).permute(2, 0, 3, 1, 4)
+        if tpar.sharded(self.tp):  # column-parallel, then every rank holds all of q, k and v
+            qkv = tpar.gather_from_model(tpar.column_parallel(x, self.qkv.weight.to(dt), _bias(self.qkv, dt)))
+        else:
+            qkv = _linear(x, self.qkv, dt)
+        qkv = qkv.reshape(b, n, 3, heads, c).permute(2, 0, 3, 1, 4)
         q, k, v = (self._pool(name, t, dt) for name, t in zip("qkv", qkv))
         (qh, qw), (kh, kw) = self.q_hw, self.k_hw
         lq, lk = q.shape[2], k.shape[2]
@@ -255,6 +275,8 @@ class MultiScaleAttention(nn.Module):
         if self.residual_pooling:
             out = out + q
         out = out.transpose(1, 2).reshape(b, -1, self.dim_out)
+        if tpar.sharded(self.tp):  # row-parallel on this rank's columns of the output
+            return tpar.row_parallel(tpar.scatter_to_model(out), self.proj.weight.to(dt), self.proj.bias.to(dt))
         return _linear(out, self.proj, dt)
 
 
@@ -263,22 +285,26 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, out)
+        self.tp = 1
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        if tpar.sharded(self.tp):  # column -> GELU -> row
+            return tpar.tp_mlp(x, self.fc1.weight.to(dt), self.fc2.weight.to(dt), self.fc1.bias.to(dt),
+                               self.fc2.bias.to(dt), F.gelu)
         return _linear(F.gelu(_linear(x, self.fc1, dt)), self.fc2, dt)
 
 
 class MultiScaleBlock(nn.Module):
     def __init__(self, dim: int, dim_out: int, num_heads: int, input_hw: tuple[int, int], mlp_ratio: float,
                  qkv_bias: bool, droppath: float, kernel_q, kernel_kv, stride_q, stride_kv,
-                 rel_pos_spatial: bool, residual_pooling: bool, dim_mul_in_att: bool, pool_impl: str = "conv"):
+                 rel_pos_spatial: bool, residual_pooling: bool, dim_mul_in_att: bool):
         super().__init__()
         self.dim, self.dim_out, self.dim_mul_in_att = dim, dim_out, dim_mul_in_att
         self.input_hw, self.stride_q, self.droppath = tuple(input_hw), tuple(stride_q), droppath
         att_dim = dim_out if dim_mul_in_att else dim
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = MultiScaleAttention(dim, att_dim, num_heads, input_hw, kernel_q, kernel_kv, stride_q, stride_kv,
-                                        qkv_bias, rel_pos_spatial, residual_pooling, pool_impl)
+                                        qkv_bias, rel_pos_spatial, residual_pooling)
         self.norm2 = nn.LayerNorm(att_dim, eps=LN_EPS)
         self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out)
         if dim != dim_out:
@@ -316,6 +342,8 @@ class MViT(nn.Module):
             raise NotImplementedError("cls_embed_on, use_abs_pos and dropout_rate > 0 are not ported (MAST uses none)")
         if cfg.fused_attention not in ("auto", "on", "off"):
             raise ValueError(f"fused_attention must be auto|on|off, got {cfg.fused_attention!r}")
+        if cfg.pool_impl not in ("conv", "unrolled"):
+            raise ValueError(f"pool_impl must be conv|unrolled, got {cfg.pool_impl!r}")
         self.cfg, self.remat = cfg, remat
         self.patch_embed = nn.Module()
         self.patch_embed.proj = nn.Conv2d(in_chans, cfg.embed_dim, cfg.patch_kernel, cfg.patch_stride, cfg.patch_padding)
@@ -334,7 +362,7 @@ class MViT(nn.Module):
             blocks.append(MultiScaleBlock(
                 embed_dim, dim_out, num_heads, hw, cfg.mlp_ratio, cfg.qkv_bias, float(dpr[i]), pool_q[i],
                 pool_kv[i], stride_q[i], stride_kv[i], cfg.rel_pos_spatial, cfg.residual_pooling,
-                cfg.dim_mul_in_att, cfg.pool_impl,
+                cfg.dim_mul_in_att,
             ))
             hw = block_out_hw(hw, pool_q[i], stride_q[i])
             embed_dim = dim_out

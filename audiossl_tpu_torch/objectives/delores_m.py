@@ -84,7 +84,7 @@ def agreed_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
     0's draw from its generator, broadcast (JAX agrees on one key by ``pmax``
     of the key bits)."""
     dev = generator.device
-    perm = torch.randperm(n, generator=generator, device=dev) if dist.rank() == 0 else \
+    perm = torch.randperm(n, generator=generator, device=dev) if dist.dp_rank() == 0 else \
         torch.empty(n, dtype=torch.long, device=dev)
     return dist.broadcast_from(perm)
 
@@ -92,12 +92,12 @@ def agreed_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
 def batch_shuffle(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """This process's share of the gathered batch permuted by ``perm``
     (MoCo shuffle-BN; JAX delores_m.py:92-105)."""
-    return dist.all_gather(x)[perm.view(dist.world(), -1)[dist.rank()]]
+    return dist.all_gather(x)[perm.view(dist.dp_world(), -1)[dist.dp_rank()]]
 
 
 def batch_unshuffle(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """The inverse of ``batch_shuffle``: this process's own clips back."""
-    return dist.all_gather(x)[torch.argsort(perm).view(dist.world(), -1)[dist.rank()]]
+    return dist.all_gather(x)[torch.argsort(perm).view(dist.dp_world(), -1)[dist.dp_rank()]]
 
 
 def parse_scale(scale: Any) -> float:
@@ -199,9 +199,9 @@ class MocoObjective(Objective):
         ``shuffle_bn`` across processes, on a batch shuffled by an agreed
         permutation and every output unshuffled."""
         with torch.no_grad():
-            if not (self.shuffle_bn and dist.active()):
+            if not (self.shuffle_bn and dist.data_active()):
                 return self.encoder_k(v, generator)
-            perm = agreed_permutation(v.shape[0] * dist.world(), generator)
+            perm = agreed_permutation(v.shape[0] * dist.dp_world(), generator)
             return tuple(batch_unshuffle(o, perm) for o in self.encoder_k(batch_shuffle(v, perm), generator))
 
     def _enqueue(self, keys: torch.Tensor) -> None:

@@ -46,5 +46,5 @@ def dino_loss(student_out: torch.Tensor, teacher_out: torch.Tensor, state: DinoS
     else:
         t = torch.softmax((teacher_out - state.center) / teacher_temp, dim=-1)
         loss = (-t * torch.log_softmax(student_out / student_temp, dim=-1)).sum(dim=-1).mean()
-    batch_center = dist.all_reduce_sum(teacher_out.sum(dim=0, keepdim=True)) / (teacher_out.shape[0] * dist.world())
+    batch_center = dist.all_reduce_sum(teacher_out.sum(dim=0, keepdim=True)) / (teacher_out.shape[0] * dist.dp_world())
     return loss, DinoState(center=state.center * center_momentum + batch_center * (1.0 - center_momentum))

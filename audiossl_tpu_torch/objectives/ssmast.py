@@ -17,10 +17,13 @@ checkpoint carries the whole MoCo state. Both passes run in training mode
 (drop path on), with draws from the step's generator.
 
 Across processes (parallel/dist.py) every enqueue takes the all-gathered
-keys of the group in rank order, as JAX's ``queue_update`` does. With
+keys of the data axis in rank order, as JAX's ``queue_update`` does; under
+tensor parallelism (``pretrain.tp``, parallel/tp_mvit.py) both towers hold
+this rank's shards, the EMA runs shard by shard, and the queue stays whole
+on every rank. With
 ``pretrain.shuffle_bn`` there the step takes the sequential path (JAX
 excludes the batched views under shuffle-BN, ssmast.py:126) and each key
-pass runs on the batch shuffled across processes by an agreed permutation,
+pass runs on the batch shuffled across the data axis by an agreed permutation,
 unshuffled after; MAST has no batch statistics, so this moves only which
 clip takes which drop-path draw. On one process shuffle-BN changes nothing.
 
@@ -119,7 +122,7 @@ class SSMast(Objective):
         with torch.no_grad():
             if not shuffle:
                 return l2_normalize(self.encoder_k(v, generator), dim=1)
-            perm = agreed_permutation(v.shape[0] * dist.world(), generator)
+            perm = agreed_permutation(v.shape[0] * dist.dp_world(), generator)
             return l2_normalize(batch_unshuffle(self.encoder_k(batch_shuffle(v, perm), generator), perm), dim=1)
 
     def loss(self, v1: torch.Tensor, v2: torch.Tensor, generator: torch.Generator | None = None,
@@ -127,7 +130,7 @@ class SSMast(Objective):
         """The step's InfoNCE sum; advances the key encoder, queue, pointer and step."""
         m = self.momentum()
         queue, ptr = self.queue, self.queue_ptr
-        shuffle = self.shuffle_bn and dist.active()
+        shuffle = self.shuffle_bn and dist.data_active()
         if self.batched_views and not shuffle:
             b = v1.shape[0]
             self._ema_(m)

@@ -338,7 +338,7 @@ class FusedBlock1(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, gamma, beta):
         mean, msq = batch_moments(x, weight, bias)
-        if dist.active():  # SyncBN: the group's moments (JAX pmean, ops/block1.py:368-370)
+        if dist.data_active():  # SyncBN: the group's moments (JAX pmean, ops/block1.py:368-370)
             mean, msq = dist.all_reduce_mean(torch.stack([mean, msq]), "syncbn").unbind(0)
         var = msq - mean**2
         istd = torch.rsqrt(var + BN_EPS)
@@ -363,9 +363,9 @@ class FusedBlock1(torch.autograd.Function):
         b, _, f, t = x.shape
         s1 = gamma * sdy  # Σ dxhat
         s2 = gamma * dgamma  # Σ dxhat · xhat
-        if dist.active():  # the group's sums over its global count (JAX psum, ops/block1.py:470-478)
+        if dist.data_active():  # the group's sums over its global count (JAX psum, ops/block1.py:470-478)
             s1, s2 = dist.all_reduce_sum(torch.stack([s1, s2]), "syncbn").unbind(0)
-        n = b * f * t * dist.world()
+        n = b * f * t * dist.dp_world()
         s1 = s1 / n
         s2 = s2 / n
         k1 = istd * gamma

@@ -42,7 +42,7 @@ is sharded the same way and the scores come back to every process in the
 datafile's order (JAX :269); the sharded order is padded by wrapping to a
 multiple of the world size, so at world W the eval metrics count the first
 (−N mod W) clips twice. Rank 0 writes the checkpoints and the stats.
-``--fsdp`` / ``run.fsdp`` is refused (ROADMAP.md Queue 1, item 9).
+``--fsdp`` / ``run.fsdp`` is refused (ROADMAP.md Queue 1, item 9.2).
 """
 from __future__ import annotations
 

@@ -30,9 +30,27 @@ the stats and the exports; the checkpoint's augmentation state holds every
 process's mixup bank and RunningNorm in one world-sized layout (leading dim
 ``world``, JAX's ``P(DATA_AXIS)`` aug state), and a resume at another world
 size raises, as JAX's restore does. ``run.world_size`` (0: the group's size)
-must equal the group's size; ``pretrain.tp``, ``run.fsdp`` and
-``run.zero_optimizer`` are refused (ROADMAP.md Queue 1, item 9), here and in
-the DECAR, DeepCluster and fine-tune trainers.
+must equal the group's size; ``run.fsdp`` and ``run.zero_optimizer`` are
+refused (ROADMAP.md Queue 1, items 9.2 and 9.3), here and in the DECAR,
+DeepCluster and fine-tune trainers, and ``pretrain.tp`` in those three.
+
+Tensor parallel (``pretrain.tp: M``, JAX's ``model`` mesh axis, SS-MAST on
+MAST only): the world is a (world // M) x M grid (parallel/dist.py); the
+query tower, the EMA key tower and the AdamW moments hold 1/M of every
+qkv, attn.proj and MLP weight on each rank of a model group
+(parallel/tp_mvit.py). The config is left as given: JAX's loop writes
+``fused_attention: off`` and ``pool_impl: unrolled`` into it (into the
+caller's dict) for its partitioner, and the port acts on neither key. The
+batch is split over the
+data axis only: each model group reads one ``host_shard`` of
+``batch_size // (world // M)`` clips and its ranks draw alike (the
+generator's seed and the loader's come from the data index); gradients are
+averaged over the data axis. JAX's checks stay (MAST only; not with
+``zero_optimizer`` or ``fsdp``; the world divisible by M; stateless
+augmentation). Rank 0 writes the dense checkpoint (parameters, key tower,
+moments and queue gathered over the model axis, as orbax writes JAX's
+global arrays): a run resumes at the same tp, and its encoder export loads
+at tp = 1.
 """
 from __future__ import annotations
 
@@ -53,10 +71,13 @@ from audiossl_tpu_torch import resolve_device
 from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline, AugmentState, MixupBankState
 from audiossl_tpu_torch.data.pipeline import ManifestLoader
 from audiossl_tpu_torch.frontend import build_frontend
+from audiossl_tpu_torch.models.convert import shard_state_dict
 from audiossl_tpu_torch.objectives import init_objective, objective_class
 from audiossl_tpu_torch.ops.stats import RunningNormState
 from audiossl_tpu_torch.parallel import dist
+from audiossl_tpu_torch.parallel import tp as tpar
 from audiossl_tpu_torch.parallel.launch import maybe_init_distributed
+from audiossl_tpu_torch.parallel.tp_mvit import mvit_spec, shard_mvit_
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
@@ -111,14 +132,15 @@ class MetricsBuffer:
         self._loss_sum, self._loss_n = 0.0, 0
 
 
-def check_parallel_knobs(config: dict[str, Any]) -> None:
+def check_parallel_knobs(config: dict[str, Any], tp_runs: bool = False) -> int:
     """The JAX trainer's checks of ``pretrain.tp``, ``run.fsdp`` and
     ``run.zero_optimizer`` (audiossl_tpu/train/loop.py:117-160, 216-220):
     first its ValueErrors (tp needs a MAST encoder; tp + zero, fsdp + tp and
-    fsdp + zero exclude each other), then NotImplementedError for any knob
-    that is set: the port is data parallel only (``join_group`` checks
-    ``run.world_size``). A config with no ``pretrain`` section (the
-    fine-tune's) has no tp."""
+    fsdp + zero exclude each other), then NotImplementedError for fsdp and
+    zero (not ported yet) and for tp in a trainer that does not run it
+    (``tp_runs``: train_upstream; the JAX DECAR, DeepCluster and fine-tune
+    trainers have no tensor-parallel path). A config with no ``pretrain``
+    section (the fine-tune's) has no tp. Returns tp (1 when unset)."""
     run, pre = config["run"], config.get("pretrain") or {}
     tp = int(pre.get("tp", 0) or 0)
     fsdp = bool(run.get("fsdp", False))
@@ -137,10 +159,14 @@ def check_parallel_knobs(config: dict[str, Any]) -> None:
         if zero:
             raise ValueError("run.fsdp is incompatible with run.zero_optimizer: FSDP already shards the "
                              "moments (and params/grads) over the mesh")
-    for knob, on in (("pretrain.tp > 1", tp > 1), ("run.fsdp", fsdp), ("run.zero_optimizer", zero)):
+    if tp > 1 and not tp_runs:
+        raise NotImplementedError("pretrain.tp > 1 is run by train_upstream (SS-MAST) only: this trainer has no "
+                                  "tensor-parallel path, in the JAX package either")
+    for knob, on, item in (("run.fsdp", fsdp, "9.2"), ("run.zero_optimizer", zero, "9.3")):
         if on:
-            raise NotImplementedError(f"{knob} is not ported yet: the port is data-parallel only "
-                                      "(ROADMAP.md Queue 1, item 9: parallelism)")
+            raise NotImplementedError(f"{knob} is not ported yet: the port runs data and tensor parallelism "
+                                      f"(ROADMAP.md Queue 1, item {item})")
+    return max(tp, 1)
 
 
 def check_world_size(run: dict[str, Any]) -> int:
@@ -155,11 +181,17 @@ def check_world_size(run: dict[str, Any]) -> int:
     return have
 
 
-def join_group(run: dict[str, Any], device: torch.device) -> int:
+def join_group(run: dict[str, Any], device: torch.device, tp: int = 1, knob: str = "pretrain.tp") -> int:
     """Join the process group a launcher describes (parallel/launch.py),
-    then check ``run.world_size``; the world size."""
+    check ``run.world_size`` and lay the group out as a (world // tp) x tp
+    grid (JAX's ValueError, naming ``knob``, when tp does not divide it);
+    the world size."""
     maybe_init_distributed(device)
-    return check_world_size(run)
+    world = check_world_size(run)
+    if world % tp:
+        raise ValueError(f"{world} devices not divisible by {knob}={tp}")
+    dist.set_tp(tp)
+    return world
 
 
 def global_batch(batch: int, world: int) -> int:
@@ -182,12 +214,12 @@ def aug_state_dict(state: AugmentState) -> dict[str, Any]:
 
 
 def world_aug_state(state: AugmentState) -> dict[str, Any]:
-    """Every process's augmentation state in one world-sized layout (a
+    """Every data index's augmentation state in one world-sized layout (a
     collective: each tensor stacked in rank order along a new leading dim,
     each count a [world] int64 tensor; JAX's ``P(DATA_AXIS)`` aug state)."""
     dev = state.mixup.bank.device if state.mixup is not None else \
         state.running_norm.mean.device if state.running_norm is not None else torch.device("cpu")
-    out: dict[str, Any] = {"world": dist.world()}
+    out: dict[str, Any] = {"world": dist.dp_world()}
     for name, fields in aug_state_dict(state).items():
         out[name] = {k: dist.all_gather(torch.as_tensor(v, device=dev)[None]) for k, v in fields.items()}
     return out
@@ -197,10 +229,10 @@ def aug_state_from_world(d: dict[str, Any], device: torch.device) -> AugmentStat
     """This process's row of a world-sized augmentation state; raises for a
     checkpoint of another world size, as JAX's restore of a ``P(DATA_AXIS)``
     array of another length does."""
-    world, r = int(d["world"]), dist.rank()
-    if world != dist.world():
+    world, r = int(d["world"]), dist.dp_rank()
+    if world != dist.dp_world():
         raise ValueError(f"the checkpoint holds the augmentation state of {world} process(es), this run has "
-                         f"{dist.world()}: resume at the world size it was saved at (JAX's restore refuses too)")
+                         f"{dist.dp_world()}: resume at the world size it was saved at (JAX's restore refuses too)")
     return aug_state_from_dict({name: {k: v[r] for k, v in fields.items()}
                                 for name, fields in d.items() if name != "world"}, device)
 
@@ -216,9 +248,9 @@ def aug_state_from_dict(d: dict[str, Any], device: torch.device) -> AugmentState
 
 
 def gather_generators(generator: torch.Generator) -> list[torch.Tensor]:
-    """Every process's generator state in rank order (a collective)."""
+    """Every data index's generator state in order (a collective)."""
     st = generator.get_state()
-    return list(dist.all_gather(st[None].to(generator.device)).cpu()) if dist.active() else [st]
+    return list(dist.all_gather(st[None].to(generator.device)).cpu()) if dist.data_active() else [st]
 
 
 def stats_log(path: str):
@@ -255,18 +287,19 @@ def train_upstream(
     changed: the run writes ``pretrain.steps_per_epoch`` into its own copy
     (the one its checkpoints store)."""
     dev = resolve_device(device)
-    world = join_group(config["run"], dev)
-    check_parallel_knobs(config)
+    tp = check_parallel_knobs(config, tp_runs=True)
+    world = join_group(config["run"], dev, tp)
     config = copy.deepcopy(config)
     run, pre = config["run"], config["pretrain"]
-    batch = global_batch(int(run["batch_size"]), world)
+    n_data = world // tp  # the batch is split over the data axis only
+    batch = global_batch(int(run["batch_size"]), n_data)
     frontend = build_frontend(pre["input"])
     clip = cfgmod.clip_samples(config)
     loader = ManifestLoader(
-        input_csv, batch_size=batch // world, clip_samples=clip, sample_rate=frontend.sample_rate,
+        input_csv, batch_size=batch // n_data, clip_samples=clip, sample_rate=frontend.sample_rate,
         labeled=objective_class(upstream).labeled, num_workers=int(run.get("num_dataloader_workers", 8)), seed=seed,
         wire_dtype=str(run.get("wire_dtype", "int16")), on_error=str(run.get("data_on_error", "raise")),
-        host_shard=(dist.rank(), world) if world > 1 else None,
+        host_shard=(dist.dp_rank(), n_data) if n_data > 1 else None,
     )
     normalization = str(pre.get("normalization", "mean_var"))
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=loader.num_samples,
@@ -274,6 +307,8 @@ def train_upstream(
     steps_per_epoch = max(len(loader), 1)
     pre["steps_per_epoch"] = steps_per_epoch  # SS-MAST's momentum schedule reads it
     objective = init_objective(upstream, config, seed, dev).train()
+    if tp > 1:  # the seeded dense weights, cut to this rank's shards before the optimizer sees them
+        shard_mvit_(objective)
 
     epochs = int(run.get("epochs", 1))
     lr = float(run.get("learning_rate", 0.03))
@@ -285,18 +320,28 @@ def train_upstream(
     )
     generator = torch.Generator(device=dev).manual_seed(dist.rank_seed(seed))
     aug_state = pipeline.init_state(frontend.n_mels, frontend.num_frames(clip), dev)
+    if tp > 1 and (aug_state.mixup is not None or aug_state.running_norm is not None):
+        raise ValueError("pretrain.tp requires stateless augmentation (normalization: precomputed/l2 and no "
+                         "mixup/Kmix memory bank): the ring-bank and RunningNorm state are shaped for the "
+                         "shard_map step")
+    names = [n for n, p in objective.named_parameters() if p.requires_grad]  # the optimizer's order
     step, position = 0, None
     if load_checkpoint:
         saved = ckpt.load_checkpoint(load_checkpoint)
-        objective.load_state_dict(saved["objective"])
-        optimizer.load_state_dict(saved["optimizer"])
+        obj_sd, opt_sd = saved["objective"], saved["optimizer"]
+        if tp > 1:  # the dense checkpoint cut to this rank's shards
+            obj_sd = shard_state_dict(obj_sd, mvit_spec, dist.tp_rank(), tp)
+            opt_sd = tpar.map_optimizer_state(opt_sd, names, lambda v, n: shard_state_dict(
+                {n: v}, mvit_spec, dist.tp_rank(), tp)[n])
+        objective.load_state_dict(obj_sd)
+        optimizer.load_state_dict(opt_sd)
         if scheduler is not None:
             scheduler.load_state_dict(saved["scheduler"])
         aug_state = aug_state_from_world(saved["augment"], dev)
-        generator.set_state(saved["generator"][dist.rank()])
+        generator.set_state(saved["generator"][dist.dp_rank()])
         step, position = int(saved["step"]), saved["loader"]
         if position is not None:
-            position = {**position, "rng": saved["loader_rngs"][dist.rank()]}
+            position = {**position, "rng": saved["loader_rngs"][dist.dp_rank()]}
         log.info("resumed from %s at step %d", load_checkpoint, step)
     train_step = TrainStep(objective, pipeline, frontend, optimizer, generator, scheduler, normalization)
 
@@ -307,23 +352,28 @@ def train_upstream(
     keep_last = int(run.get("keep_checkpoints", 0)) or None
 
     def save() -> None:
-        # collectives: every process's augmentation, generator and window-rng state
+        # collectives: every process's augmentation, generator and window-rng
+        # state; under tp the dense state from every rank's shards
         augment, generators = world_aug_state(aug_state), gather_generators(generator)
         loader_rngs = dist.gather_objects(None if loader.position is None else loader.position["rng"])
-        if dist.rank() != 0:
-            return
-        state = {
-            "objective": objective.state_dict(),
-            "optimizer": optimizer.state_dict(),
-            "scheduler": scheduler.state_dict() if scheduler is not None else None,
-            "augment": augment,
-            "generator": generators,
-            "loader": loader.position,
-            "loader_rngs": loader_rngs,
-            "step": step,
-            "config": config,
-        }
-        ckpt.save_checkpoint(ckpt_dir, step, state, objective.export_state_dict(), config, keep_last)
+        obj_sd, opt_sd, export = objective.state_dict(), optimizer.state_dict(), objective.export_state_dict()
+        if tp > 1:
+            obj_sd, export = tpar.dense_state_dict(obj_sd, mvit_spec), tpar.dense_state_dict(export, mvit_spec)
+            opt_sd = tpar.map_optimizer_state(opt_sd, names, lambda v, n: tpar.gather_from_ranks(v, mvit_spec(n)))
+        if dist.rank() == 0:
+            state = {
+                "objective": obj_sd,
+                "optimizer": opt_sd,
+                "scheduler": scheduler.state_dict() if scheduler is not None else None,
+                "augment": augment,
+                "generator": generators,
+                "loader": loader.position,
+                "loader_rngs": loader_rngs,
+                "step": step,
+                "config": config,
+            }
+            ckpt.save_checkpoint(ckpt_dir, step, state, export, config, keep_last)
+        dist.barrier()  # every rank returns with the checkpoint on disk (a resume may follow in the same processes)
 
     start_epoch, start_batch, rng_state = 0, 0, None
     if position is not None:

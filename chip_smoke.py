@@ -133,6 +133,26 @@ with 128).
     rank order. Last, NCCL at world 1 through ``maybe_init_distributed()``
     from torchrun-style env gives the bits of no process group.
 
+  * tensor parallelism (slice 14): the attention kernels at each rank's
+    AST-base shape under downstream.tp 2 ([192, 1214, 64], 6 of the 12
+    heads, no bias), f32 and bf16, against their plain versions and timed;
+    then gloo ranks sharing the card (the script, not the package, chooses
+    gloo): f32 gates, MAST tiny's SS-MAST step and a 4-head AST's step at
+    1214 tokens, at tp 2 and at dp 2 x tp 2 against one process within 4
+    times one process's distance from itself on the same rows in another
+    order (plus f32 round-off), which two planted faults (the all-reduce
+    after a row-parallel layer with a summed backward, the gradients
+    averaged over the whole world) must fail; SS-MAST at pretrain.tp 2
+    through train_upstream on a copy of configs/ssmast.yaml (B=64, bf16,
+    MViTv2-B, 2 steps: 1 / 48 / 24 / 24 launches a step a rank, half of
+    every qkv, attention proj and MLP weight and of their moments a rank,
+    the peak memory a rank beside one process's), a resume of its dense
+    checkpoint at tp 2, and its export served at tp 1 behind the fbank;
+    AST-base at downstream.tp 2 through train_downstream (B=32, 1214 tokens,
+    3 steps and an eval batch, 1 / 12 / 12 / 12 a step a rank and 1 / 12 an
+    eval batch; with --freeze 1 / 12 / 0 / 0); each rank's step time and busy
+    share (gloo through the host, not a multi-GPU rate).
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
 the attention at MAST-B's shapes and at AST-base's), serving (AudioNTT,
@@ -599,6 +619,24 @@ def main() -> int:
                "ddp_ssmast_launches_per_rank": ddp["ssmast"]["counts_per_rank"],
                "ddp_ssmast_shuffle_launches_per_rank": ddp["ssmast_shuffle"]["counts_per_rank"]}
 
+    # phases 33-37 (slice 14): tensor parallelism. Phase 33: the attention
+    # kernels at each rank's shape under downstream.tp 2 against their plain
+    # versions, and their times there; phases 34-36: gloo ranks sharing the
+    # card, the f32 gates at tp 2 and at dp 2 x tp 2 against one process
+    # (each planted fault caught), SS-MAST pretrain.tp 2 through
+    # train_upstream (launches a rank, shards, peak memory, a resume, the
+    # export served at tp 1), AST-base downstream.tp 2 through
+    # train_downstream (fine-tuned and frozen); phase 37: each rank's step
+    # time and busy share, beside the card
+    tp_attn_err = tp_attention_checks(dev)
+    ast_tp_times = ast_attention_times(dev, card, AST_TP_SHAPE)
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = tp_runs(wav, tmp, dev, card)
+    slice14 = {"tp_ssmast_launches_per_rank": tp["ssmast_launches_per_rank"],
+               "tp_ast_launches_per_rank": tp["ast_launches_per_rank"],
+               "tp_ast_freeze_launches_per_rank": tp["ast_freeze_launches_per_rank"],
+               "tp_export_served_launches": tp["served_launches"]}
+
     # phase 25: the kernel line
     entries = [{
         "name": "log_mel_fused",
@@ -616,6 +654,7 @@ def main() -> int:
         **{f"{name}_launches": c["log_mel_fused"] for name, c in slice11_counts.items()},
         **{key: c["log_mel_fused"] for key, c in slice12.items()},
         **{key: c["log_mel_fused"] for key, c in slice13.items()},
+        **{key: c["log_mel_fused"] for key, c in slice14.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -637,6 +676,7 @@ def main() -> int:
             **{f"{run}_launches": c[name] for run, c in slice11_counts.items() if run != "make_pseudo_labels"},
             **{key: c[name] for key, c in slice12.items()},
             **{key: c[name] for key, c in slice13.items()},
+            **{key: c[name] for key, c in slice14.items()},
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -653,12 +693,15 @@ def main() -> int:
             "mast_probe_launches": {mode: c[name] for mode, c in mast_probe_counts.items()},
             **{key: c[name] for key, c in slice12.items()},
             **{key: c[name] for key, c in slice13.items()},
-            "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name], ft_attn_err[name]),
+            **{key: c[name] for key, c in slice14.items()},
+            "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name], ft_attn_err[name], tp_attn_err[name]),
+            "ast_tp_max_abs_err": tp_attn_err[name],
             "mast_probe_max_abs_err": probe9_err[name],
             "finetune_max_abs_err": ft_attn_err[name],
             **attn_times[name],
             "times_are": "summed over the 24 blocks of one SS-MAST step at B=64, bf16",
             "ast": ast_times[name],
+            "ast_tp_per_rank": ast_tp_times[name],
         })
     for name, line in (("fused_rows_kaldi", 533), ("fused_rows_librosa", 99)):
         entries.append({
@@ -672,6 +715,7 @@ def main() -> int:
             "ast_serve_launches": ast_serve["counts"][name],
             **{key: c[name] for key, c in slice12.items()},
             **{key: c[name] for key, c in slice13.items()},
+            **{key: c[name] for key, c in slice14.items()},
             "max_abs_err": max(rows_err[name], dispatch["max_abs_err"]) if name == "fused_rows_librosa" else rows_err[name],
             **rows_t[name],
         })
@@ -688,7 +732,8 @@ def main() -> int:
                       "finetune_eval": {k: ft_run["stats"][k] for k in ("mAP", "AUC", "d_prime")},
                       "finetune_serving": {k: v for k, v in ft_run["serve"].items() if k != "counts"},
                       "data_parallel": {k: v for k, v in ddp.items() if not k.endswith("_per_rank")},
-                      "tar_native": {k: v for k, v in tar_run.items() if k != "counts"}, "nccl_world_one": nccl}))
+                      "tar_native": {k: v for k, v in tar_run.items() if k != "counts"}, "nccl_world_one": nccl,
+                      "tensor_parallel": {k: v for k, v in tp.items() if not k.endswith(("_per_rank", "_launches"))}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -1992,17 +2037,18 @@ def ast_f32_step_check(dev) -> dict[str, float]:
             "cpu_1e-6_views_gradients": noise_norm, "cpu_1e-6_views_worst_tensor": max(noise_rels.values())}
 
 
-def ast_attention_times(dev, card) -> dict[str, dict]:
-    """Each attention kernel at AST-base's (384, 1214, 64), bf16, no bias: ms
-    per launch and per step (12 launches), its plain version, the bound, and
-    the library yardstick, scaled_dot_product_attention with no mask (its
-    forward; the graph of forward and backward less the forward's for the
-    backward kernels); all CUDA graph replays."""
+def ast_attention_times(dev, card, shape: tuple[int, int, int] = AST_SHAPE) -> dict[str, dict]:
+    """Each attention kernel at AST-base's (384, 1214, 64) (or ``shape``: a
+    tp rank's heads), bf16, no bias: ms per launch and per step (12
+    launches), its plain version, the bound, and the library yardstick,
+    scaled_dot_product_attention with no mask (its forward; the graph of
+    forward and backward less the forward's for the backward kernels); all
+    CUDA graph replays."""
     import torch.nn.functional as F
 
     from audiossl_tpu_torch.ops import attention as A
 
-    bh, l, d = AST_SHAPE
+    bh, l, d = shape
     q, k, v, _, do = attention_case(bh, l, None, l, d, torch.bfloat16, dev, seed=131)
     scale = d**-0.5
     qs = A.scale_q(q, scale)
@@ -2032,7 +2078,7 @@ def ast_attention_times(dev, card) -> dict[str, dict]:
               f"({AST_DEPTH * ms:.4f} a step), plain {plain_ms:.4f} ms, library (SDPA, no mask"
               f"{', forward' if name == 'rel_attention_fwd' else ', its whole backward'}) {lib_ms:.4f} ms; bound "
               f"{bound:.4f} ms (bytes {t_bytes:.4f}, products {t_ops:.4f} at the bf16 rate; {bound * AST_DEPTH:.4f} a step)")
-        out[name] = {"shape": list(AST_SHAPE), "launches_per_step": AST_DEPTH, "ms": ms, "ms_per_step": AST_DEPTH * ms,
+        out[name] = {"shape": list(shape), "launches_per_step": AST_DEPTH, "ms": ms, "ms_per_step": AST_DEPTH * ms,
                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "library_ms": lib_ms}
     return out
@@ -3480,6 +3526,512 @@ def nccl_world_one_check(pool: np.ndarray, dev) -> dict:
     if backend != launch.backend_for(dev) or world != 1 or not same or grouped["calls"]:
         raise RuntimeError("the NCCL group of one process changed the step")
     return {"backend": backend, "same_bits": same}
+
+
+# ---------------------------------------------------------------- slice 14: tensor parallelism
+
+TP = 2  # the model axis: 2 gloo ranks share the card (NCCL refuses two ranks on one GPU)
+TP_DP = 2  # the data axis of the dp x tp gate (4 ranks)
+TP_SSMAST_STEPS = 2  # then a resume to TP_SSMAST_STEPS + 1
+TP_AST_STEPS = 3
+AST_TP_SHAPE = (AST_BATCH * 12 // TP, 1214, 64)  # each rank's attention at AST-base, B=32: 6 of the 12 heads
+# the f32 gates: the tp step against one process on the same inputs, held to
+# DDP_SPREAD times one process's distance from itself on the same rows in
+# another order (the sums split otherwise, as tp splits them), plus f32
+# round-off (DDP_FLOOR): the loss (relative) and the whole gradient
+# (relative in norm); faults planted in the package's tp primitives and
+# collectives for the run, each of which the gate must catch
+TP_FAULTS = ("sum_backward_reduce", "world_grad_mean")
+TP_GATE_BATCH = 4
+AST_GATE_FRAMES = AST_CLIP // 160 + 1  # 1025 frames: 1214 tokens, the streamed f32 attention
+
+
+def tp_ssmast_gate_config() -> dict:
+    """SS-MAST on MAST tiny, f32, drop path 0, 64 x 96 views, a 64-key queue."""
+    cfg = ssmast_config()
+    cfg["pretrain"].update(model_size="tiny", droppath_rate=0.0, compute_dtype="f32", num_negatives=64)
+    cfg["pretrain"]["input"].update(n_mels=64, target_length=96)
+    return cfg
+
+
+class ASTGate(torch.nn.Module):
+    """AST at tiny's width with 4 heads (tiny's 3 do not divide by 2), depth
+    2, at the probe's 128 x 1025 input (1214 tokens), f32 attention, and a
+    4-class linear head: the downstream.tp path's model, small."""
+
+    def __init__(self):
+        from audiossl_tpu_torch.models.ast import ASTConfig, ASTEncoder
+
+        super().__init__()
+        self.encoder = ASTEncoder(128, AST_GATE_FRAMES, ASTConfig(embed_dim=192, num_heads=4, depth=2),
+                                  attention_dtype=torch.float32)
+        self.final = torch.nn.Linear(192, 4)
+
+    def forward(self, x):
+        return self.final(self.encoder(x))
+
+
+@contextlib.contextmanager
+def planted_tp_fault(fault: str | None):
+    """``fault`` planted in the package for the block: the all-reduce after a
+    row-parallel layer with a summed backward, or the gradients' mean over
+    the whole world (mixing shards of one weight) in place of the data
+    axis's."""
+    from audiossl_tpu_torch.parallel import dist
+    from audiossl_tpu_torch.parallel import tp as tpar
+
+    class SumBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            out = x.detach().clone().contiguous()
+            torch.distributed.all_reduce(out, group=dist.model_group())
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            out = g.detach().clone().contiguous()
+            torch.distributed.all_reduce(out, group=dist.model_group())
+            return out
+
+    def world_mean(params):
+        params = [p for p in params if p.requires_grad]
+        flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1).float() for p in params])
+        torch.distributed.all_reduce(flat)
+        flat /= dist.world()
+        off = 0
+        for p in params:
+            p.grad = flat[off:off + p.numel()].view_as(p).to(p.dtype)
+            off += p.numel()
+
+    saved = tpar.reduce_from_model, dist.all_reduce_grads_
+    if fault == "sum_backward_reduce":
+        tpar.reduce_from_model = lambda x: SumBackward.apply(x) if dist.tp_world() > 1 else x
+    elif fault == "world_grad_mean":
+        dist.all_reduce_grads_ = world_mean
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        tpar.reduce_from_model, dist.all_reduce_grads_ = saved
+
+
+def tp_gate_step(kind: str, inputs: dict, dev, perm: np.ndarray | None = None, fault: str | None = None) -> dict:
+    """One f32 step of ``kind`` ("ssmast": MAST tiny through TrainStep's
+    loss, backward and all-reduces; "ast": ASTGate, cross-entropy) on this
+    rank's share of the inputs over the data axis and its shards over the
+    model axis (one process: the whole model and batch), ``fault`` planted,
+    ``perm`` reordering the batch's rows first; seeded weights alike on
+    every rank. The loss (the data axis's mean) and the whole gradients."""
+    from audiossl_tpu_torch import no_tf32
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.parallel import dist
+    from audiossl_tpu_torch.parallel import tp as tpar
+    from audiossl_tpu_torch.parallel.tp_ast import ast_spec, shard_ast_
+    from audiossl_tpu_torch.parallel.tp_mvit import mvit_spec, shard_mvit_
+    from audiossl_tpu_torch.train.step import TrainStep
+
+    rows = (lambda x: x) if perm is None else (lambda x: x[perm])
+    share = lambda x: dist.share(torch.from_numpy(np.ascontiguousarray(rows(x)))).to(dev)  # noqa: E731
+    dist.calls.clear()
+    reset_launches()
+    if kind == "ssmast":
+        obj = init_objective("ssmast", tp_ssmast_gate_config(), seed=0).to(dev).train()
+        shard_mvit_(obj)
+        opt = torch.optim.AdamW([p for p in obj.parameters() if p.requires_grad], lr=3e-4)
+        with planted_tp_fault(fault):
+            loss = TrainStep(obj, None, None, opt, torch.Generator(dev).manual_seed(0)).loss_and_grads(
+                share(inputs["v1"]), share(inputs["v2"]))
+        named, spec_of = obj.named_parameters(), mvit_spec
+    else:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = ASTGate()
+        model = model.to(dev).train()
+        shard_ast_(model.encoder)
+        with planted_tp_fault(fault), no_tf32():
+            loss = torch.nn.functional.cross_entropy(model(share(inputs["x"])), share(inputs["labels"]))
+            loss.backward()
+            dist.all_reduce_grads_(model.parameters())
+            loss = dist.all_reduce_mean(loss.detach())
+        named, spec_of = model.named_parameters(), ast_spec
+    grads = {n: tpar.gather_from_ranks(p.grad, spec_of(n)).float().cpu() for n, p in named if p.grad is not None}
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "grads": grads, "calls": dict(dist.calls), "counts": read_launches()}
+
+
+def tp_gate_inputs() -> dict:
+    """The gates' inputs from a generator of their own: MAST tiny's two
+    views, AST's 128 x 1025 views and labels."""
+    rng = np.random.default_rng(141)
+    return {"ssmast": {"v1": rng.standard_normal((TP_GATE_BATCH, 1, 64, 96)).astype(np.float32),
+                       "v2": rng.standard_normal((TP_GATE_BATCH, 1, 64, 96)).astype(np.float32)},
+            "ast": {"x": rng.standard_normal((TP_GATE_BATCH, 1, 128, AST_GATE_FRAMES)).astype(np.float32),
+                    "labels": np.arange(TP_GATE_BATCH) % 4}}
+
+
+def tp_gate_distance(a: dict, b: dict) -> dict[str, float]:
+    """Step ``a`` from step ``b``: the loss (relative) and the whole gradient
+    (relative in norm)."""
+    ga = torch.cat([v.flatten() for v in a["grads"].values()])
+    gb = torch.cat([b["grads"][k].flatten() for k in a["grads"]])
+    return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]), "grad": float((ga - gb).norm() / gb.norm())}
+
+
+def tp_gates(inputs: dict, dev) -> dict:
+    """This rank's gate steps, correct and with each planted fault."""
+    out = {}
+    for kind in ("ssmast", "ast"):
+        out[kind] = tp_gate_step(kind, inputs[kind], dev)
+        for fault in TP_FAULTS:
+            out[f"{kind} {fault}"] = tp_gate_step(kind, inputs[kind], dev, fault=fault)
+    return out
+
+
+def tp_capture_optimizer():
+    """Patch train/loop.py's build_optimizer to keep the optimizers it builds
+    (their moments' shapes per rank); returns the list and the restorer."""
+    from audiossl_tpu_torch.train import loop
+
+    built, original = [], loop.build_optimizer
+
+    def keep(*args, **kw):
+        built.append(original(*args, **kw))
+        return built[-1]
+
+    loop.build_optimizer = keep
+    return built, lambda: setattr(loop, "build_optimizer", original)
+
+
+def tp_ssmast_times(obj, config, dev, card, rank: int) -> dict:
+    """This rank's SS-MAST step at tp (B=64 bf16, waves on the card):
+    TrainStep with a fresh AdamW over its shards, timed by tp_step_times."""
+    from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
+    from audiossl_tpu_torch.frontend import build_frontend
+    from audiossl_tpu_torch.train.step import TrainStep
+
+    pre = config["pretrain"]
+    frontend = build_frontend(pre["input"])
+    pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
+    opt = torch.optim.AdamW([p for p in obj.parameters() if p.requires_grad], lr=3e-4, weight_decay=0.0)
+    step = TrainStep(obj, pipeline, frontend, opt, torch.Generator(dev).manual_seed(0), None,
+                     str(pre.get("normalization", "mean_var")))
+    waves = torch.from_numpy(np.random.default_rng(143).standard_normal((MAST_BATCH, MAST_CLIP)).astype(np.float32)
+                             * 0.3).to(dev)
+    state = pipeline.init_state(frontend.n_mels, frontend.num_frames(MAST_CLIP), dev)
+    return tp_step_times(lambda: step(state, waves), dev, card, f"SS-MAST pretrain.tp {TP}, rank {rank}", MAST_BATCH)
+
+
+def tp_step_times(fn, dev, card, label: str, batch: int) -> dict:
+    """A warm-up, the busy share of 2 steps by torch.profiler (and the
+    collectives a step), then 3 steps on the host clock (the median)."""
+    from audiossl_tpu_torch.parallel import dist
+
+    dist.calls.clear()
+    busy = busy_share(fn, 2, card, label)  # a warm-up and 2 calls
+    calls = {k: v / 3 for k, v in dist.calls.items()}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    print(f"[{card}] {label}: step {ms:.1f} ms (median of 3; {[round(t * 1e3, 1) for t in times]}) = "
+          f"{batch / ms * 1e3:.1f} clips/s of the model group's {batch}, collectives a step {calls} "
+          f"(half of them each way; gloo through the host, two ranks sharing one card: not an NVLink rate); busy "
+          + (f"{busy:.1%}" if busy is not None else "not measured"))
+    return {"step_ms": ms, "step_ms_each": [t * 1e3 for t in times], "busy": busy, "calls_per_step": calls}
+
+
+def tp_rank(rank: int, world: int, port: int, in_path: str, out_dir: str) -> None:
+    """One gloo rank of a (world // TP) x TP grid on the one card: the f32
+    gates; at world TP also SS-MAST at pretrain.tp through train_upstream
+    (then a resume) and AST-base at downstream.tp through train_downstream
+    (fine-tuned, then frozen), with their step times. At world 1, only
+    SS-MAST's one-process peak memory, in a process of its own as each rank
+    is. Results to ``out_dir/rank<r>.pt``. Gloo is the script's choice (NCCL
+    refuses two ranks on one GPU; the package takes NCCL for CUDA)."""
+    sys.path.insert(0, ROOT)
+    logging.basicConfig(level=logging.WARNING)
+    from audiossl_tpu_torch.parallel import dist
+
+    d = torch.load(in_path, weights_only=False)
+    dev = torch.device(d["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    try:  # the kernels load from the parent's build at first launch
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        if world == 1:
+            torch.save({"ssmast_peak_bytes": one_process_ssmast_peak(d, dev)}, os.path.join(out_dir, "rank0.pt"))
+            return
+        dist.set_tp(TP)
+        out = {"grid": (dist.dp_rank(), dist.tp_rank()), "gates": tp_gates(d["gates"], dev)}
+        if world == TP:
+            out.update(tp_ssmast_run(d, rank, dev))
+            out.update(tp_ast_run(d, rank, dev))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def one_process_ssmast_peak(d: dict, dev) -> int:
+    """SS-MAST through train_upstream on configs/ssmast.yaml as tp_ssmast_run
+    takes it, at pretrain.tp 1, TP_SSMAST_STEPS steps: the peak device bytes
+    above what the process held when it started."""
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    config = ssmast_config()
+    config["run"].update(save_path=os.path.join(d["tmp"], "one_process_ssmast"), epochs=1)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_upstream(config, d["mast_csv"], "ssmast", max_steps=TP_SSMAST_STEPS, device=dev)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def tp_ssmast_run(d: dict, rank: int, dev) -> dict:
+    """SS-MAST through train_upstream on a copy of configs/ssmast.yaml with
+    pretrain.tp 2 (B=64, bf16, MViTv2-B), TP_SSMAST_STEPS steps, counts from
+    0, peak memory above what the rank held before (the gates' leftovers);
+    the shards and moments this rank held; then a resume from its
+    checkpoint to one step more; then the step's times."""
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    config = ssmast_config()
+    config["pretrain"]["tp"] = TP
+    config["run"].update(save_path=os.path.join(d["tmp"], "tp_ssmast"), epochs=1)
+    built, restore = tp_capture_optimizer()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        obj, step, ckpt_dir = train_upstream(config, d["mast_csv"], "ssmast", max_steps=TP_SSMAST_STEPS, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, peak = read_launches(), torch.cuda.max_memory_allocated() - base
+        opt = built[0][0]
+        blk = obj.encoder.mast.blocks[5]  # stage 2's first block: dim 192 -> 384
+        shapes = {"qkv": tuple(blk.attn.qkv.weight.shape), "attn.proj": tuple(blk.attn.proj.weight.shape),
+                  "mlp.fc1": tuple(blk.mlp.fc1.weight.shape), "mlp.fc2": tuple(blk.mlp.fc2.weight.shape),
+                  "key qkv": tuple(obj.encoder_k.mast.blocks[5].attn.qkv.weight.shape),
+                  "qkv exp_avg": tuple(opt.state[blk.attn.qkv.weight]["exp_avg"].shape),
+                  "fc2 exp_avg_sq": tuple(opt.state[blk.mlp.fc2.weight]["exp_avg_sq"].shape)}
+        params = sum(p.numel() for p in obj.encoder.parameters())
+        reset_launches()
+        obj2, step2, _ = train_upstream(config, d["mast_csv"], "ssmast", load_checkpoint=ckpt_dir,
+                                        max_steps=TP_SSMAST_STEPS + 1, device=dev)
+        torch.cuda.synchronize()
+        resume_counts = read_launches()
+    finally:
+        restore()
+    del obj
+    times = tp_ssmast_times(obj2, config, dev, d["card"], rank)
+    return {"ssmast": {"step": step, "counts": counts, "seconds": seconds, "peak_bytes": peak, "shapes": shapes,
+                       "encoder_params_held": params, "ckpt_dir": ckpt_dir, "resume_step": step2,
+                       "resume_counts": resume_counts, "times": times}}
+
+
+def tp_ast_run(d: dict, rank: int, dev) -> dict:
+    """AST-base through train_downstream at downstream.tp 2 (ast_config,
+    B=32, 128 mels x 1025 frames): TP_AST_STEPS steps and one eval batch,
+    counts from 0, then the same with --freeze; the shards this rank held;
+    then the fine-tuned step's times on device-resident waves."""
+    import yaml
+
+    from audiossl_tpu_torch.downstream.probe import features, probe_step
+    from audiossl_tpu_torch.frontend.stft import LogMelConfig
+    from audiossl_tpu_torch.train_downstream import main as downstream_main
+
+    out = {}
+    for mode in ("finetune", "freeze"):
+        config, _ = ast_config(d["tmp"])
+        config["downstream"]["tp"] = TP
+        path = os.path.join(d["tmp"], f"ast_tp_{mode}.yaml")
+        if rank == 0:
+            with open(path, "w") as f:
+                yaml.safe_dump(config, f)
+        torch.distributed.barrier()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = downstream_main(["--task", f"ast_tp_{mode}", "--train_csv", d["ast_train"], "--test_csv", d["ast_test"],
+                                  "-c", path, "--encoder", "AST", "--epochs", "1", "--exp_dir",
+                                  os.path.join(d["tmp"], "exp"), "--device", str(dev)]
+                                 + (["--freeze"] if mode == "freeze" else []))
+        torch.cuda.synchronize()
+        model = result["model"]
+        out[f"ast_{mode}"] = {"counts": read_launches(), "seconds": time.perf_counter() - t0,
+                              "losses": result["losses"], "history": result["history"],
+                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                              "qkv": tuple(model.encoder.blocks[0].attn.qkv.weight.shape),
+                              "fc1": tuple(model.encoder.blocks[0].mlp.fc1.weight.shape)}
+        if mode == "finetune":
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            mel = LogMelConfig(sample_rate=16000, n_mels=int(config["downstream"]["input"]["n_mels"]))
+            waves = torch.from_numpy(np.random.default_rng(145).standard_normal((AST_BATCH, AST_CLIP)).astype(np.float32)
+                                     * 0.3).to(dev)
+            labels = torch.arange(AST_BATCH, device=dev) % 4
+            features(waves, mel)
+            out["ast_finetune"]["times"] = tp_step_times(lambda: probe_step(model, opt, mel, waves, labels), dev,
+                                                         d["card"], f"AST-base downstream.tp {TP}, rank {rank}",
+                                                         AST_BATCH)
+        del model, result
+    return out
+
+
+def tp_expected(kind: str) -> dict[str, int]:
+    """Launches a rank, a step (and an eval batch), of each tp path."""
+    depth = 24
+    return {"ssmast": {"fused_rows_kaldi": 1, "rel_attention_fwd": 2 * depth, "rel_attention_bwd_dq": depth,
+                       "rel_attention_bwd_dkv": depth},
+            "ast_step": {"log_mel_fused": 1, **dict.fromkeys(ATTN_KERNELS, AST_DEPTH)},
+            "ast_freeze_step": {"log_mel_fused": 1, "rel_attention_fwd": AST_DEPTH},
+            "ast_eval": {"log_mel_fused": 1, "rel_attention_fwd": AST_DEPTH}}[kind]
+
+
+def tp_runs(wav, tmp: str, dev, card) -> dict:
+    """Phases 34-36: tensor parallelism, gloo ranks sharing the card. The
+    parent first makes the f32 gates' one-process references and their
+    yardsticks (one process on the same rows in another order); then one
+    spawn of TP ranks (the gates at tp 2, SS-MAST pretrain.tp and AST-base
+    downstream.tp through their entry points, their step times) and one of
+    TP_DP x TP ranks (the gates at dp 2 x tp 2). Checks every gate and
+    fault, the launches a rank, the shards a rank held, the resume and the
+    export served at tp 1."""
+    from audiossl_tpu_torch.serve import export as serve
+
+    mast_batch = int(ssmast_config()["run"]["batch_size"])
+    mast_csv = ssmast_wavs(tmp, wav, (TP_SSMAST_STEPS + 1) * mast_batch)
+    files, labels = ast_wavs(tmp, wav)
+    ast_train, ast_test = write_labelled(tmp, "ast_tp", files, labels, TP_AST_STEPS * AST_BATCH, AST_BATCH)
+    gates = tp_gate_inputs()
+    perm = np.random.default_rng(147).permutation(TP_GATE_BATCH)
+    one = {kind: tp_gate_step(kind, gates[kind], dev) for kind in ("ssmast", "ast")}
+    spread = {kind: tp_gate_distance(tp_gate_step(kind, gates[kind], dev, perm=perm), one[kind]) for kind in one}
+    bound = {kind: {k: DDP_SPREAD * v + DDP_FLOOR[k] for k, v in e.items()} for kind, e in spread.items()}
+    for kind in one:
+        print(f"[{card}] f32 {kind} gate, one process on the same rows in another order against one process: "
+              f"loss rel {spread[kind]['loss']:.2e}, gradient rel norm {spread[kind]['grad']:.3e}; the gate "
+              f"{bound[kind]}")
+    ranks = {}
+    for world in (1, TP, TP_DP * TP):  # world 1: one process's SS-MAST peak, beside a rank's
+        sub = os.path.join(tmp, f"tp_world{world}")
+        os.makedirs(sub)
+        torch.save({"gates": gates, "tmp": tmp, "mast_csv": mast_csv, "ast_train": ast_train, "ast_test": ast_test,
+                    "device": str(dev), "card": card}, os.path.join(sub, "in.pt"))
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(tp_rank, args=(world, free_port(), os.path.join(sub, "in.pt"), sub), nprocs=world,
+                                    join=True)
+        print(f"tensor parallelism: {world} gloo ranks on this card, spawn and every phase {time.perf_counter() - t0:.1f} s")
+        ranks[world] = [torch.load(os.path.join(sub, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    one_peak = ranks.pop(1)[0]["ssmast_peak_bytes"]
+
+    report, failures = {"gate_spread": spread, "gate_bound": bound}, []
+    for world, rs in ranks.items():
+        grid = [r["grid"] for r in rs]
+        if grid != [(r // TP, r % TP) for r in range(world)]:
+            failures.append(f"world {world}: the grid is {grid}")
+        for r, res in enumerate(rs):
+            for name, step in res["gates"].items():
+                kind, _, fault = name.partition(" ")
+                err = tp_gate_distance(step, one[kind])
+                caught = [k for k in err if err[k] > bound[kind][k]]
+                print(f"[{card}] f32 {kind} gate at dp {world // TP} x tp {TP}, rank {r}"
+                      + (f", planted fault {fault}" if fault else "") + f": loss rel {err['loss']:.2e}, gradient rel "
+                      f"norm {err['grad']:.3e}; " + (f"fails the gate on {caught}" if caught else "passes the gate")
+                      + ("" if fault else f"; collectives {step['calls']}"))
+                report[f"gate world{world} rank{r} {name}"] = err
+                if fault and not caught:
+                    failures.append(f"the {kind} gate does not catch {fault} at world {world}, rank {r}: {err}")
+                if not fault and caught:
+                    failures.append(f"rank {r}'s {kind} tp step at world {world} strays from one process: {err}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+
+    rs = ranks[TP]
+    steps = TP_SSMAST_STEPS
+    for r, res in enumerate(rs):
+        st = res["ssmast"]
+        expect_counts(f"SS-MAST pretrain.tp {TP}, rank {r}, {steps} steps", st["counts"],
+                      {k: steps * n for k, n in tp_expected("ssmast").items()})
+        expect_counts(f"SS-MAST pretrain.tp {TP} resumed, rank {r}, 1 step", st["resume_counts"], tp_expected("ssmast"))
+        sh = st["shapes"]
+        want = {"qkv": (3 * 384 // TP, 192), "attn.proj": (384, 384 // TP), "mlp.fc1": (4 * 384 // TP, 384),
+                "mlp.fc2": (384, 4 * 384 // TP), "key qkv": (3 * 384 // TP, 192), "qkv exp_avg": (3 * 384 // TP, 192),
+                "fc2 exp_avg_sq": (384, 4 * 384 // TP)}
+        if sh != want or st["step"] != steps or st["resume_step"] != steps + 1:
+            raise RuntimeError(f"rank {r} of SS-MAST pretrain.tp held {sh} (expected {want}), steps {st['step']}, "
+                               f"{st['resume_step']}")
+        print(f"SS-MAST pretrain.tp {TP} through train_upstream (configs/ssmast.yaml, MViTv2-B, B={mast_batch}, bf16), "
+              f"rank {r}: {steps} steps in {st['seconds']:.1f} s, launches {st['counts']}; block 5 held {sh}; "
+              f"{st['encoder_params_held'] / 1e6:.2f} M of the query tower's parameters on this rank; resumed to step "
+              f"{st['resume_step']} ({st['resume_counts']})")
+        print(f"[{card}] SS-MAST pretrain.tp {TP}, rank {r}: peak memory {st['peak_bytes'] / 2**30:.3f} GiB above what "
+              f"the rank held before; one process at pretrain.tp 1, in a fresh process, {one_peak / 2**30:.3f} GiB: "
+              f"{st['peak_bytes'] / one_peak:.3f} of it")
+    saved = torch.load(os.path.join(rs[0]["ssmast"]["ckpt_dir"], "state", f"{steps + 1}.pt"), map_location="cpu",
+                       weights_only=True)
+    dense = saved["objective"]["encoder.mast.blocks.5.attn.qkv.weight"].shape
+    if tuple(dense) != (3 * 384, 192):
+        raise RuntimeError(f"the tp checkpoint is not dense: {tuple(dense)}")
+    # the export at tp 1 behind the fbank: the serving CLI writes the artifact,
+    # ServingEncoder answers 65 clips in 2 batches of 64, counts from 0
+    art = os.path.join(tmp, "tp_export.pt")
+    serve.main(["--checkpoint", rs[0]["ssmast"]["ckpt_dir"], "--out", art, "--clip_samples", str(SLICE9_CLIP),
+                "--device", str(dev)])
+    pool = slice9_requests(tmp, wav, 65)
+    enc = fixed_batch_encoder(art, dev)
+    reset_launches()
+    z = enc(pool)
+    torch.cuda.synchronize()
+    served = read_launches()
+    if z.shape != (65, 768) or not np.isfinite(z).all():
+        raise RuntimeError(f"the tp checkpoint's export served {z.shape} or non-finite embeddings")
+    expect_counts("the tp checkpoint's export served at tp 1", served, {"fused_rows_kaldi": 2, "rel_attention_fwd": 48})
+    print(f"the tp {TP} checkpoint (dense: block 5's qkv {tuple(dense)}) exported and served at tp 1: 65 clips -> "
+          f"{z.shape}, finite; launches {served}")
+
+    for r, res in enumerate(rs):
+        for mode, per_step in (("finetune", tp_expected("ast_step")), ("freeze", tp_expected("ast_freeze_step"))):
+            a = res[f"ast_{mode}"]
+            if len(a["losses"]) != TP_AST_STEPS or not all(math.isfinite(v) for v in a["losses"] + a["history"]):
+                raise RuntimeError(f"AST downstream.tp {mode}, rank {r}: losses {a['losses']}, accuracy {a['history']}")
+            probe_counts_check(f"AST-base downstream.tp {TP} {mode}, rank {r}", a["counts"], per_step,
+                               tp_expected("ast_eval"), TP_AST_STEPS, 1)
+            if a["qkv"] != (3 * 768 // TP, 768) or a["fc1"] != (4 * 768 // TP, 768):
+                raise RuntimeError(f"AST downstream.tp rank {r} held qkv {a['qkv']}, fc1 {a['fc1']}")
+            print(f"AST-base downstream.tp {TP} through train_downstream ({mode}, B={AST_BATCH}, 1214 tokens, 6 of the 12 "
+                  f"heads a rank), rank {r}: {TP_AST_STEPS} steps + 1 eval batch in {a['seconds']:.1f} s; losses "
+                  f"{a['losses']}; accuracy {a['history']}; launches {a['counts']}; block 0 held qkv {a['qkv']}, fc1 "
+                  f"{a['fc1']}; peak memory {a['peak_bytes'] / 2**30:.2f} GiB")
+    report.update({
+        "ssmast_launches_per_rank": rs[0]["ssmast"]["counts"], "ssmast_peak_gib_per_rank": [
+            res["ssmast"]["peak_bytes"] / 2**30 for res in rs],
+        "ssmast_one_process_peak_gib": one_peak / 2**30,
+        "ssmast_times": [res["ssmast"]["times"] for res in rs], "ast_times": [res["ast_finetune"]["times"] for res in rs],
+        "ast_launches_per_rank": rs[0]["ast_finetune"]["counts"], "ast_freeze_launches_per_rank": rs[0]["ast_freeze"]["counts"],
+        "ast_peak_gib_per_rank": [res["ast_finetune"]["peak_bytes"] / 2**30 for res in rs],
+        "served_launches": served})
+    return report
+
+
+def tp_attention_checks(dev) -> dict[str, float]:
+    """Phase 33: the attention kernels at each rank's shape under
+    downstream.tp 2, AST-base at B=32 with 6 of its 12 heads: [192, 1214,
+    64], no bias (the streamed designs), f32 and bf16, against their plain
+    versions, equal bits twice."""
+    errs = dict.fromkeys(ATTN_KERNELS, 0.0)
+    bh, l, d = AST_TP_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        check_attention(f"AST-base per rank at tp {TP} [{bh}, {l}, {l}] D={d}", bh, l, None, l, d, dtype, dev, 161, errs,
+                        twice=True)
+    return errs
 
 
 if __name__ == "__main__":

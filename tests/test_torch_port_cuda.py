@@ -589,7 +589,8 @@ def test_attention_forward_bf16_tensor_core_kernel(cuda, bh, lq, grid):
 # shared memory (the streamed kernels): AST-base's 1214 tokens at a small batch, a ragged 1500,
 # keys one past a multiple of the 64-key chunk (a last chunk of one key), and
 # fewer queries than keys
-AST_SHAPES = [(24, 1214, 1214), (4, 1500, 1500), (6, 1217, 1217), (5, 300, 1217)]
+AST_SHAPES = [(24, 1214, 1214), (4, 1500, 1500), (6, 1217, 1217), (5, 300, 1217),
+              (192, 1214, 1214)]  # the last: each rank's AST-base attention under downstream.tp 2 (B=32, 6 of 12 heads)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -813,3 +814,56 @@ def test_syncbn_block1_kernels_across_two_ranks_on_the_card(cuda, tmp_path):
         for k in ("dw", "dbias", "dgamma", "dbeta"):
             assert np.abs(r[k] - want[k]).max() <= 1e-4 * np.abs(want[k]).max() + 1e-5 * largest, k
     assert block1.block1_fwd.launches >= 1
+
+
+# ---------------------------------------------------------------- tensor parallelism (slice 14)
+
+
+def test_tensor_parallel_f32_gate_on_the_card(cuda, tmp_path):
+    """Two gloo ranks share the card at tp 2, f32: MAST-tiny (4 blocks,
+    64 x 96) and AST (tiny's width with 4 heads, depth 2,
+    at 1214 tokens: the streamed f32 attention), sharded over the model
+    axis, against one process on the card on the same weights and inputs:
+    the forward within 1e-5 of max(1, max|ref|), each gradient within 1e-3
+    of its own max|ref| + 1e-5 of the largest (the CPU tp test's bounds);
+    per rank the attention kernels launched once a block each way (MAST:
+    on all heads, as JAX's partitioner leaves its attention replicated;
+    AST: on 2 of the 4 heads)."""
+    import socket
+
+    from audiossl_tpu_torch.models import ast as past
+    from audiossl_tpu_torch.models import mast as pmast
+    from tests import torch_tp_worker as worker
+
+    saved = dict(pmast.VARIANTS), dict(past.VARIANTS)
+    worker.cut_tiny()
+    try:
+        rng = np.random.default_rng(0)
+        inputs = {}
+        for kind, f, t, width in (("mast", 64, 96, 768), ("ast", 128, 1025, 192)):
+            torch.manual_seed(1)
+            model = (pmast.MASTEncoder(f, t, "tiny", compute_dtype=None) if kind == "mast" else
+                     past.ASTEncoder(f, t, "tiny"))
+            inputs[kind] = {"kind": kind, "f": f, "t": t, "state": {k: v.numpy() for k, v in model.state_dict().items()},
+                            "x": rng.standard_normal((2, 1, f, t)).astype(np.float32),
+                            "cot": rng.standard_normal((2, width)).astype(np.float32)}
+        torch.save(inputs, str(tmp_path / "in.pt"))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        torch.multiprocessing.spawn(worker.run_on_card, args=(2, port, str(tmp_path / "in.pt"), str(tmp_path)),
+                                    nprocs=2, join=True)
+        ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+        for kind, blocks in (("mast", 4), ("ast", 2)):
+            want = worker.encoder_check({**inputs[kind], "device": "cuda"})
+            largest = max(float(np.abs(g).max()) for g in want["grads"].values())
+            for r in ranks:
+                got = r[kind]
+                assert got["launches"] == [blocks] * 3, kind
+                assert np.abs(got["y"] - want["y"]).max() <= 1e-5 * max(1.0, np.abs(want["y"]).max()), kind
+                for n, g in want["grads"].items():
+                    assert np.abs(got["grads"][n] - g).max() <= 1e-3 * np.abs(g).max() + 1e-5 * largest, (kind, n)
+    finally:
+        pmast.VARIANTS.update(saved[0])
+        past.VARIANTS.update(saved[1])
+

@@ -782,8 +782,14 @@ def test_world_size_knob():
     assert check_world_size({}) == check_world_size({"world_size": 0}) == check_world_size({"world_size": 1}) == 1
     with pytest.raises(ValueError, match="world_size is 2 but the process group has 1"):
         check_world_size({"world_size": 2})
-    with pytest.raises(NotImplementedError, match="run.zero_optimizer.*item 9"):
+    with pytest.raises(NotImplementedError, match="run.zero_optimizer.*item 9.3"):
         check_parallel_knobs({"run": {"zero_optimizer": True, "world_size": 0}, "pretrain": {}})
+    tp_cfg = {"run": {"world_size": 0}, "pretrain": {"tp": 2, "base_encoder": {"type": "MAST"}}}
+    assert check_parallel_knobs(tp_cfg, tp_runs=True) == 2 and check_parallel_knobs({"run": {}, "pretrain": {}}) == 1
+    with pytest.raises(NotImplementedError, match="pretrain.tp > 1 is run by train_upstream"):
+        check_parallel_knobs(tp_cfg)  # DECAR, DeepCluster, the fine-tune
+    with pytest.raises(ValueError, match="1 devices not divisible by pretrain.tp=2"):
+        join_group({"world_size": 0}, torch.device("cpu"), tp=2)
     with pytest.raises(ValueError, match="world_size is 3"):
         join_group({"world_size": 3}, torch.device("cpu"))  # no launcher in the environment: a world of 1
     assert global_batch(256, 2) == 256 and global_batch(7, 2) == 6 and global_batch(1, 2) == 2

@@ -36,8 +36,19 @@ TOL_GRAD_FLOOR = 1e-5
 TOL_STATS = 1e-5  # BatchNorm running statistics, absolute and relative
 TOL_EMA = 1e-6  # key encoder parameters after the EMA, absolute
 TOL_KEYS = 1e-5  # the enqueued keys (unit vectors), absolute; the rest of the queue is equal
-TOL_TRAJ = 1e-4  # relative
-TRAJ_SPREAD = 4.0  # DeLoRes-M after 8 steps: times JAX's own distance from a 1e-7 nudge
+TRAJ_SPREAD = 4.0  # DeLoRes-M's 8-step trajectory: times the comparison's own sum-order spread
+TRAJ_QUANTILE = 0.95  # ... on the median and on this quantile over tensors
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch intra-op thread, as the other port files run: with the
+    suite's workers sharing the cores, a thread a core makes each small op
+    wait for threads the other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def rel(got, want):
@@ -183,39 +194,45 @@ def test_delores_m_step_matches_jax(jax_delores_m):
     assert all(not p.requires_grad and p.grad is None for p in obj.encoder_k.parameters())
 
 
-@pytest.fixture
-def fixed_sum_order():
-    """The summation order this trajectory is held in: 8 intra-op threads
-    and MKL's thread count fixed (``MKL_Set_Dynamic(0)``; by default MKL
-    may take fewer threads under load, which splits a GEMM's sums another
-    way). The objective amplifies round-off, so a run with another order
-    (one thread, or MKL shedding threads while the suite's workers share the
-    cores) lands ~2e-3 from JAX after 3 steps; this order lands under 1e-4.
-    Both settings are restored after the test; a torch built without MKL
-    linked in has no ``MKL_Set_Dynamic``, and then only the threads are set."""
-    import ctypes
+def sum_order_distance(run, ref, init):
+    """How far a trajectory ``run`` = (losses, state after 3 steps, after 8)
+    lies from ``ref``: for the weights, at 3 and at 8 steps, the median and
+    the TRAJ_QUANTILE quantile over the floating tensors that moved (the
+    queue among them) of max|run - ref| / max|ref - init|, each tensor
+    against its own displacement, and the queue's own ratio; for the
+    losses, the largest relative difference over the first 3 steps and over
+    all 8. -> (array [2 snapshots, 3 measures], array [2]). A round-off
+    routing flip (a ReLU or max-pool that turns) moves the few tensors behind
+    it by up to their whole displacement, so the largest ratio is noise; the
+    median sees a fault that moves most tensors (the SGD momentum), the
+    quantile one that moves more than a twentieth of them (the key tower's
+    EMA, weight decay on the BatchNorm affines)."""
+    def weights(a, b):
+        r = {k: float((a[k] - b[k]).abs().max()) / float((b[k] - init[k]).abs().max()) for k in b
+             if b[k].is_floating_point() and (b[k] - init[k]).abs().max() > 0}
+        v = np.array(list(r.values()))
+        return [np.median(v), np.quantile(v, TRAJ_QUANTILE), r["queue"]]
 
-    lib = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "lib", "libtorch_cpu.so"))
-    set_dynamic = getattr(lib, "MKL_Set_Dynamic", None)
-    threads = torch.get_num_threads()
-    dynamic = int(os.environ.get("MKL_DYNAMIC", "TRUE").upper() not in ("FALSE", "0"))  # MKL's default: on
-    if set_dynamic is not None:
-        set_dynamic(0)
-    torch.set_num_threads(8)
-    yield
-    torch.set_num_threads(threads)
-    if set_dynamic is not None:
-        set_dynamic(dynamic)
+    rel_loss = np.abs(np.asarray(run[0]) - ref[0]) / np.abs(ref[0])
+    return np.array([weights(run[1], ref[1]), weights(run[2], ref[2])]), np.array([rel_loss[:3].max(), rel_loss.max()])
 
 
-def test_eight_step_sgd_trajectory_matches_optax(jax_delores_m, fixed_sum_order):
+def test_eight_step_sgd_trajectory_matches_optax(jax_delores_m):
     """8 SGD steps (lr 0.03, momentum 0.9, wd 1e-4) from the same weights
-    and MoCo state on the same views. The losses hold within 1e-4 at every
-    step and the weights within 1e-4 after 3 steps. After 8 the weights are
-    held to JAX's own spread: this objective at B = 8 amplifies round-off
-    (its 2048-wide Barlow heads standardise over 8 clips), so JAX from
-    weights nudged by 1e-7 (relative) lands ~3e-3 from JAX after 8 steps;
-    the port must land within TRAJ_SPREAD times that distance."""
+    and MoCo state on the same views; the weights, the queue and the pointer
+    held after 3 and after 8 steps, the losses of all 8 steps. This
+    objective at B = 8 amplifies round-off (its 2048-wide Barlow heads
+    standardise over 8 clips, and a ReLU or max-pool routing that flips at
+    round-off moves the gradients behind it), so the bound is the
+    comparison's own noise, measured here: how far JAX moves when only the
+    order of its batch sums changes (the batch's rows permuted, six
+    permutations; the keys they enqueue put back in the batch's order), on
+    each measure of ``sum_order_distance``; the port must land within
+    TRAJ_SPREAD times the largest, at whatever thread count it runs (the
+    sums' order with it): at 1, 2, 4 and 8 threads within 1.4 times it.
+    Momentum 0.8 for 0.9 lands 94 times it on the median after 3 steps, the
+    key tower's EMA at 0.998 for 0.999 146 times, no weight decay on the
+    BatchNorm affines 7 times on the quantile."""
     cfg, jobj, params, batch_stats, ssl, views = jax_delores_m
     tx = joptim.sgd_torch(0.03)
 
@@ -230,42 +247,50 @@ def test_eight_step_sgd_trajectory_matches_optax(jax_delores_m, fixed_sum_order)
 
     np_ = lambda t: jax.tree_util.tree_map(np.asarray, t)
 
-    def jax_run(p):
-        """-> (losses, the state after 3 steps, after 8), as the port's state_dicts."""
-        bs, s, opt_state, losses, snaps = batch_stats, ssl, tx.init(p), [], []
+    def jax_run(perm=None):
+        """-> (losses, the state after 3 steps, after 8), as the port's
+        state_dicts, the keys of permuted batches put back in batch order."""
+        p, bs, s, opt_state, losses, snaps = params, batch_stats, ssl, tx.init(params), [], []
         for i in range(8):
-            v1, v2, _ = jax_views(views[i % len(views)])
+            v = views[i % len(views)]
+            v1, v2, _ = jax_views(v if perm is None else tuple(x[perm] for x in v))
             p, bs, s, opt_state, loss = step(p, bs, s, opt_state, v1, v2)
             losses.append(float(loss))
             if i + 1 in (3, 8):
-                snaps.append(delores_m_from_flax(np_(p), np_(bs), np_(s)))
+                snap = delores_m_from_flax(np_(p), np_(bs), np_(s))
+                if perm is not None:  # step j enqueued its keys at columns jB .. (j + 1)B, row i at jB + i
+                    order = np.concatenate([j * B + np.argsort(perm) for j in range(i + 1)])
+                    snap["queue"][:, :(i + 1) * B] = snap["queue"][:, order]
+                snaps.append(snap)
         return losses, *snaps
-
-    ref, ref3, ref8 = jax_run(params)
-    nudge = np.random.default_rng(9)
-    nudged = jax.tree_util.tree_map(
-        lambda v: (v * (1.0 + 1e-7 * nudge.standard_normal(v.shape))).astype(np.float32), params)
-    spread = max(rel(v.numpy(), ref8[k].numpy()) for k, v in jax_run(nudged)[2].items() if v.is_floating_point())
 
     obj = port_objective("delores_m", cfg, delores_m_from_flax(params, batch_stats, ssl))
     opt, _ = optim.build_optimizer("sgd", [p for p in obj.parameters() if p.requires_grad], 0.03)
-    ours = []
+    losses, snaps = [], []
     for i in range(8):
         v1, v2, _ = port_views(views[i % len(views)])
         loss = obj.loss(v1, v2)
         opt.zero_grad()
         loss.backward()
         opt.step()
-        ours.append(loss.item())
-        if i + 1 == 3:
-            for name, q in obj.state_dict().items():
-                if q.is_floating_point():
-                    assert rel(q.numpy(), ref3[name].numpy()) < TOL_TRAJ, name
-    assert (np.abs(np.asarray(ours) - ref) / np.abs(ref)).max() < TOL_TRAJ, (ours, ref)
-    worst = max(rel(q.numpy(), ref8[k].numpy()) for k, q in obj.state_dict().items() if q.is_floating_point())
-    assert 1e-5 < spread < 1e-2, spread  # the amplification this test rests on
-    assert worst <= TRAJ_SPREAD * spread, (worst, spread)
-    assert int(obj.queue_ptr) == int(ref8["queue_ptr"]) == 0  # 8 x 8 keys around a 64-key queue
+        losses.append(loss.item())
+        if i + 1 in (3, 8):
+            snaps.append({k: v.clone() for k, v in obj.state_dict().items()})
+
+    init = delores_m_from_flax(params, batch_stats, ssl)
+    ref = jax_run()
+    spreads = [sum_order_distance(jax_run(np.random.default_rng(seed).permutation(B)), ref, init)
+               for seed in range(1, 7)]
+    spread_w = np.max([w for w, _ in spreads], axis=0)
+    spread_loss = np.maximum(np.max([loss for _, loss in spreads], axis=0), TOL_LOSS)
+    worst_w, worst_loss = sum_order_distance((losses, *snaps), ref, init)
+    assert 1e-6 < spread_w[0, 0] < 1e-3 and 1e-5 < spread_w[1, 0] < 1e-1, spread_w  # the amplification this test rests on
+    assert (worst_w <= TRAJ_SPREAD * spread_w).all(), (worst_w, spread_w)
+    assert (worst_loss <= TRAJ_SPREAD * spread_loss).all(), (worst_loss, spread_loss)
+    for snap, want in zip(snaps, ref[1:]):
+        assert int(snap["queue_ptr"]) == int(want["queue_ptr"])
+    assert int(obj.queue_ptr) == 0  # 8 x 8 keys around a 64-key queue
+    assert np.allclose(np.linalg.norm(snaps[1]["queue"].numpy(), axis=0), 1.0, atol=1e-5)  # unit keys in every column
 
 
 # ---------------------------------------------------------------- losses and guards
