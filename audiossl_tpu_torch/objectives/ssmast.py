@@ -20,7 +20,15 @@ Across processes (parallel/dist.py) every enqueue takes the all-gathered
 keys of the data axis in rank order, as JAX's ``queue_update`` does; under
 tensor parallelism (``pretrain.tp``, parallel/tp_mvit.py) both towers hold
 this rank's shards, the EMA runs shard by shard, and the queue stays whole
-on every rank. With
+on every rank. Under ``run.fsdp`` (parallel/fsdp.py, the layout kept as
+``fsdp_shards``) the two towers and the queue (``fsdp_buffers``, [emb, K]
+split on K when JAX's rule splits it) hold this rank's pieces between
+steps, as JAX's ``tree_shardings`` leaves them: each MViT block, and each
+tower's other weights (``fsdp_units``), are gathered around their forward,
+the EMA runs piece by piece, the queue is gathered where the
+logits use it and each enqueue writes the data axis's keys, in rank order,
+into the whole queue before this rank keeps its piece; the pointer is the
+same on every rank. With
 ``pretrain.shuffle_bn`` there the step takes the sequential path (JAX
 excludes the batched views under shuffle-BN, ssmast.py:126) and each key
 pass runs on the batch shuffled across the data axis by an agreed permutation,
@@ -59,6 +67,10 @@ def cosine_momentum(epoch: torch.Tensor, base: float = 0.99, total_epochs: int =
 
 @register("ssmast")
 class SSMast(Objective):
+    fsdp_units = ("encoder", "encoder.mast.blocks.*", "encoder_k", "encoder_k.mast.blocks.*")
+    fsdp_buffers = ("queue",)
+    fsdp_shards = None  # the fsdp layout (parallel/fsdp.py Shards) once the objective is sharded
+
     def __init__(self, config: dict[str, Any]):
         super().__init__()
         pre = config["pretrain"]
@@ -106,6 +118,15 @@ class SSMast(Objective):
         self.queue_ptr.zero_()
         self.step.zero_()
 
+    def _whole_queue(self) -> torch.Tensor:
+        return self.queue if self.fsdp_shards is None else self.fsdp_shards.whole("queue")
+
+    def _keep_queue(self, queue: torch.Tensor, ptr: torch.Tensor) -> None:
+        """The step's queue (this rank's piece of it under fsdp) and pointer, as
+        new tensors: the loss's backward keeps the old queue."""
+        self.queue = queue if self.fsdp_shards is None else self.fsdp_shards.mine("queue", queue)
+        self.queue_ptr = ptr
+
     def momentum(self) -> torch.Tensor:
         """m at this step's epoch + 1, a device scalar (no host sync)."""
         epoch = torch.div(self.step, self.steps_per_epoch, rounding_mode="floor") + 1
@@ -129,7 +150,7 @@ class SSMast(Objective):
              labels: torch.Tensor | None = None) -> torch.Tensor:
         """The step's InfoNCE sum; advances the key encoder, queue, pointer and step."""
         m = self.momentum()
-        queue, ptr = self.queue, self.queue_ptr
+        queue, ptr = self._whole_queue(), self.queue_ptr
         shuffle = self.shuffle_bn and dist.data_active()
         if self.batched_views and not shuffle:
             b = v1.shape[0]
@@ -149,7 +170,7 @@ class SSMast(Objective):
                 k = self._keys(vk, generator, shuffle)
                 total = total + info_nce(q, k, queue, self.temperature)
                 queue, ptr = queue_update(queue, ptr, k)
-        self.queue, self.queue_ptr = queue, ptr  # new tensors: the loss's backward keeps the old queue
+        self._keep_queue(queue, ptr)
         self.step.add_(1)
         return total
 
@@ -170,7 +191,7 @@ class SSMast(Objective):
         mb = b // accum
         params = list(self.encoder.parameters())
         m = self.momentum()
-        queue0 = queue = self.queue
+        queue0 = queue = self._whole_queue()
         ptr = self.queue_ptr
         tau = self.temperature
         query = lambda v: l2_normalize(self.encoder(v, generator), dim=1)  # noqa: E731
@@ -204,10 +225,14 @@ class SSMast(Objective):
                 grads = g if grads is None else [a + c for a, c in zip(grads, g)]
                 queue, ptr = queue_update(queue, ptr, torch.cat(ks))  # bulk enqueue in batch order
         set_grads(params, grads)
-        self.queue, self.queue_ptr = queue, ptr
+        self._keep_queue(queue, ptr)
         self.step.add_(1)
         return total
 
-    def export_state_dict(self) -> dict[str, torch.Tensor]:
-        """The MAST trunk (no head) in the reference's freq-major layout."""
-        return mvit_reference_layout(self.encoder.mast.state_dict())
+    def export_state_dict(self, sd: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+        """The MAST trunk (no head) in the reference's freq-major layout, from
+        this module or from its (dense) state_dict ``sd``."""
+        if sd is None:
+            return mvit_reference_layout(self.encoder.mast.state_dict())
+        head = "encoder.mast."
+        return mvit_reference_layout({k[len(head):]: v for k, v in sd.items() if k.startswith(head)})

@@ -22,7 +22,13 @@ process per card and calls ``torch.distributed`` at the same places:
 * ``all_reduce_grads_``: the mean of every parameter's gradient over the
   group through one flat buffer (JAX's ``pmean(grads)``);
 * ``share``: this process's rows of a batch every process read, for the
-  trainers the JAX package runs on one host (probe, DECAR, DeepCluster).
+  trainers the JAX package runs on one host (probe, DECAR, DeepCluster);
+* ``reduce_scatter_mean``: rank r's slice r of the data axis's mean of a
+  flat buffer (JAX's ``psum_scatter(tiled=True) / n``), and
+  ``all_gather_flat``: every rank's flat buffer joined in rank order into
+  one (``all_gather(tiled=True)``): the two collectives of the sharded
+  training state (parallel/fsdp.py, train/zero.py), each counted under the
+  kind its caller names.
 
 Tensor parallelism (JAX's ``model`` mesh axis, parallel/tp.py) lays the
 group out as a dp x tp grid: ``set_tp(tp)`` puts rank r at data index
@@ -39,8 +45,9 @@ process group's (rank 0 writes the files).
 
 ``calls`` counts the collectives by kind; ``chip_smoke.py`` resets and reads
 it. The collectives run on the tensors' own device: NCCL for CUDA tensors,
-gloo for CPU ones (gloo also takes CUDA tensors for these three operations,
-which the two-rank checks on one card use).
+gloo for CPU ones (gloo also takes CUDA tensors for these operations,
+``reduce_scatter_tensor`` and ``all_gather_into_tensor`` included, which the
+two-rank checks on one card use).
 """
 from __future__ import annotations
 
@@ -240,3 +247,30 @@ def all_reduce_grads_(params) -> None:
         n = g.numel()
         p.grad = flat[off : off + n].view_as(g).to(g.dtype)
         off += n
+
+
+def reduce_scatter_mean(flat: torch.Tensor, kind: str = "reduce_scatter") -> torch.Tensor:
+    """Slice ``dp_rank()`` of the data axis's mean of ``flat`` [n * k] (n
+    the data axis's size): [k], JAX's ``psum_scatter(flat, tiled=True) / n``;
+    no gradient. ``flat`` itself with one process."""
+    if not data_active():
+        return flat
+    n = dp_world()
+    if flat.numel() % n:
+        raise ValueError(f"a reduce-scatter over {n} ranks needs a multiple of {n} elements, got {flat.numel()}")
+    calls[kind] += 1
+    out = torch.empty(flat.numel() // n, dtype=flat.dtype, device=flat.device)
+    tdist.reduce_scatter_tensor(out, flat.detach().contiguous(), op=tdist.ReduceOp.SUM, group=data_group())
+    return out.div_(n)
+
+
+def all_gather_flat(flat: torch.Tensor, kind: str = "all_gather_flat") -> torch.Tensor:
+    """Every data index's ``flat`` [k] joined in rank order: [n * k], JAX's
+    ``all_gather(flat, tiled=True)``; no gradient. ``flat`` itself with one
+    process."""
+    if not data_active():
+        return flat
+    calls[kind] += 1
+    out = torch.empty(flat.numel() * dp_world(), dtype=flat.dtype, device=flat.device)
+    tdist.all_gather_into_tensor(out, flat.detach().reshape(-1).contiguous(), group=data_group())
+    return out

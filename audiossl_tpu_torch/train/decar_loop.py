@@ -33,6 +33,10 @@ batch / world`` slots, filled from its shares), clusters with the group
 the group's means. Rank 0 writes the checkpoints, with every shard of the
 bank and of the augmentation state in one world-sized layout; a resume
 takes the world size it was saved at.
+
+``pretrain.tp``, ``run.fsdp`` and ``run.zero_optimizer`` raise
+NotImplementedError (``train.loop.check_parallel_knobs``): the JAX trainer
+has no such path.
 """
 from __future__ import annotations
 

@@ -34,6 +34,10 @@ and embeds or trains on its contiguous share; the features are gathered
 in manifest order, rank 0's clustering is broadcast, and the step's
 gradients and loss are the group's means. Rank 0 writes the checkpoints,
 with every process's generator.
+
+``pretrain.tp``, ``run.fsdp`` and ``run.zero_optimizer`` raise
+NotImplementedError (``train.loop.check_parallel_knobs``): the JAX trainer
+has no such path.
 """
 from __future__ import annotations
 

@@ -31,7 +31,7 @@ the epoch at the log cadence; its save is the epoch-end one, without eval.
     python -m audiossl_tpu_torch.train.finetune_mast --train_json train.json \\
         --label_csv labels.csv [--eval_json eval.json] [-c configs/mast_ft.yaml] \\
         [--load_checkpoint DIR] [--max_steps N] [--epochs N] [--batch_size N] \\
-        [--grad_accum_steps A] [--save_path PATH] [--device cuda|cpu]
+        [--grad_accum_steps A] [--fsdp] [--save_path PATH] [--device cuda|cpu]
 
 Data parallel across processes (torchrun or the ``AUDIOSSL_*`` environment,
 parallel/launch.py), as JAX's ``shard_map`` step: each process reads its
@@ -42,7 +42,19 @@ is sharded the same way and the scores come back to every process in the
 datafile's order (JAX :269); the sharded order is padded by wrapping to a
 multiple of the world size, so at world W the eval metrics count the first
 (−N mod W) clips twice. Rank 0 writes the checkpoints and the stats.
-``--fsdp`` / ``run.fsdp`` is refused (ROADMAP.md Queue 1, item 9.2).
+
+Fully sharded (``--fsdp`` / ``run.fsdp``, parallel/fsdp.py; JAX
+finetune_mast.py:204-236): the classifier's parameters, their gradients
+and the AdamW moments hold this rank's piece of every leaf JAX's
+``tree_shardings`` shards; each MViT block, and the classifier's other
+weights, are gathered around each forward (training and eval), each
+backward reduce-scatters its gradients as
+the data axis's mean, the leaves that stay whole take the all-reduce, the
+layer-decay groups act on the pieces, and the clip reads the global norm of
+the whole gradient (train/layer_decay.py). Rank 0 writes the dense
+checkpoint and export; a resume cuts them for this rank. ``remat`` is
+refused under fsdp, and ``run.zero_optimizer`` always: JAX's fine-tune has
+no ZeRO path (it ignores the flag), nor a tensor-parallel one.
 """
 from __future__ import annotations
 
@@ -64,23 +76,26 @@ from audiossl_tpu_torch.data.augment import mast_noise, sample_mast_noise
 from audiossl_tpu_torch.data.multilabel import multilabel_loader
 from audiossl_tpu_torch.frontend import FrontendSpec
 from audiossl_tpu_torch.frontend.fbank import WaveMixDraws, batch_waveform_mixup, sample_wave_mixup
-from audiossl_tpu_torch.models.convert import mvit_reference_layout
+from audiossl_tpu_torch.models.convert import mvit_reference_layout, shard_state_dict
 from audiossl_tpu_torch.models.mast import MASTEncoder
 from audiossl_tpu_torch.objectives.api import flax_init_
 from audiossl_tpu_torch.ops.masking import MaskDraws, sample_mask_draws, spec_mask
 from audiossl_tpu_torch.ops.stats import precomputed_norm
 from audiossl_tpu_torch.parallel import dist
+from audiossl_tpu_torch.parallel.fsdp import shard_ as fsdp_shard_
+from audiossl_tpu_torch.parallel.tp import map_optimizer_state
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.accum import microbatched_value_and_grad, set_grads
 from audiossl_tpu_torch.train.layer_decay import adamw_layer_decay
 from audiossl_tpu_torch.train.loop import (MetricsBuffer, check_parallel_knobs, gather_generators, global_batch,
-                                           join_group, stats_log)
+                                           join_group, refuse_fsdp_remat, stats_log)
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.utils.metrics import auc_roc, d_prime, mean_average_precision
 
 log = logging.getLogger("audiossl_tpu_torch.finetune_mast")
 
 MVIT_DEPTH = {"tiny": 10, "small": 16, "base": 24}
+FSDP_UNITS = ("", "mast.blocks.*")  # run.fsdp gathers each MViT block, and the rest of the classifier
 
 
 class MASTClassifier(nn.Module):
@@ -198,11 +213,14 @@ class FinetuneStep:
     """``step(waves, targets, draws=None) -> loss``: per microbatch mixup,
     input, forward with drop path, BCE, backward; then one layer-decay AdamW
     update. ``draws`` is a list of A ``StepDraws`` (default: sampled from
-    ``generator``). An f32 model runs with TF32 off."""
+    ``generator``). An f32 model runs with TF32 off. ``layout`` (fsdp's
+    ``Shards``) picks the gradients the step all-reduces, None every
+    parameter's."""
 
     def __init__(self, model: MASTClassifier, optimizer: torch.optim.Optimizer, ft: dict[str, Any],
-                 generator: torch.Generator, accum: int = 1):
+                 generator: torch.Generator, accum: int = 1, layout=None):
         self.model, self.optimizer, self.ft, self.generator = model, optimizer, ft, generator
+        self.layout = layout
         self.frontend = frontend_spec(ft)
         self.accum = accum
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -233,7 +251,9 @@ class FinetuneStep:
         with self.precision():
             loss, grads = microbatched_value_and_grad(micro_loss, self.accum)(self.params, (waves, targets))
         set_grads(self.params, grads)
-        dist.all_reduce_grads_(self.params)  # once, after the last microbatch
+        # once, after the last microbatch; under fsdp the pieces' gradients came
+        # reduce-scattered out of each backward, and only the whole leaves remain
+        dist.all_reduce_grads_(self.params if self.layout is None else self.layout.grads_to_all_reduce(self.params))
         return dist.all_reduce_mean(loss)
 
     def __call__(self, waves: torch.Tensor, targets: torch.Tensor, draws: list[StepDraws] | None = None) -> torch.Tensor:
@@ -314,8 +334,11 @@ def train_finetune_mast(
     """Fine-tune on ``train_json`` -> (model, last epoch's stats, checkpoint
     directory). ``config`` is not changed."""
     dev = resolve_device(device)
+    check_parallel_knobs(config, fsdp_runs=True)
+    fsdp = bool(config["run"].get("fsdp", False))
+    if fsdp:
+        refuse_fsdp_remat(config["finetune"])
     world = join_group(config["run"], dev)
-    check_parallel_knobs(config)
     config = copy.deepcopy(config)
     run, ft = config["run"], config["finetune"]
     batch = global_batch(int(run["batch_size"]), world) // world  # this process's share
@@ -335,12 +358,16 @@ def train_finetune_mast(
         raise ValueError(f"per-chip batch {batch} not divisible by grad_accum_steps {accum}")
 
     model = init_classifier(ft, n_classes, seed, dev).train()
+    # the seeded dense weights cut before the optimizer sees them, gathered block by block
+    shards = fsdp_shard_(model, FSDP_UNITS) if fsdp else None
     model_size = str(ft.get("model_size", "base"))
     optimizer = adamw_layer_decay(
         model.named_parameters(), float(run.get("learning_rate", 5e-4)), depth=MVIT_DEPTH[model_size],
         layer_decay=float(run.get("layer_decay", 0.75)), weight_decay=float(run.get("weight_decay", 0.05)),
-        clip_grad_norm=float(run.get("clip_grad_norm", 1.0)),
+        clip_grad_norm=float(run.get("clip_grad_norm", 1.0)), shards=shards,
     )
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    names = [name_of[id(p)] for g in optimizer.param_groups for p in g["params"]]  # the optimizer's order
     generator = torch.Generator(device=dev).manual_seed(dist.rank_seed(seed))
     step, position = 0, None
     if load_checkpoint:
@@ -348,14 +375,19 @@ def train_finetune_mast(
         if len(saved["generator"]) != world:
             raise ValueError(f"the checkpoint was written by {len(saved['generator'])} process(es), this run has "
                              f"{world}: resume at the world size it was saved at")
-        model.load_state_dict(saved["model"])
-        optimizer.load_state_dict(saved["optimizer"])
+        model_sd, opt_sd = saved["model"], saved["optimizer"]
+        if shards is not None:  # the dense checkpoint cut to this rank's pieces
+            rank, n = dist.dp_rank(), dist.dp_world()
+            model_sd = shard_state_dict(model_sd, shards.spec, rank, n)
+            opt_sd = map_optimizer_state(opt_sd, names, lambda v, k: shard_state_dict({k: v}, shards.spec, rank, n)[k])
+        model.load_state_dict(model_sd)
+        optimizer.load_state_dict(opt_sd)
         generator.set_state(saved["generator"][dist.rank()])
         step, position = int(saved["step"]), saved["loader"]
         if position is not None:
             position = {**position, "rng": saved["loader_rngs"][dist.rank()]}
         log.info("resumed from %s at step %d", load_checkpoint, step)
-    train_step = FinetuneStep(model, optimizer, ft, generator, accum)
+    train_step = FinetuneStep(model, optimizer, ft, generator, accum, layout=shards)
 
     ckpt_dir = run.get("save_path", "./runs/mast_ft") + "_chkp"
     if dist.rank() == 0:
@@ -363,13 +395,17 @@ def train_finetune_mast(
     keep_last = int(run.get("keep_checkpoints", 0)) or None
 
     def save() -> None:
-        generators = gather_generators(generator)  # collectives
+        generators = gather_generators(generator)  # collectives; under fsdp the dense state too
         loader_rngs = dist.gather_objects(None if loader.position is None else loader.position["rng"])
+        model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
+        if shards is not None:
+            model_sd, opt_sd = shards.dense_state_dict(model_sd), shards.dense_optimizer_state(opt_sd, names)
         if dist.rank() != 0:
             return
-        state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "generator": generators,
+        state = {"model": model_sd, "optimizer": opt_sd, "generator": generators,
                  "loader": loader.position, "loader_rngs": loader_rngs, "step": step, "config": config}
-        ckpt.save_checkpoint(ckpt_dir, step, state, mvit_reference_layout(model.mast.state_dict()), config, keep_last)
+        export = mvit_reference_layout({k[len("mast."):]: v for k, v in model_sd.items() if k.startswith("mast.")})
+        ckpt.save_checkpoint(ckpt_dir, step, state, export, config, keep_last)
 
     steps_per_epoch = max(len(loader), 1)
     start_epoch, start_batch, rng_state = 0, 0, None
@@ -430,7 +466,8 @@ def main(argv: list[str] | None = None):
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--grad_accum_steps", type=int, default=None,
                    help="microbatches per optimizer update (memory lever)")
-    p.add_argument("--fsdp", action="store_true", help="fully shard params/grads/moments (not ported: raises)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully shard params/grads/AdamW moments over the data axis (run.fsdp)")
     p.add_argument("--save_path", default=None, help="override config run.save_path")
     p.add_argument("--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)

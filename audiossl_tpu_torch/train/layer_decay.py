@@ -20,6 +20,12 @@ clip by the global norm (optax's rule: g * max / |g| only where |g| >= max;
 not ``torch.nn.utils.clip_grad_norm_``, which divides by |g| + 1e-6),
 Adam (eps 1e-8, moments bias-corrected by 1 - b^t in f32, as optax
 does), + wd * p where the decay mask says, times the layer scale, times -lr.
+
+Under ``run.fsdp`` (``shards``, parallel/fsdp.py) the parameters are this
+rank's pieces: the groups, the moments and the update act on them piece by
+piece, and the clip's global norm is the data axis's sum of the pieces'
+squared norms plus the whole leaves' once (``Shards.grad_norm``), the norm
+of the logically whole gradient that optax's clip reads under GSPMD.
 """
 from __future__ import annotations
 
@@ -73,7 +79,7 @@ class AdamWLayerDecay(torch.optim.Optimizer):
 
     def __init__(self, named_params: Iterable[tuple[str, torch.Tensor]], lr: float, depth: int,
                  layer_decay: float = 1.0, weight_decay: float = 0.05, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, clip_grad_norm: float | None = 1.0):
+                 eps: float = 1e-8, clip_grad_norm: float | None = 1.0, shards=None):
         groups: dict[tuple[float, bool], list[torch.Tensor]] = {}
         for n, p in named_params:
             if p.requires_grad:
@@ -82,16 +88,21 @@ class AdamWLayerDecay(torch.optim.Optimizer):
                         for (s, d), ps in sorted(groups.items(), key=lambda kv: (kv[0][0], kv[0][1]))]
         super().__init__(param_groups, dict(lr=lr, betas=(b1, b2), eps=eps))
         self.clip_grad_norm = clip_grad_norm
+        self.shards = shards
 
     @torch.no_grad()
     def clip_(self) -> torch.Tensor:
         """Scale every gradient by max / |g| where the global norm |g| is at
         least max (optax.clip_by_global_norm); returns |g|."""
-        grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
-        # the sum of squares over one concatenation, as optax.global_norm sums its leaves'
-        # (torch.linalg.vector_norm and _foreach_norm of a 2.4M-element f32 tensor on the
-        # CPU stray by 2e-5 relative); on the card a few launches, not one per tensor
-        norm = torch.cat([g.float().flatten() for g in grads]).square().sum().sqrt()
+        params = [p for g in self.param_groups for p in g["params"] if p.grad is not None]
+        grads = [p.grad for p in params]
+        if self.shards is not None:
+            norm = self.shards.grad_norm(params)
+        else:
+            # the sum of squares over one concatenation, as optax.global_norm sums its leaves'
+            # (torch.linalg.vector_norm and _foreach_norm of a 2.4M-element f32 tensor on the
+            # CPU stray by 2e-5 relative); on the card a few launches, not one per tensor
+            norm = torch.cat([g.float().flatten() for g in grads]).square().sum().sqrt()
         if self.clip_grad_norm:
             m = float(self.clip_grad_norm)
             torch._foreach_mul_(grads, torch.where(norm < m, torch.ones_like(norm), m / norm))
@@ -152,7 +163,8 @@ class AdamWLayerDecay(torch.optim.Optimizer):
 
 def adamw_layer_decay(named_params: Iterable[tuple[str, torch.Tensor]], lr: float, depth: int,
                       layer_decay: float = 1.0, weight_decay: float = 0.05, b1: float = 0.9, b2: float = 0.999,
-                      clip_grad_norm: float | None = 1.0) -> AdamWLayerDecay:
+                      clip_grad_norm: float | None = 1.0, shards=None) -> AdamWLayerDecay:
     """AdamW with masked weight decay, per-layer LR scaling and the
-    reference's CLIP_GRAD_L2NORM (configs/MVITv2_B.yaml SOLVER block)."""
-    return AdamWLayerDecay(named_params, lr, depth, layer_decay, weight_decay, b1, b2, 1e-8, clip_grad_norm)
+    reference's CLIP_GRAD_L2NORM (configs/MVITv2_B.yaml SOLVER block);
+    ``shards``: the parameters' fsdp layout, if they are pieces."""
+    return AdamWLayerDecay(named_params, lr, depth, layer_decay, weight_decay, b1, b2, 1e-8, clip_grad_norm, shards)

@@ -30,9 +30,14 @@ the stats and the exports; the checkpoint's augmentation state holds every
 process's mixup bank and RunningNorm in one world-sized layout (leading dim
 ``world``, JAX's ``P(DATA_AXIS)`` aug state), and a resume at another world
 size raises, as JAX's restore does. ``run.world_size`` (0: the group's size)
-must equal the group's size; ``run.fsdp`` and ``run.zero_optimizer`` are
-refused (ROADMAP.md Queue 1, items 9.2 and 9.3), here and in the DECAR,
-DeepCluster and fine-tune trainers, and ``pretrain.tp`` in those three.
+must equal the group's size.
+
+Which trainer runs which parallelism knob (``check_parallel_knobs``): this
+one runs ``pretrain.tp`` (SS-MAST), ``run.fsdp`` (SS-MAST) and
+``run.zero_optimizer`` (any objective, elementwise optimizers); the
+fine-tune runs ``run.fsdp``; DECAR and DeepCluster run none, and the
+fine-tune no ``pretrain.tp`` or ``run.zero_optimizer``: the JAX trainers
+have no such path (where JAX ignores a knob, the port refuses it).
 
 Tensor parallel (``pretrain.tp: M``, JAX's ``model`` mesh axis, SS-MAST on
 MAST only): the world is a (world // M) x M grid (parallel/dist.py); the
@@ -51,6 +56,28 @@ augmentation). Rank 0 writes the dense checkpoint (parameters, key tower,
 moments and queue gathered over the model axis, as orbax writes JAX's
 global arrays): a run resumes at the same tp, and its encoder export loads
 at tp = 1.
+
+Fully sharded (``run.fsdp``, parallel/fsdp.py): the query tower, the EMA
+key tower, the MoCo queue, the gradients and the AdamW moments hold this
+rank's piece of every leaf JAX's ``tree_shardings`` shards; each MViT
+block (and each tower's other weights) gathers its weights around its
+forward, and its backward reduce-scatters the gradients, so the step
+all-reduces only the leaves that stay whole.
+JAX's checks stay (not with ``pretrain.tp`` or ``zero_optimizer``;
+stateless augmentation, its ValueError naming ``run.fsdp``); ``remat`` is
+refused (the gathered weights go after the forward), and so is an objective
+that names no gathering units (only SS-MAST does; no config of the others
+is stateless). The config is left as given (JAX writes ``fused_attention:
+off`` into it; the port's attention kernels stay on). Rank 0 writes the
+dense checkpoint and export; a resume cuts the dense state for this rank,
+and the export loads at world 1.
+
+ZeRO (``run.zero_optimizer``, train/zero.py): the parameters stay whole;
+the optimizer holds this rank's flat slice of every parameter, the step
+reduce-scatters the gradients in place of the all-reduce and all-gathers
+the updated slices. SGD, Adam and AdamW only (JAX's
+``assert_zero_compatible``). The checkpoint holds the moments as [world,
+k] rows, and a resume at another world raises.
 """
 from __future__ import annotations
 
@@ -82,6 +109,7 @@ from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.train.step import TrainStep
+from audiossl_tpu_torch.train.zero import assert_zero_compatible, build_zero_optimizer
 
 log = logging.getLogger("audiossl_tpu_torch.train")
 
@@ -132,15 +160,18 @@ class MetricsBuffer:
         self._loss_sum, self._loss_n = 0.0, 0
 
 
-def check_parallel_knobs(config: dict[str, Any], tp_runs: bool = False) -> int:
+def check_parallel_knobs(config: dict[str, Any], tp_runs: bool = False, fsdp_runs: bool = False,
+                         zero_runs: bool = False) -> int:
     """The JAX trainer's checks of ``pretrain.tp``, ``run.fsdp`` and
     ``run.zero_optimizer`` (audiossl_tpu/train/loop.py:117-160, 216-220):
     first its ValueErrors (tp needs a MAST encoder; tp + zero, fsdp + tp and
-    fsdp + zero exclude each other), then NotImplementedError for fsdp and
-    zero (not ported yet) and for tp in a trainer that does not run it
-    (``tp_runs``: train_upstream; the JAX DECAR, DeepCluster and fine-tune
-    trainers have no tensor-parallel path). A config with no ``pretrain``
-    section (the fine-tune's) has no tp. Returns tp (1 when unset)."""
+    fsdp + zero exclude each other), then NotImplementedError for a knob
+    the calling trainer does not run (``tp_runs``, ``fsdp_runs``,
+    ``zero_runs``): train_upstream runs all three, the fine-tune fsdp;
+    the JAX DECAR and DeepCluster trainers have none of these paths, and the
+    JAX fine-tune no tp or ZeRO one (it ignores ``run.zero_optimizer``). A
+    config with no ``pretrain`` section (the fine-tune's) has no tp.
+    Returns tp (1 when unset)."""
     run, pre = config["run"], config.get("pretrain") or {}
     tp = int(pre.get("tp", 0) or 0)
     fsdp = bool(run.get("fsdp", False))
@@ -162,11 +193,47 @@ def check_parallel_knobs(config: dict[str, Any], tp_runs: bool = False) -> int:
     if tp > 1 and not tp_runs:
         raise NotImplementedError("pretrain.tp > 1 is run by train_upstream (SS-MAST) only: this trainer has no "
                                   "tensor-parallel path, in the JAX package either")
-    for knob, on, item in (("run.fsdp", fsdp, "9.2"), ("run.zero_optimizer", zero, "9.3")):
-        if on:
-            raise NotImplementedError(f"{knob} is not ported yet: the port runs data and tensor parallelism "
-                                      f"(ROADMAP.md Queue 1, item {item})")
+    if fsdp and not fsdp_runs:
+        raise NotImplementedError("run.fsdp is run by train_upstream (SS-MAST) and the MAST fine-tune only: this "
+                                  "trainer has no fully sharded path, in the JAX package either")
+    if zero and not zero_runs:
+        raise NotImplementedError("run.zero_optimizer is run by train_upstream only: this trainer has no ZeRO path "
+                                  "in the JAX package (JAX's fine-tune, DECAR and DeepCluster trainers ignore the "
+                                  "flag; the port refuses it)")
     return max(tp, 1)
+
+
+def check_fsdp(pre: dict[str, Any], objective_cls) -> None:
+    """``run.fsdp``'s own checks, before any data is read: JAX's stateless
+    augmentation (loop.py:244-256, naming the knob), then the port's
+    refusals of ``remat`` and of an objective with no gathering units."""
+    cfg = AugmentConfig.from_dict(pre)
+    if cfg.normalization == "mean_var" or cfg.mixup_ratio is not None or cfg.kmix_ratio is not None:
+        raise ValueError("run.fsdp requires stateless augmentation (normalization: precomputed/l2 and no "
+                         "mixup/Kmix memory bank): the ring-bank and RunningNorm state are shaped for the "
+                         "shard_map step")
+    refuse_fsdp_remat(pre)
+    if not getattr(objective_cls, "fsdp_units", None):
+        raise NotImplementedError(f"run.fsdp is ported for SS-MAST: {objective_cls.__name__} names no gathering "
+                                  "units (ROADMAP.md Queue 1)")
+
+
+def refuse_fsdp_remat(section: dict[str, Any]) -> None:
+    """``remat`` under ``run.fsdp`` raises: the gathered weights go after a
+    unit's forward, and a rematerialised block would need them again."""
+    if bool(section.get("remat", False)):
+        raise NotImplementedError("run.fsdp with remat: the gathered weights are released after the forward, and a "
+                                  "rematerialised block would need them again")
+
+
+def shard_objective_(objective) -> "fsdp.Shards":
+    """The objective's parameters and its ``fsdp_buffers`` cut to this
+    rank's pieces, gathered around each forward of its ``fsdp_units``; the
+    layout is kept as the objective's ``fsdp_shards``."""
+    from audiossl_tpu_torch.parallel import fsdp
+
+    objective.fsdp_shards = fsdp.shard_(objective, objective.fsdp_units, objective.fsdp_buffers)
+    return objective.fsdp_shards
 
 
 def check_world_size(run: dict[str, Any]) -> int:
@@ -248,9 +315,12 @@ def aug_state_from_dict(d: dict[str, Any], device: torch.device) -> AugmentState
 
 
 def gather_generators(generator: torch.Generator) -> list[torch.Tensor]:
-    """Every data index's generator state in order (a collective)."""
+    """Every data index's generator state in order (a collective), each a
+    tensor of its own: ``Generator.set_state`` reads a view's storage from
+    its start, so a row of the gathered tensor would give rank 1 rank 0's
+    bytes and more."""
     st = generator.get_state()
-    return list(dist.all_gather(st[None].to(generator.device)).cpu()) if dist.data_active() else [st]
+    return [s.clone() for s in dist.all_gather(st[None].to(generator.device)).cpu()] if dist.data_active() else [st]
 
 
 def stats_log(path: str):
@@ -287,7 +357,14 @@ def train_upstream(
     changed: the run writes ``pretrain.steps_per_epoch`` into its own copy
     (the one its checkpoints store)."""
     dev = resolve_device(device)
-    tp = check_parallel_knobs(config, tp_runs=True)
+    tp = check_parallel_knobs(config, tp_runs=True, fsdp_runs=True, zero_runs=True)
+    run, pre = config["run"], config["pretrain"]
+    fsdp, zero = bool(run.get("fsdp", False)), bool(run.get("zero_optimizer", False))
+    opt_name = str(run.get("optimizer", "sgd"))
+    if fsdp:
+        check_fsdp(pre, objective_class(upstream))
+    if zero:
+        assert_zero_compatible(opt_name)
     world = join_group(config["run"], dev, tp)
     config = copy.deepcopy(config)
     run, pre = config["run"], config["pretrain"]
@@ -307,17 +384,19 @@ def train_upstream(
     steps_per_epoch = max(len(loader), 1)
     pre["steps_per_epoch"] = steps_per_epoch  # SS-MAST's momentum schedule reads it
     objective = init_objective(upstream, config, seed, dev).train()
+    shards = None
     if tp > 1:  # the seeded dense weights, cut to this rank's shards before the optimizer sees them
         shard_mvit_(objective)
+    elif fsdp:  # the same, over the data axis
+        shards = shard_objective_(objective)
 
     epochs = int(run.get("epochs", 1))
     lr = float(run.get("learning_rate", 0.03))
     if run.get("lr_schedule") == "warmup_cosine":
         lr = warmup_cosine(lr, epochs * steps_per_epoch, 10 * steps_per_epoch)
-    optimizer, scheduler = build_optimizer(
-        str(run.get("optimizer", "sgd")), [p for p in objective.parameters() if p.requires_grad], lr,
-        **(run.get("optimizer_args") or {}),
-    )
+    trained = [p for p in objective.parameters() if p.requires_grad]
+    optimizer, scheduler = (build_zero_optimizer if zero else build_optimizer)(
+        opt_name, trained, lr, **(run.get("optimizer_args") or {}))
     generator = torch.Generator(device=dev).manual_seed(dist.rank_seed(seed))
     aug_state = pipeline.init_state(frontend.n_mels, frontend.num_frames(clip), dev)
     if tp > 1 and (aug_state.mixup is not None or aug_state.running_norm is not None):
@@ -329,10 +408,11 @@ def train_upstream(
     if load_checkpoint:
         saved = ckpt.load_checkpoint(load_checkpoint)
         obj_sd, opt_sd = saved["objective"], saved["optimizer"]
-        if tp > 1:  # the dense checkpoint cut to this rank's shards
-            obj_sd = shard_state_dict(obj_sd, mvit_spec, dist.tp_rank(), tp)
-            opt_sd = tpar.map_optimizer_state(opt_sd, names, lambda v, n: shard_state_dict(
-                {n: v}, mvit_spec, dist.tp_rank(), tp)[n])
+        if tp > 1 or shards is not None:  # the dense checkpoint cut to this rank's shards (fsdp: pieces)
+            spec, rank, n = (mvit_spec, dist.tp_rank(), tp) if tp > 1 else (shards.spec, dist.dp_rank(),
+                                                                            dist.dp_world())
+            obj_sd = shard_state_dict(obj_sd, spec, rank, n)
+            opt_sd = tpar.map_optimizer_state(opt_sd, names, lambda v, k: shard_state_dict({k: v}, spec, rank, n)[k])
         objective.load_state_dict(obj_sd)
         optimizer.load_state_dict(opt_sd)
         if scheduler is not None:
@@ -343,7 +423,8 @@ def train_upstream(
         if position is not None:
             position = {**position, "rng": saved["loader_rngs"][dist.dp_rank()]}
         log.info("resumed from %s at step %d", load_checkpoint, step)
-    train_step = TrainStep(objective, pipeline, frontend, optimizer, generator, scheduler, normalization)
+    train_step = TrainStep(objective, pipeline, frontend, optimizer, generator, scheduler, normalization,
+                           layout=shards or (optimizer if zero else None))
 
     save_path = run.get("save_path", "./runs/" + upstream)
     ckpt_dir = save_path + "_chkp"
@@ -353,13 +434,20 @@ def train_upstream(
 
     def save() -> None:
         # collectives: every process's augmentation, generator and window-rng
-        # state; under tp the dense state from every rank's shards
+        # state; under tp the dense state from every rank's shards, under
+        # fsdp from every rank's pieces; under ZeRO the moments' rows
         augment, generators = world_aug_state(aug_state), gather_generators(generator)
         loader_rngs = dist.gather_objects(None if loader.position is None else loader.position["rng"])
-        obj_sd, opt_sd, export = objective.state_dict(), optimizer.state_dict(), objective.export_state_dict()
+        obj_sd, opt_sd = objective.state_dict(), optimizer.state_dict()
         if tp > 1:
-            obj_sd, export = tpar.dense_state_dict(obj_sd, mvit_spec), tpar.dense_state_dict(export, mvit_spec)
+            obj_sd, export = tpar.dense_state_dict(obj_sd, mvit_spec), tpar.dense_state_dict(
+                objective.export_state_dict(), mvit_spec)
             opt_sd = tpar.map_optimizer_state(opt_sd, names, lambda v, n: tpar.gather_from_ranks(v, mvit_spec(n)))
+        elif shards is not None:
+            obj_sd, opt_sd = shards.dense_state_dict(obj_sd), shards.dense_optimizer_state(opt_sd, names)
+            export = objective.export_state_dict(obj_sd)
+        else:
+            export = objective.export_state_dict()
         if dist.rank() == 0:
             state = {
                 "objective": obj_sd,

@@ -18,6 +18,17 @@ all-reduced as a mean in one flat buffer and the returned loss is the
 group's mean (JAX ``pmean`` of gradients and metrics, step.py:127,130).
 The augmentation state (mixup bank, RunningNorm) stays per process, as
 JAX's ``aug_state`` is sharded over the axis.
+
+Sharded training state over the same axis (``layout``): under ``run.fsdp``
+(an ``fsdp.Shards``) the pieces' gradients come out of the gathers already
+reduce-scattered as the axis's mean, once per backward (A times a step
+under gradient accumulation: the mean of a sum is the sum of the means),
+and only the leaves that stay whole take the all-reduce after the last
+microbatch; under ``run.zero_optimizer`` (a ``train.zero.ZeroOptimizer``)
+nothing is all-reduced here: the optimizer's step reduce-scatters the
+gradients and all-gathers the updated slices. The layout's
+``grads_to_all_reduce`` says which gradients the step all-reduces. The
+returned loss is the axis's mean in every layout.
 """
 from __future__ import annotations
 
@@ -63,7 +74,9 @@ class TrainStep:
     ids of a labelled batch, on the waves' device) go to the objective's
     loss. The views' random numbers and the dropout masks come from
     ``generator``; an f32 objective runs forward and backward with TF32 off.
-    Across processes the gradients and the loss are the group's means."""
+    Across processes the gradients and the loss are the group's means;
+    ``layout`` (fsdp's ``Shards`` or a ``ZeroOptimizer``) picks the
+    gradients the step all-reduces, None every parameter's."""
 
     def __init__(
         self,
@@ -74,6 +87,7 @@ class TrainStep:
         generator: torch.Generator,
         scheduler: torch.optim.lr_scheduler.LRScheduler | None = None,
         normalization: str = "mean_var",
+        layout=None,
     ):
         self.objective = objective
         self.pipeline = pipeline
@@ -82,6 +96,7 @@ class TrainStep:
         self.generator = generator
         self.scheduler = scheduler
         self.normalization = normalization
+        self.layout = layout
 
     def views(self, aug_state: AugmentState, waves: torch.Tensor):
         b = waves.shape[0]
@@ -100,8 +115,13 @@ class TrainStep:
                 loss = self.objective.loss(v1, v2, self.generator, labels=labels)
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
-        dist.all_reduce_grads_(self.objective.parameters())
+        self.reduce_grads()
         return dist.all_reduce_mean(loss.detach())
+
+    def reduce_grads(self) -> None:
+        """The data axis's mean of the gradients the layout leaves to the step."""
+        params = list(self.objective.parameters())
+        dist.all_reduce_grads_(params if self.layout is None else self.layout.grads_to_all_reduce(params))
 
     def update(self) -> None:
         self.optimizer.step()

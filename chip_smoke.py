@@ -149,9 +149,27 @@ with 128).
     the peak memory a rank beside one process's), a resume of its dense
     checkpoint at tp 2, and its export served at tp 1 behind the fbank;
     AST-base at downstream.tp 2 through train_downstream (B=32, 1214 tokens,
-    3 steps and an eval batch, 1 / 12 / 12 / 12 a step a rank and 1 / 12 an
+    2 steps and an eval batch, 1 / 12 / 12 / 12 a step a rank and 1 / 12 an
     eval batch; with --freeze 1 / 12 / 0 / 0); each rank's step time and busy
     share (gloo through the host, not a multi-GPU rate).
+
+  * sharded training state over the data axis (slice 15), gloo ranks
+    sharing the card: f32 gates at world 2 against one process on the same
+    rows, with the same yardstick (SS-MAST on MAST tiny under run.fsdp, its
+    whole gradients; under run.zero_optimizer, its AdamW update; the MAST
+    tiny fine-tune under fsdp with the clip engaged, its gradients and the
+    clip's global norm), which three planted faults (the gradients'
+    reduce-scatter as a sum, the whole leaves counted twice in the clip's
+    norm, a ZeRO slice one row off) must fail; SS-MAST on a copy of
+    configs/ssmast.yaml with run.fsdp (B=64 as 32 a rank, bf16, MViTv2-B, 3
+    steps: 1 / 48 / 24 / 24 launches a step a rank, each piece and moment as
+    JAX's fsdp_spec cuts the leaf, the queue split on K) with a resume of
+    its dense checkpoint and its export served at world 1; the same with
+    run.zero_optimizer (2 steps, each moment a flat half); the fine-tune with
+    --fsdp through finetune_mast.main on configs/mast_ft.yaml (3 steps, 1 /
+    24 / 24 / 24 a step a rank, and an eval); each rank's peak memory beside
+    one fresh process's at a rank's batch (B=32), and the collectives a step
+    a rank by kind.
 
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
@@ -333,6 +351,11 @@ def main() -> int:
     from audiossl_tpu_torch.models.audiontt import random_state_dict
     from audiossl_tpu_torch.serve.export import ServingEncoder, build_embedder, save_artifact
 
+    t_start = time.perf_counter()
+
+    def stamp(phase: int) -> None:  # where the script's 1200 s go
+        print(f"phase timer: through phase {phase} at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # phase 1: the card
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -350,6 +373,7 @@ def main() -> int:
     for name, seconds in kernels.load_all().items():
         print(f"build: {kernels.SOURCES[name]} built and loaded in {seconds:.1f} s")
     ptxas_check(kernels)
+    stamp(2)
 
     # phase 3: the kernel against its plain version, both f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -478,6 +502,7 @@ def main() -> int:
     print(f"[{card}] serving B={SERVE_BATCH} through ServingEncoder (numpy in/out, host clock): "
           f"{host_ms:.4f} ms/batch = {SERVE_BATCH / host_ms * 1e3:.1f} clips/s")
 
+    stamp(5)
     # phase 6: block 1's kernels against their plain versions
     b1_err, grad_errs = block1_checks(dev)
 
@@ -488,10 +513,12 @@ def main() -> int:
     probe_counts = audiontt_probe_run(ntt_tmp.name, wav, dev)
     step_err = f32_step_check("delores_s", pool, dev)
 
+    stamp(7)
     # phase 8: times at the training shape, beside the card
     b1_times = block1_times(dev, card)
     train_times("delores_s", pool, dev, card)
 
+    stamp(8)
     # phase 9: the SS-MAST slice's kernels against their plain versions
     attn_err = attention_checks(dev)
     rows_err = rows_checks(dev)
@@ -508,11 +535,13 @@ def main() -> int:
     dispatch = dispatcher_check(dev)
     attention_determinism(dev)
 
+    stamp(11)
     # phase 12: times at the SS-MAST shapes, beside the card
     attn_times = attention_times(dev, card)
     rows_t = rows_times(dev, card)
     ssmast_train_times(dev, card, pool)
 
+    stamp(12)
     # phase 13: the AST slice: the attention kernels at AST-base's 1214 tokens
     # (the streamed designs) against their plain versions, equal bits twice;
     # the AST-base fine-tune through train_downstream, counts from 0; an f32
@@ -526,6 +555,7 @@ def main() -> int:
     ast_times = ast_attention_times(dev, card)
     ast_train_times(dev, card)
 
+    stamp(14)
     # phase 15 (slice 9): MAST-B served behind the fbank from phase 10's
     # SS-MAST checkpoint (serve.export --checkpoint), then AST-base behind
     # the fbank with seeded weights (serve.export --config --seed), counts
@@ -552,6 +582,7 @@ def main() -> int:
         extract = extract_features_run(os.path.join(ntt_tmp.name, "delores_s_chkp"), mast_tmp.name, tmp, dev)
     mast_tmp.cleanup()
 
+    stamp(17)
     # phases 18-20 (slice 10): DeLoRes-M, SLICER and UnFuSeD through
     # train_upstream on their configs as they stand, counts from 0 for each;
     # the f32 step gate of each; each step's times at B=256, beside the card
@@ -562,6 +593,7 @@ def main() -> int:
         slice10_step_err[name] = f32_step_check(name, pool, dev)
         train_times(name, pool, dev, card)
 
+    stamp(20)
     # phases 21-24 (slice 11): the clustering family on a manifest of distinct
     # clips. Phase 21: DECAR-v2 and DeepCluster-v1 through their trainers on
     # their configs as they stand, counts from 0 for each
@@ -582,6 +614,7 @@ def main() -> int:
     cluster_t = clustering_times(csv11, dev, card)
     cluster_tmp.cleanup()
 
+    stamp(24)
     # phases 25-28 (slice 12): the supervised MAST fine-tune on AudioSet-style
     # data. Phase 25: the attention kernels at its shapes against their plain
     # versions; the fine-tune through its CLI on configs/mast_ft.yaml as it
@@ -602,6 +635,7 @@ def main() -> int:
     slice12 = {"finetune_launches": ft_run["counts"], "finetune_accum_launches": ft_accum,
                "ssmast_accum_launches": ssmast_accum}
 
+    stamp(28)
     # phases 29-32 (slice 13): host data and data parallelism. Phase 29: the
     # native loader and a tar-sharded DeLoRes-S run through the CLI, counts
     # from 0; phases 30-31: two gloo ranks on this card, DeLoRes-S (one step
@@ -619,6 +653,7 @@ def main() -> int:
                "ddp_ssmast_launches_per_rank": ddp["ssmast"]["counts_per_rank"],
                "ddp_ssmast_shuffle_launches_per_rank": ddp["ssmast_shuffle"]["counts_per_rank"]}
 
+    stamp(32)
     # phases 33-37 (slice 14): tensor parallelism. Phase 33: the attention
     # kernels at each rank's shape under downstream.tp 2 against their plain
     # versions, and their times there; phases 34-36: gloo ranks sharing the
@@ -636,6 +671,22 @@ def main() -> int:
                "tp_ast_launches_per_rank": tp["ast_launches_per_rank"],
                "tp_ast_freeze_launches_per_rank": tp["ast_freeze_launches_per_rank"],
                "tp_export_served_launches": tp["served_launches"]}
+
+    stamp(37)
+    # phases 38-41 (slice 15): sharded training state over the data axis, gloo
+    # ranks sharing the card. Phase 38: the f32 gates at world 2 against one
+    # process (SS-MAST under fsdp and under ZeRO, the fine-tune under fsdp
+    # with the clip engaged; each planted fault caught); phase 39: SS-MAST
+    # run.fsdp through train_upstream (launches and pieces a rank, peak
+    # memory, a resume, the dense export served at world 1); phase 40: SS-MAST
+    # run.zero_optimizer (moments a rank); phase 41: the fine-tune --fsdp
+    # through its CLI entry, with its eval; one fresh process's peaks at a
+    # rank's batch beside them
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = shard_runs(wav, tmp, dev, card)
+    slice15 = {key: shard[key] for key in ("fsdp_ssmast_launches_per_rank", "zero_ssmast_launches_per_rank",
+                                           "fsdp_finetune_launches_per_rank")}
+    stamp(41)
 
     # phase 25: the kernel line
     entries = [{
@@ -655,6 +706,7 @@ def main() -> int:
         **{key: c["log_mel_fused"] for key, c in slice12.items()},
         **{key: c["log_mel_fused"] for key, c in slice13.items()},
         **{key: c["log_mel_fused"] for key, c in slice14.items()},
+        **{key: c["log_mel_fused"] for key, c in slice15.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -677,6 +729,7 @@ def main() -> int:
             **{key: c[name] for key, c in slice12.items()},
             **{key: c[name] for key, c in slice13.items()},
             **{key: c[name] for key, c in slice14.items()},
+            **{key: c[name] for key, c in slice15.items()},
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -694,6 +747,7 @@ def main() -> int:
             **{key: c[name] for key, c in slice12.items()},
             **{key: c[name] for key, c in slice13.items()},
             **{key: c[name] for key, c in slice14.items()},
+            **{key: c[name] for key, c in slice15.items()},
             "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name], ft_attn_err[name], tp_attn_err[name]),
             "ast_tp_max_abs_err": tp_attn_err[name],
             "mast_probe_max_abs_err": probe9_err[name],
@@ -716,6 +770,7 @@ def main() -> int:
             **{key: c[name] for key, c in slice12.items()},
             **{key: c[name] for key, c in slice13.items()},
             **{key: c[name] for key, c in slice14.items()},
+            **{key: c[name] for key, c in slice15.items()},
             "max_abs_err": max(rows_err[name], dispatch["max_abs_err"]) if name == "fused_rows_librosa" else rows_err[name],
             **rows_t[name],
         })
@@ -733,7 +788,8 @@ def main() -> int:
                       "finetune_serving": {k: v for k, v in ft_run["serve"].items() if k != "counts"},
                       "data_parallel": {k: v for k, v in ddp.items() if not k.endswith("_per_rank")},
                       "tar_native": {k: v for k, v in tar_run.items() if k != "counts"}, "nccl_world_one": nccl,
-                      "tensor_parallel": {k: v for k, v in tp.items() if not k.endswith(("_per_rank", "_launches"))}}))
+                      "tensor_parallel": {k: v for k, v in tp.items() if not k.endswith(("_per_rank", "_launches"))},
+                      "sharded_state": {k: v for k, v in shard.items() if not k.endswith(("_per_rank", "_launches"))}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -3533,7 +3589,7 @@ def nccl_world_one_check(pool: np.ndarray, dev) -> dict:
 TP = 2  # the model axis: 2 gloo ranks share the card (NCCL refuses two ranks on one GPU)
 TP_DP = 2  # the data axis of the dp x tp gate (4 ranks)
 TP_SSMAST_STEPS = 2  # then a resume to TP_SSMAST_STEPS + 1
-TP_AST_STEPS = 3
+TP_AST_STEPS = 2  # 3 before the sharded-state phases, cut to keep the script inside its time
 AST_TP_SHAPE = (AST_BATCH * 12 // TP, 1214, 64)  # each rank's attention at AST-base, B=32: 6 of the 12 heads
 # the f32 gates: the tp step against one process on the same inputs, held to
 # DDP_SPREAD times one process's distance from itself on the same rows in
@@ -3723,22 +3779,24 @@ def tp_ssmast_times(obj, config, dev, card, rank: int) -> dict:
 
 
 def tp_step_times(fn, dev, card, label: str, batch: int) -> dict:
-    """A warm-up, the busy share of 2 steps by torch.profiler (and the
-    collectives a step), then 3 steps on the host clock (the median)."""
+    """A warm-up, the busy share of 1 step by torch.profiler (and the
+    collectives a step), then 2 steps on the host clock (their median: the
+    mean; 2 profiled and 3 timed before the script's time grew past 1000 s
+    with the sharded-state phases)."""
     from audiossl_tpu_torch.parallel import dist
 
     dist.calls.clear()
-    busy = busy_share(fn, 2, card, label)  # a warm-up and 2 calls
-    calls = {k: v / 3 for k, v in dist.calls.items()}
+    busy = busy_share(fn, 1, card, label)  # a warm-up and 1 call
+    calls = {k: v / 2 for k, v in dist.calls.items()}
     times = []
-    for _ in range(3):
+    for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = float(np.median(times)) * 1e3
-    print(f"[{card}] {label}: step {ms:.1f} ms (median of 3; {[round(t * 1e3, 1) for t in times]}) = "
+    print(f"[{card}] {label}: step {ms:.1f} ms (median of 2; {[round(t * 1e3, 1) for t in times]}) = "
           f"{batch / ms * 1e3:.1f} clips/s of the model group's {batch}, collectives a step {calls} "
           f"(half of them each way; gloo through the host, two ranks sharing one card: not an NVLink rate); busy "
           + (f"{busy:.1%}" if busy is not None else "not measured"))
@@ -4032,6 +4090,449 @@ def tp_attention_checks(dev) -> dict[str, float]:
         check_attention(f"AST-base per rank at tp {TP} [{bh}, {l}, {l}] D={d}", bh, l, None, l, d, dtype, dev, 161, errs,
                         twice=True)
     return errs
+
+
+# ---------------------------------------------------------------- sharded training state (slice 15)
+
+SHARD_WORLD = 2  # gloo ranks sharing the one card (NCCL refuses two ranks on one GPU)
+SHARD_FSDP_STEPS = 3  # SS-MAST under run.fsdp, then a resume to SHARD_FSDP_STEPS + 1
+SHARD_ZERO_STEPS = 2  # SS-MAST under run.zero_optimizer
+SHARD_FT_STEPS = 3  # the fine-tune with --fsdp, then an eval
+SHARD_GATE_BATCH = 4
+SHARD_GATE_CLIP = 1e-2  # the fine-tune gate's clip_grad_norm: below the gradient's norm, so the clip scales
+# the f32 gates hold a world-2 step to one process on the same rows with
+# the tp gates' yardstick: DDP_SPREAD times one process's distance from itself on
+# the rows in another order, plus f32 round-off (DDP_FLOOR; the clip's norm
+# takes the loss's floor). Each kind's planted fault (the package is not
+# changed: the script swaps one function for the run) must fail its gate
+SHARD_KINDS = ("ssmast_fsdp", "ssmast_zero", "finetune_fsdp")
+SHARD_FAULTS = {"ssmast_fsdp": "sum_reduce_scatter", "ssmast_zero": "zero_row_offset",
+                "finetune_fsdp": "replicated_n_times"}
+
+
+@contextlib.contextmanager
+def planted_shard_fault(fault: str | None):
+    """``fault`` planted in the package for the block: the fsdp gradients'
+    reduce-scatter as a sum over the data axis (not its mean), the clip's
+    global norm with the whole leaves summed over the axis as the pieces
+    are (each counted n times), or each rank's ZeRO slice taken from the
+    next row while its gradient is its own row's."""
+    from audiossl_tpu_torch.parallel import dist, fsdp
+    from audiossl_tpu_torch.train import zero
+
+    def sum_reduce_scatter(flat, kind="reduce_scatter"):
+        out = torch.empty(flat.numel() // dist.dp_world(), dtype=flat.dtype, device=flat.device)
+        torch.distributed.reduce_scatter_tensor(out, flat.contiguous())
+        return out
+
+    def replicated_n_times(sharded, whole):
+        sq = torch.cat([t.float().flatten() for t in list(sharded) + list(whole)]).square().sum()
+        return dist.all_reduce_sum(sq, "fsdp_norm")
+
+    saved = dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice
+    if fault == "sum_reduce_scatter":
+        dist.reduce_scatter_mean = sum_reduce_scatter
+    elif fault == "replicated_n_times":
+        fsdp.global_sq_norm = replicated_n_times
+    elif fault == "zero_row_offset":
+        zero.local_slice = lambda a, n, rank: zero.shard_rows(a, n)[(rank + 1) % n]
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice = saved
+
+
+def shard_gate_config() -> dict:
+    """The tp gates' SS-MAST (MAST tiny, f32, 64 x 96) with a [256, 256]
+    queue: JAX's rule splits it on K, as it splits MViTv2-B's."""
+    cfg = tp_ssmast_gate_config()
+    cfg["pretrain"]["num_negatives"] = 256
+    return cfg
+
+
+def shard_gate_step(kind: str, inputs: dict, dev, perm: np.ndarray | None = None, fault: str | None = None) -> dict:
+    """One f32 step of ``kind`` on this rank's share of the inputs (one
+    process: the whole batch, the state whole and the plain optimizer),
+    seeded weights alike on every rank, ``fault`` planted, ``perm``
+    reordering the rows first: "ssmast_fsdp" (TrainStep's loss and backward
+    under fsdp), "ssmast_zero" (one AdamW step through ZeRO), "finetune_fsdp"
+    (MAST tiny's classifier, the augmentations off, layer-decay AdamW with
+    the clip engaged). Returns the loss (the axis's mean), the whole
+    gradients (ZeRO: the whole update instead), the fine-tune's clip norm."""
+    from audiossl_tpu_torch import no_tf32
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.parallel import dist, fsdp
+    from audiossl_tpu_torch.train import finetune_mast as ft
+    from audiossl_tpu_torch.train.layer_decay import adamw_layer_decay
+    from audiossl_tpu_torch.train.loop import shard_objective_
+    from audiossl_tpu_torch.train.step import TrainStep
+    from audiossl_tpu_torch.train.zero import ZeroOptimizer
+
+    rows = (lambda x: x) if perm is None else (lambda x: x[perm])
+    share = lambda x: dist.share(torch.from_numpy(np.ascontiguousarray(rows(x)))).to(dev)  # noqa: E731
+    sharded = dist.data_active()
+    adamw = lambda ps: torch.optim.AdamW(ps, lr=3e-4, eps=1e-4, weight_decay=0.0)  # noqa: E731 (the CPU tests' eps)
+    dist.calls.clear()
+    reset_launches()
+    out = {}
+    with planted_shard_fault(fault):
+        if kind == "finetune_fsdp":
+            ft_cfg = finetune_tiny_config(augment=False)
+            with torch.random.fork_rng(devices=[]):
+                model = ft.init_classifier(ft_cfg, 8, 0, "cpu")
+            model = model.to(dev).train()
+            shards = fsdp.shard_(model, ft.FSDP_UNITS) if sharded else None
+            opt = adamw_layer_decay(model.named_parameters(), 5e-4, depth=10, layer_decay=0.75,
+                                    clip_grad_norm=SHARD_GATE_CLIP, shards=shards)
+            step = ft.FinetuneStep(model, opt, ft_cfg, torch.Generator(dev).manual_seed(0), layout=shards)
+            loss = step.loss_and_grads(share(inputs["waves"]), share(inputs["targets"]))
+            with torch.no_grad():
+                out["norm"] = float(shards.grad_norm(step.params) if shards is not None else
+                                    torch.cat([p.grad.flatten() for p in step.params]).square().sum().sqrt())
+            grads = {n: p.grad for n, p in model.named_parameters()}
+        else:
+            obj = init_objective("ssmast", shard_gate_config(), seed=0).to(dev).train()
+            shards = shard_objective_(obj) if kind == "ssmast_fsdp" and sharded else None
+            params = [p for p in obj.parameters() if p.requires_grad]
+            opt = ZeroOptimizer(params, adamw) if kind == "ssmast_zero" and sharded else adamw(params)
+            step = TrainStep(obj, None, None, opt, torch.Generator(dev).manual_seed(0),
+                             layout=shards or (opt if kind == "ssmast_zero" and sharded else None))
+            before = {n: p.detach().clone() for n, p in obj.named_parameters() if p.requires_grad}
+            with no_tf32():
+                loss = step.loss_and_grads(share(inputs["v1"]), share(inputs["v2"]))
+            if kind == "ssmast_zero":
+                step.update()
+                grads = {n: p.detach() - before[n] for n, p in obj.named_parameters() if p.requires_grad}
+            else:
+                grads = {n: p.grad for n, p in obj.named_parameters() if p.requires_grad}
+        if shards is not None:
+            grads = shards.dense_state_dict(grads)
+    torch.cuda.synchronize()
+    return {**out, "loss": float(loss), "grads": {n: g.float().cpu() for n, g in grads.items()},
+            "calls": dict(dist.calls), "counts": read_launches()}
+
+
+def shard_gate_inputs() -> dict:
+    """The gates' inputs from a generator of their own."""
+    rng = np.random.default_rng(151)
+    b = SHARD_GATE_BATCH
+    ssmast = {"v1": rng.standard_normal((b, 1, 64, 96)).astype(np.float32),
+              "v2": rng.standard_normal((b, 1, 64, 96)).astype(np.float32)}
+    return {"ssmast_fsdp": ssmast, "ssmast_zero": ssmast,
+            "finetune_fsdp": {"waves": (0.3 * rng.standard_normal((b, 16000))).astype(np.float32),
+                              "targets": (rng.random((b, 8)) < 0.4).astype(np.float32)}}
+
+
+def shard_gate_distance(a: dict, b: dict) -> dict[str, float]:
+    """tp_gate_distance, and the clip's norm (relative) where there is one."""
+    out = tp_gate_distance(a, b)
+    if "norm" in b:
+        out["norm"] = abs(a["norm"] - b["norm"]) / b["norm"]
+    return out
+
+
+def shard_moment_shapes(opt, names: dict, keys: tuple[str, ...]) -> dict[str, tuple]:
+    """The AdamW moments' shapes this rank held for the parameters ``keys``
+    (``names``: parameter -> name); ZeRO's slices are the inner optimizer's."""
+    inner = getattr(opt, "inner", opt)
+    params = getattr(opt, "slices", None)
+    out = {}
+    for i, p in enumerate(opt.params if params is not None else
+                          [q for g in opt.param_groups for q in g["params"]]):
+        if names.get(id(p)) in keys:
+            held = params[i] if params is not None else p
+            out[names[id(p)]] = tuple(inner.state[held]["exp_avg"].shape)
+    return out
+
+
+def shard_ssmast_run(d: dict, knob: str, steps: int, dev, resume: bool = False) -> dict:
+    """SS-MAST through train_upstream on a copy of configs/ssmast.yaml with
+    ``run.<knob>: true`` (B=64 as 32 a rank, bf16, MViTv2-B), ``steps``
+    steps, counts and collectives from 0, peak memory above what the rank
+    held before; the pieces and moments this rank held; with ``resume``
+    then one step more from the run's dense checkpoint."""
+    from audiossl_tpu_torch.parallel import dist
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    config = ssmast_config()
+    config["run"].update(save_path=os.path.join(d["tmp"], f"shard_{knob}"), epochs=1, **{knob: True})
+    from audiossl_tpu_torch.train import loop
+
+    built, original = [], loop.build_zero_optimizer
+    loop.build_zero_optimizer = lambda *a, **kw: built.append(original(*a, **kw)) or built[-1]
+    built_plain, restore_plain = tp_capture_optimizer()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    dist.calls.clear()
+    t0 = time.perf_counter()
+    try:
+        obj, step, ckpt_dir = train_upstream(config, d["mast_csv"], "ssmast", max_steps=steps, device=dev)
+        built += built_plain
+        torch.cuda.synchronize()
+        out = {"step": step, "seconds": time.perf_counter() - t0, "counts": read_launches(),
+               "calls": dict(dist.calls), "peak_bytes": torch.cuda.max_memory_allocated() - base, "ckpt_dir": ckpt_dir}
+        keys = ("encoder.mast.blocks.5.attn.qkv.weight", "encoder.mast.blocks.5.mlp.fc2.weight",
+                "encoder.mast.patch_embed.proj.weight", "encoder.mast.blocks.5.norm1.weight")
+        sd = obj.state_dict()
+        out["held"] = {k: tuple(sd[k].shape) for k in keys + ("encoder_k.mast.blocks.5.attn.qkv.weight", "queue")}
+        names = {id(p): n for n, p in obj.named_parameters()}
+        out["moments"] = shard_moment_shapes(built[0][0], names, keys)
+        out["state_bytes"] = sum(v.numel() * v.element_size() for v in sd.values())
+        del obj
+        if resume:
+            reset_launches()
+            _, step2, _ = train_upstream(config, d["mast_csv"], "ssmast", load_checkpoint=ckpt_dir, max_steps=steps + 1,
+                                         device=dev)
+            torch.cuda.synchronize()
+            out.update(resume_step=step2, resume_counts=read_launches())
+    finally:
+        restore_plain()
+        loop.build_zero_optimizer = original
+    return out
+
+
+def shard_finetune_run(d: dict, dev) -> dict:
+    """The fine-tune through its CLI entry (``finetune_mast.main``) on
+    configs/mast_ft.yaml with --fsdp at world 2 (B=64 as 32 a rank, bf16,
+    MAST-B; mixup, SpecMask, norm and noise on), SHARD_FT_STEPS steps and the
+    eval, counts from 0, peak memory above what the rank held before."""
+    from audiossl_tpu_torch.parallel import dist
+    from audiossl_tpu_torch.train.finetune_mast import main as finetune_main
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    dist.calls.clear()
+    t0 = time.perf_counter()
+    stats, ckpt_dir = finetune_main(["-c", FT_CONFIG, "--train_json", d["ft_train"], "--label_csv", d["ft_labels"],
+                                     "--eval_json", d["ft_eval"], "--max_steps", str(SHARD_FT_STEPS), "--fsdp",
+                                     "--save_path", os.path.join(d["tmp"], "shard_ft"), "--device", str(dev)])
+    torch.cuda.synchronize()
+    return {"stats": stats, "ckpt_dir": ckpt_dir, "seconds": time.perf_counter() - t0, "counts": read_launches(),
+            "calls": dict(dist.calls), "peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def one_process_peaks(d: dict, dev) -> dict[str, int]:
+    """One process at a rank's batch (B=32), fresh: SS-MAST through
+    train_upstream (SHARD_ZERO_STEPS steps) and the fine-tune through its
+    CLI (SHARD_FT_STEPS steps, no eval), each's peak device bytes above what
+    the process held before it."""
+    from audiossl_tpu_torch.train.finetune_mast import main as finetune_main
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    out = {}
+    config = ssmast_config()
+    config["run"].update(save_path=os.path.join(d["tmp"], "one_ssmast_b32"), epochs=1,
+                         batch_size=MAST_BATCH // SHARD_WORLD)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_upstream(config, d["mast_csv"], "ssmast", max_steps=SHARD_ZERO_STEPS, device=dev)
+    torch.cuda.synchronize()
+    out["ssmast"] = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    finetune_main(["-c", FT_CONFIG, "--train_json", d["ft_train"], "--label_csv", d["ft_labels"], "--max_steps",
+                   str(SHARD_FT_STEPS), "--batch_size", str(MAST_BATCH // SHARD_WORLD), "--save_path",
+                   os.path.join(d["tmp"], "one_ft_b32"), "--device", str(dev)])
+    torch.cuda.synchronize()
+    out["finetune"] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
+def shard_rank(rank: int, world: int, port: int, in_path: str, out_dir: str) -> None:
+    """One gloo rank on the one card: at world SHARD_WORLD the f32 gates (each
+    kind correct and with its fault), SS-MAST under run.fsdp (then a resume)
+    and under run.zero_optimizer through train_upstream, the fine-tune with
+    --fsdp through its CLI; at world 1 the one-process peaks at a rank's
+    batch. Results to ``out_dir/rank<r>.pt``. Gloo is the script's choice
+    (NCCL refuses two ranks on one GPU; the package takes NCCL for CUDA)."""
+    sys.path.insert(0, ROOT)
+    logging.basicConfig(level=logging.WARNING)
+    d = torch.load(in_path, weights_only=False)
+    dev = torch.device(d["device"])
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    try:  # the kernels load from the parent's build at first launch
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        if world == 1:
+            out = {"peaks": one_process_peaks(d, dev)}
+        else:
+            out = {"gates": {}}
+            for kind in SHARD_KINDS:
+                out["gates"][kind] = shard_gate_step(kind, d["gates"][kind], dev)
+                out["gates"][f"{kind} {SHARD_FAULTS[kind]}"] = shard_gate_step(kind, d["gates"][kind], dev,
+                                                                               fault=SHARD_FAULTS[kind])
+            out["fsdp"] = shard_ssmast_run(d, "fsdp", SHARD_FSDP_STEPS, dev, resume=True)
+            out["zero"] = shard_ssmast_run(d, "zero_optimizer", SHARD_ZERO_STEPS, dev)
+            out["finetune"] = shard_finetune_run(d, dev)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def shard_expected(kind: str, steps: int) -> dict[str, int]:
+    """Launches a rank over ``steps`` steps of SS-MAST or the fine-tune (24 blocks)."""
+    depth = 24
+    fwd = 2 * depth if kind == "ssmast" else depth
+    return {"fused_rows_kaldi": steps, "rel_attention_fwd": steps * fwd, "rel_attention_bwd_dq": steps * depth,
+            "rel_attention_bwd_dkv": steps * depth}
+
+
+def shard_runs(wav, tmp: str, dev, card) -> dict:
+    """Phases 38-41: sharded training state over the data axis, gloo ranks
+    sharing the card. The parent makes the f32 gates' one-process references
+    and yardsticks; then one spawn of SHARD_WORLD ranks (the gates with their
+    faults, SS-MAST under run.fsdp with a resume and under
+    run.zero_optimizer, the fine-tune with --fsdp) and one of a single fresh
+    process (the one-process peaks at a rank's batch). Checks every gate and
+    fault, the launches and pieces a rank, the moments a rank, the dense
+    checkpoint, its resume and its export served at world 1."""
+    from audiossl_tpu_torch.parallel.fsdp import fsdp_spec
+    from audiossl_tpu_torch.serve import export as serve
+
+    mast_csv = ssmast_wavs(tmp, wav, (SHARD_FSDP_STEPS + 1) * MAST_BATCH)
+    ft_data = audioset_style_data(tmp, wav, MAST_BATCH)
+    gates = shard_gate_inputs()
+    perm = np.random.default_rng(153).permutation(SHARD_GATE_BATCH)
+    one = {kind: shard_gate_step(kind, gates[kind], dev) for kind in SHARD_KINDS}
+    spread = {kind: shard_gate_distance(shard_gate_step(kind, gates[kind], dev, perm=perm), one[kind])
+              for kind in SHARD_KINDS}
+    floor = {**DDP_FLOOR, "norm": DDP_FLOOR["loss"]}
+    bound = {kind: {k: DDP_SPREAD * v + floor[k] for k, v in e.items()} for kind, e in spread.items()}
+    for kind in SHARD_KINDS:
+        print(f"[{card}] f32 {kind} gate, one process on the same rows in another order against one process: "
+              f"{spread[kind]}; the gate {bound[kind]}")
+    ranks = {}
+    for world in (1, SHARD_WORLD):
+        sub = os.path.join(tmp, f"shard_world{world}")
+        os.makedirs(sub)
+        torch.save({"gates": gates, "tmp": tmp, "mast_csv": mast_csv, "ft_train": ft_data["train"],
+                    "ft_eval": ft_data["eval"], "ft_labels": ft_data["label_csv"], "device": str(dev)},
+                   os.path.join(sub, "in.pt"))
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(shard_rank, args=(world, free_port(), os.path.join(sub, "in.pt"), sub),
+                                    nprocs=world, join=True)
+        print(f"sharded state: {world} gloo rank(s) on this card, spawn and every phase {time.perf_counter() - t0:.1f} s")
+        ranks[world] = [torch.load(os.path.join(sub, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    peaks = ranks.pop(1)[0]["peaks"]
+    rs = ranks[SHARD_WORLD]
+
+    report, failures = {"gate_spread": spread, "gate_bound": bound, "one_process_peak_bytes_b32": peaks}, []
+    for r, res in enumerate(rs):
+        for name, step in res["gates"].items():
+            kind, _, fault = name.partition(" ")
+            err = shard_gate_distance(step, one[kind])
+            caught = [k for k in err if err[k] > bound[kind][k]]
+            print(f"[{card}] f32 {kind} gate at world {SHARD_WORLD}, rank {r}"
+                  + (f", planted fault {fault}" if fault else "") + f": {err}; "
+                  + (f"fails the gate on {caught}" if caught else "passes the gate")
+                  + ("" if fault else f"; collectives {step['calls']}"))
+            report[f"gate rank{r} {name}"] = err
+            if fault and not caught:
+                failures.append(f"the {kind} gate does not catch {fault} on rank {r}: {err}")
+            if not fault and caught:
+                failures.append(f"rank {r}'s {kind} step strays from one process: {err}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+
+    batch = MAST_BATCH // SHARD_WORLD
+    for r, res in enumerate(rs):
+        for knob, steps in (("fsdp", SHARD_FSDP_STEPS), ("zero", SHARD_ZERO_STEPS)):
+            st = res[knob]
+            expect_counts(f"SS-MAST run.{knob}, rank {r}, {steps} steps", st["counts"], shard_expected("ssmast", steps))
+            if st["step"] != steps:
+                raise RuntimeError(f"SS-MAST run.{knob}, rank {r}: {st['step']} steps")
+            held, moments = st["held"], st["moments"]
+            if knob == "fsdp":  # every piece and moment as fsdp_spec cuts the whole (MViTv2-B's) leaf
+                whole = {"encoder.mast.blocks.5.attn.qkv.weight": (3 * 384, 192),
+                         "encoder.mast.blocks.5.mlp.fc2.weight": (384, 4 * 384),
+                         "encoder.mast.patch_embed.proj.weight": (96, 1, 16, 16),
+                         "encoder.mast.blocks.5.norm1.weight": (192,),
+                         "encoder_k.mast.blocks.5.attn.qkv.weight": (3 * 384, 192), "queue": (256, 65536)}
+                jax_order = {4: (2, 3, 1, 0), 2: (1, 0), 1: (0,)}
+                for k, shape in whole.items():
+                    axes = (0, 1) if k == "queue" else jax_order[len(shape)]
+                    dim = fsdp_spec([shape[a] for a in axes], SHARD_WORLD)
+                    want = shape if dim is None else tuple(
+                        s // SHARD_WORLD if i == axes[dim] else s for i, s in enumerate(shape))
+                    if held[k] != want or (k in moments and moments[k] != want):
+                        raise RuntimeError(f"rank {r} under run.fsdp held {k} {held[k]} (moments {moments.get(k)}), "
+                                           f"expected {want}")
+                expect_counts(f"SS-MAST run.fsdp resumed, rank {r}, 1 step", st["resume_counts"],
+                              shard_expected("ssmast", 1))
+                if st["resume_step"] != steps + 1:
+                    raise RuntimeError(f"the fsdp resume on rank {r} ended at step {st['resume_step']}")
+            else:  # ZeRO: the parameters whole, each moment this rank's flat slice
+                for k, m in moments.items():
+                    n = int(np.prod(held[k]))
+                    if m != (-(-n // SHARD_WORLD),):
+                        raise RuntimeError(f"rank {r} under run.zero_optimizer held {k}'s moments as {m} for {n} "
+                                           "elements")
+            print(f"SS-MAST run.{knob} through train_upstream (configs/ssmast.yaml, MViTv2-B, B={MAST_BATCH} as "
+                  f"{batch} a rank, bf16), rank {r}: {steps} steps in {st['seconds']:.1f} s; launches {st['counts']}; "
+                  f"collectives a step {({k: v / steps for k, v in st['calls'].items()})} (the checkpoint's "
+                  f"included); held {held}; moments {moments}; state {st['state_bytes'] / 2**30:.3f} GiB")
+            print(f"[{card}] SS-MAST run.{knob}, rank {r}: peak memory {st['peak_bytes'] / 2**30:.3f} GiB above what "
+                  f"the rank held before; one fresh process at B={batch}: {peaks['ssmast'] / 2**30:.3f} GiB "
+                  f"({st['peak_bytes'] / peaks['ssmast']:.3f} of it, {(peaks['ssmast'] - st['peak_bytes']) / 2**30:+.3f} "
+                  "GiB less)")
+        ftr = res["finetune"]
+        eval_batches = -(-(-(-FT_EVAL // SHARD_WORLD)) // batch)
+        expect_counts(f"fine-tune --fsdp, rank {r}", ftr["counts"],
+                      {k: v + (eval_batches if k == "fused_rows_kaldi" else eval_batches * 24 if k == "rel_attention_fwd"
+                               else 0) for k, v in shard_expected("finetune", SHARD_FT_STEPS).items()})
+        for key in ("mAP", "AUC"):
+            if not (math.isfinite(ftr["stats"][key]) and 0.0 <= ftr["stats"][key] <= 1.0):
+                raise RuntimeError(f"the fsdp fine-tune's eval {key} = {ftr['stats'][key]}")
+        print(f"fine-tune --fsdp through finetune_mast.main (configs/mast_ft.yaml, MAST-B, B={MAST_BATCH} as {batch} a "
+              f"rank, bf16, every augmentation on), rank {r}: {SHARD_FT_STEPS} steps and an eval of {FT_EVAL} clips "
+              f"({eval_batches} batches a rank) in {ftr['seconds']:.1f} s; stats {ftr['stats']}; launches "
+              f"{ftr['counts']}; collectives {ftr['calls']}")
+        print(f"[{card}] fine-tune --fsdp, rank {r}: peak memory {ftr['peak_bytes'] / 2**30:.3f} GiB; one fresh "
+              f"process at B={batch}: {peaks['finetune'] / 2**30:.3f} GiB ({ftr['peak_bytes'] / peaks['finetune']:.3f} "
+              f"of it, {(peaks['finetune'] - ftr['peak_bytes']) / 2**30:+.3f} GiB less)")
+    ckpt = rs[0]["fsdp"]["ckpt_dir"]
+    saved = torch.load(os.path.join(ckpt, "state", f"{SHARD_FSDP_STEPS + 1}.pt"), map_location="cpu",
+                       weights_only=True)
+    dense = (tuple(saved["objective"]["encoder.mast.blocks.5.attn.qkv.weight"].shape),
+             tuple(saved["objective"]["queue"].shape))
+    if dense != ((3 * 384, 192), (256, 65536)):
+        raise RuntimeError(f"the fsdp checkpoint is not dense: {dense}")
+    zsaved = torch.load(os.path.join(rs[0]["zero"]["ckpt_dir"], "state", f"{SHARD_ZERO_STEPS}.pt"), map_location="cpu",
+                        weights_only=True)
+    if zsaved["optimizer"]["zero_world"] != SHARD_WORLD or zsaved["optimizer"]["state"][0]["exp_avg"].shape[0] != 2:
+        raise RuntimeError("the ZeRO checkpoint does not hold the moments as world-sized rows")
+    art = os.path.join(tmp, "fsdp_export.pt")
+    serve.main(["--checkpoint", ckpt, "--out", art, "--clip_samples", str(SLICE9_CLIP), "--device", str(dev)])
+    enc = fixed_batch_encoder(art, dev)
+    reset_launches()
+    z = enc(slice9_requests(tmp, wav, 65))
+    torch.cuda.synchronize()
+    served = read_launches()
+    if z.shape != (65, 768) or not np.isfinite(z).all():
+        raise RuntimeError(f"the fsdp checkpoint's export served {z.shape} or non-finite embeddings")
+    expect_counts("the fsdp checkpoint's export served at world 1", served,
+                  {"fused_rows_kaldi": 2, "rel_attention_fwd": 48})
+    print(f"the fsdp checkpoint (dense: block 5's qkv and the queue {dense}) exported and served at world 1: 65 clips "
+          f"-> {z.shape}, finite; launches {served}")
+    report.update({
+        "fsdp_ssmast_launches_per_rank": rs[0]["fsdp"]["counts"], "zero_ssmast_launches_per_rank": rs[0]["zero"]["counts"],
+        "fsdp_finetune_launches_per_rank": rs[0]["finetune"]["counts"],
+        "collectives_a_step_per_rank": {knob: {k: v / steps for k, v in rs[0][knob]["calls"].items()}
+                                        for knob, steps in (("fsdp", SHARD_FSDP_STEPS), ("zero", SHARD_ZERO_STEPS))},
+        "finetune_collectives_per_rank": rs[0]["finetune"]["calls"],
+        "peak_gib_per_rank": {knob: [res[knob]["peak_bytes"] / 2**30 for res in rs] for knob in ("fsdp", "zero",
+                                                                                                "finetune")},
+        "one_process_peak_gib_b32": {k: v / 2**30 for k, v in peaks.items()},
+        "finetune_eval": {k: rs[0]["finetune"]["stats"][k] for k in ("mAP", "AUC", "d_prime")},
+        "served_launches": served})
+    return report
 
 
 if __name__ == "__main__":

@@ -134,8 +134,12 @@ def test_deepcluster_cli_trains_resumes_and_feeds_pseudo_labels(manifest, tmp_pa
 
 
 KNOBS = {"tp": ({"pretrain": {"tp": 2, "base_encoder": {"type": "MAST"}}}, "pretrain.tp.*no tensor-parallel path"),
-         "fsdp": ({"run": {"fsdp": True}}, "run.fsdp.*item 9.2"),
-         "zero": ({"run": {"zero_optimizer": True}}, "run.zero_optimizer.*item 9.3")}
+         "fsdp": ({"run": {"fsdp": True}}, "run.fsdp is run by train_upstream .*no fully sharded path"),
+         "zero": ({"run": {"zero_optimizer": True}}, "run.zero_optimizer is run by train_upstream only.*no ZeRO path")}
+# what the generic trainer, which runs every knob, still refuses of each: fsdp on
+# DeLoRes-S's stateful augmentation and ZeRO with LARS (JAX's ValueErrors)
+GENERIC = {"fsdp": ({}, "run.fsdp requires stateless augmentation"),
+           "zero": ({"optimizer": "lars"}, "zero_optimizer supports elementwise optimizers")}
 
 
 def _with(cfg, extra):
@@ -151,13 +155,13 @@ def _with(cfg, extra):
 
 @pytest.mark.parametrize("knob", sorted(KNOBS))
 def test_parallel_knob_is_refused_by_every_trainer(knob, manifest):
-    """A knob the port does not run raises NotImplementedError before any
-    data is read: ``run.fsdp`` and ``run.zero_optimizer`` in the generic,
-    DECAR and DeepCluster trainers alike (naming ROADMAP.md Queue 1 items
-    9.2 and 9.3); ``pretrain.tp`` in DECAR and DeepCluster, which have no
-    tensor-parallel path in JAX either. The generic trainer runs
-    ``pretrain.tp`` (SS-MAST, tests/test_torch_port_tp.py); in one process
-    it keeps JAX's refusal of a world that tp does not divide."""
+    """A knob a trainer does not run raises NotImplementedError before any
+    data is read: ``pretrain.tp``, ``run.fsdp`` and ``run.zero_optimizer``
+    in DECAR and DeepCluster, which have no such path in JAX either. The
+    generic trainer runs all three (tests/test_torch_port_tp.py,
+    tests/test_torch_port_fsdp_zero.py) and keeps JAX's ValueErrors, before
+    any data is read too: tp on a world it does not divide, fsdp on
+    DeLoRes-S's stateful augmentation, ZeRO with LARS."""
     extra, match = KNOBS[knob]
     for upstream, trainer in (("delores_s", lambda c: train_upstream(c, manifest, "delores_s", device="cpu")),
                               ("decar_v2", lambda c: train_decar(c, manifest, device="cpu")),
@@ -168,6 +172,12 @@ def test_parallel_knob_is_refused_by_every_trainer(knob, manifest):
             cfg = _with(yaml.safe_load(f), extra)
         if upstream == "ssmast":
             with pytest.raises(ValueError, match="1 devices not divisible by pretrain.tp=2"):
+                trainer(cfg)
+            continue
+        if upstream == "delores_s":
+            pre_or_run, generic_match = GENERIC[knob]
+            cfg["run"].update(pre_or_run)
+            with pytest.raises(ValueError, match=generic_match):
                 trainer(cfg)
             continue
         with pytest.raises(NotImplementedError, match=match):

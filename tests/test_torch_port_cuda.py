@@ -867,3 +867,77 @@ def test_tensor_parallel_f32_gate_on_the_card(cuda, tmp_path):
         pmast.VARIANTS.update(saved[0])
         past.VARIANTS.update(saved[1])
 
+
+
+# ---------------------------------------------------------------- sharded training state (slice 15)
+
+
+def test_sharded_state_f32_gates_on_the_card(cuda, tmp_path):
+    """Two gloo ranks share the card, f32, MAST tiny cut to 2 blocks at 64 x
+    96: one SS-MAST step under run.fsdp, one under run.zero_optimizer (AdamW
+    at eps 1e-4), one fine-tune step under fsdp with the clip engaged (1e-2),
+    each against one process on the card on the same 4 clips: the loss and
+    the clip's norm 1e-5 relative; each gradient within 1e-3 of its own
+    max|ref| + 1e-5 of the largest (the CPU test's bounds); ZeRO's state
+    after the step 1e-5 of max(1, max|ref|); per rank the attention kernels
+    once a block and pass (SS-MAST's query and key passes forward, the
+    query's backward) and the fine-tune's one Kaldi rows launch."""
+    import os
+    import socket
+
+    import yaml
+
+    from audiossl_tpu_torch.models import mast as pmast
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.train import finetune_mast as ft
+    from tests import torch_fsdp_zero_worker as worker
+
+    saved = dict(pmast.VARIANTS)
+    worker.cut_tiny()
+    try:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        with open(os.path.join(root, "configs", "ssmast.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        cfg["pretrain"].update(model_size="tiny", num_negatives=256, contrastive_dim=16, droppath_rate=0.0,
+                               compute_dtype="f32", steps_per_epoch=2)
+        cfg["pretrain"]["input"].update(n_mels=64, target_length=96)
+        rng = np.random.default_rng(0)
+        ss = {"config": cfg, "state": {k: v.numpy() for k, v in init_objective("ssmast", cfg, seed=0).state_dict().items()},
+              "v1": rng.standard_normal((4, 1, 64, 96)).astype(np.float32),
+              "v2": rng.standard_normal((4, 1, 64, 96)).astype(np.float32)}
+        ft_cfg = {"model_size": "tiny", "freqm": 0, "timem": 0, "compute_dtype": "f32", "droppath_rate": 0.0,
+                  "norm_stats": {"mean": -13.9, "std": 5.3},
+                  "input": {"type": "fbank", "sampling_rate": 16000, "length_wave": 0.5, "n_mels": 64,
+                            "target_length": 96, "mixup": 0.0, "noise": False}}
+        fd = {"ft": ft_cfg, "n_classes": 4, "clip": 1e-2,
+              "state": {k: v.numpy() for k, v in ft.init_classifier(ft_cfg, 4, 0, "cpu").state_dict().items()},
+              "waves": (0.3 * rng.standard_normal((4, 8000))).astype(np.float32),
+              "targets": (rng.random((4, 4)) < 0.4).astype(np.float32)}
+        inputs = {"ssmast_fsdp": ss, "zero_ssmast": {**ss, "name": "ssmast"}, "finetune_fsdp": fd}
+        torch.save(inputs, str(tmp_path / "in.pt"))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        torch.multiprocessing.spawn(worker.run_on_card, args=(2, port, str(tmp_path / "in.pt"), str(tmp_path)),
+                                    nprocs=2, join=True)
+        ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+        want = {name: worker.CHECKS[name]({**d, "device": "cuda"}) for name, d in inputs.items()}
+
+        def grads_close(got, ref):
+            largest = max(float(np.abs(g).max()) for g in ref.values())
+            return [n for n, g in ref.items() if not np.abs(got[n] - g).max() <= 1e-3 * np.abs(g).max() + 1e-5 * largest]
+
+        for r in ranks:
+            for name, w in want.items():
+                assert abs(float(r[name]["loss"]) - float(w["loss"])) <= 1e-5 * abs(float(w["loss"])), name
+            assert not grads_close(r["ssmast_fsdp"]["grads"], want["ssmast_fsdp"]["grads"])
+            assert not grads_close(r["finetune_fsdp"]["grads"], want["finetune_fsdp"]["grads"])
+            assert abs(r["finetune_fsdp"]["norm"] - want["finetune_fsdp"]["norm"]) <= 1e-5 * want["finetune_fsdp"]["norm"]
+            assert want["finetune_fsdp"]["norm"] > 1e-2
+            for k, v in want["zero_ssmast"]["after"].items():
+                assert np.abs(r["zero_ssmast"]["after"][k] - v).max() <= 1e-5 * max(1.0, np.abs(v).max()), k
+            assert r["ssmast_fsdp"]["launches"] == r["zero_ssmast"]["launches"] == [4, 2, 2, 0]
+            assert r["finetune_fsdp"]["launches"] == [2, 2, 2, 1]
+    finally:
+        pmast.VARIANTS.clear()
+        pmast.VARIANTS.update(saved)

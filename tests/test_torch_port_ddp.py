@@ -782,8 +782,9 @@ def test_world_size_knob():
     assert check_world_size({}) == check_world_size({"world_size": 0}) == check_world_size({"world_size": 1}) == 1
     with pytest.raises(ValueError, match="world_size is 2 but the process group has 1"):
         check_world_size({"world_size": 2})
-    with pytest.raises(NotImplementedError, match="run.zero_optimizer.*item 9.3"):
+    with pytest.raises(NotImplementedError, match="run.zero_optimizer is run by train_upstream only"):
         check_parallel_knobs({"run": {"zero_optimizer": True, "world_size": 0}, "pretrain": {}})
+    assert check_parallel_knobs({"run": {"zero_optimizer": True}, "pretrain": {}}, zero_runs=True) == 1
     tp_cfg = {"run": {"world_size": 0}, "pretrain": {"tp": 2, "base_encoder": {"type": "MAST"}}}
     assert check_parallel_knobs(tp_cfg, tp_runs=True) == 2 and check_parallel_knobs({"run": {}, "pretrain": {}}) == 1
     with pytest.raises(NotImplementedError, match="pretrain.tp > 1 is run by train_upstream"):

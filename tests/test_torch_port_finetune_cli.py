@@ -204,13 +204,14 @@ def test_norm_stats_cli_matches_jax(data, tmp_path, monkeypatch, capsys):
 
 
 def test_parallel_knobs_are_refused(data, tmp_path):
-    """``--fsdp`` / ``run.fsdp`` raises NotImplementedError naming ROADMAP.md
-    Queue 1 item 9; ``run.world_size: 2`` without a process group of two
-    raises ValueError (data parallelism needs the processes started); so
-    does nothing else before a step."""
-    _, path = _config(tmp_path)
-    with pytest.raises(NotImplementedError, match="run.fsdp.*item 9"):
-        _run(data, path, tmp_path, "e", 1, extra=["--fsdp"])
+    """``run.zero_optimizer`` raises NotImplementedError (JAX's fine-tune has
+    no ZeRO path; ``--fsdp`` runs, tests/test_torch_port_fsdp_zero.py);
+    ``run.world_size: 2`` without a process group of two raises ValueError
+    (data parallelism needs the processes started); so does nothing else
+    before a step."""
+    _, path = _config(tmp_path, zero_optimizer=True)
+    with pytest.raises(NotImplementedError, match="run.zero_optimizer is run by train_upstream only.*JAX's fine-tune"):
+        _run(data, path, tmp_path, "e", 1)
     cfg, path = _config(tmp_path, world_size=2)
     with pytest.raises(ValueError, match="world_size is 2 but the process group has 1"):
         _run(data, path, tmp_path, "e", 1)

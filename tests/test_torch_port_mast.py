@@ -25,6 +25,17 @@ TOL_OUT = 1e-4  # relative to max(1, max|ref|)
 TOL_GRAD = 1e-4  # relative to the largest gradient
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch intra-op thread for these tiny models: with the suite's
+    workers sharing the cores, torch's default of a thread a core makes each
+    small op wait for threads the other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cotangent(shape):
     return np.random.default_rng(9).standard_normal(shape).astype(np.float32)
 

@@ -31,6 +31,17 @@ TOL_LOSS = 1e-5  # relative
 TOL_TRAJ = 1e-4  # relative to max(1, max|ref|)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch intra-op thread for these tiny models: with the suite's
+    workers sharing the cores, torch's default of a thread a core makes each
+    small op wait for threads the other workers hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _config(batched: bool):
     with open(os.path.join(ROOT, "configs", "ssmast.yaml")) as f:
         cfg = yaml.safe_load(f)

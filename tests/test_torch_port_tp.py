@@ -610,8 +610,9 @@ def _cfg(name):
 def test_refusals_keep_jax_messages(tmp_path):
     """JAX's ValueErrors: tp with a world it does not divide (each knob), with
     an encoder it cannot shard, with heads, dim_out or an MLP width tp does
-    not divide, with zero_optimizer; the grid itself; fsdp and zero name
-    their ROADMAP items."""
+    not divide, with zero_optimizer; the grid itself; and the checks of the
+    knobs tp excludes, which the trainer runs too (tests/test_torch_port_fsdp_zero.py):
+    fsdp needs stateless augmentation, ZeRO an elementwise optimizer."""
     from audiossl_tpu_torch.downstream.probe import run_downstream
     from audiossl_tpu_torch.train.loop import train_upstream
 
@@ -643,10 +644,12 @@ def test_refusals_keep_jax_messages(tmp_path):
         bad["run"].update(extra)
         with pytest.raises(err, match=match):
             train_upstream(bad, "unused.csv", "ssmast", device="cpu")
-    for extra, item in (({"fsdp": True}, "9.2"), ({"zero_optimizer": True}, "9.3")):
+    for extra, match in (({"fsdp": True}, "run.fsdp requires stateless augmentation"),
+                         ({"zero_optimizer": True, "optimizer": "larc"}, "zero_optimizer supports elementwise")):
         bad = _ssmast_cfg()
         bad["run"].update(extra)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        bad["pretrain"]["normalization"] = "mean_var"
+        with pytest.raises(ValueError, match=match):
             train_upstream(bad, "unused.csv", "ssmast", device="cpu")
 
 
