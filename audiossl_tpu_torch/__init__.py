@@ -15,7 +15,7 @@ Ported so far (the serving slice, DeLoRes-S pretraining, SS-MAST pretraining,
 the downstream probe with AST, the SS-MAST checkpoint served and probed,
 DeLoRes-M, SLICER and UnFuSeD pretraining, the clustering family, the
 supervised MAST fine-tune, data parallelism across processes with its host
-data):
+data, tensor, sharded-state, pipeline, expert and sequence parallelism):
   config.py           YAML config loading
   data/wav.py         WAV decode / resample / write
   data/pipeline.py    ManifestLoader: CSV manifest -> windowed wave batches,
@@ -29,7 +29,8 @@ data):
                       RandomResizeCrop, SpecMask, precomputed-norm views and
                       MAST noise
   frontend/           log-mel and Kaldi fbank: plain versions + the Hopper
-                      log-mel and dense-rows kernels; waveform mixup
+                      log-mel and dense-rows kernels; waveform mixup; the
+                      sequence-parallel log-mel (sp.py)
   ops/                windowing, running norm, bicubic crop-resize, masking,
                       block 1 (conv-BN-ReLU-pool) with its three Hopper
                       kernels, rel-pos attention with its three Hopper kernels
@@ -52,7 +53,10 @@ data):
                       (PCA-whitening, k-means, kNN, PIC), make_pseudo_labels,
                       the DINO loss
   parallel/           launch.py: joining a process group (torchrun, AUDIOSSL_*,
-                      SLURM); dist.py: the data-parallel collectives
+                      SLURM); dist.py: the collectives and groups of every
+                      axis; tp*.py: tensor parallelism; fsdp.py: sharded
+                      state; pipeline.py, pipeline_ast.py: GPipe; moe.py:
+                      the Switch MoE; ring.py: ring attention
   train/              optimizers (SGD, Adam, AdamW, LARS, LARC, layer-decay
                       AdamW), train step, gradient accumulation, checkpoints,
                       loop, the SIGTERM guard; the DECAR-v2, DeepCluster-v1

@@ -183,13 +183,7 @@ class ASTEncoder(nn.Module):
         attention dropout; ``keep`` [B, N_keep] gives the kept patch tokens
         instead (the parity tests pass JAX's)."""
         with no_tf32():
-            dt = self.compute_dtype or torch.float32
-            proj = self.patch_embed.proj
-            x = x.to(dt).transpose(-1, -2)  # [B, 1, T, F]: time on H as in the JAX module
-            x = F.conv2d(x, proj.weight.to(dt), proj.bias.to(dt), proj.stride).float()
-            x = x.flatten(2).transpose(1, 2)  # [B, t * f, C], row-major over (t, f)
-            b = x.shape[0]
-            x = torch.cat([self.cls_token.expand(b, -1, -1), self.dist_token.expand(b, -1, -1), x], dim=1) + self.pos_embed
+            x = self.embed(x)
             if self.training and self.patch_drop > 0.0:
                 if keep is not None:
                     kept = gather_tokens(x[:, 2:], keep)
@@ -200,5 +194,21 @@ class ASTEncoder(nn.Module):
                 x = torch.cat([x[:, :2], kept], dim=1)
             for blk in self.blocks:
                 x = blk(x, generator)
-            x = self.norm(x)
+            return self.pool(x)
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, 1, F, T] -> [B, N + 2, C] tokens: the patch conv, the cls and
+        dist tokens, the positional embedding (TF32 off on the caller's side)."""
+        dt = self.compute_dtype or torch.float32
+        proj = self.patch_embed.proj
+        x = x.to(dt).transpose(-1, -2)  # [B, 1, T, F]: time on H as in the JAX module
+        x = F.conv2d(x, proj.weight.to(dt), proj.bias.to(dt), proj.stride).float()
+        x = x.flatten(2).transpose(1, 2)  # [B, t * f, C], row-major over (t, f)
+        b = x.shape[0]
+        return torch.cat([self.cls_token.expand(b, -1, -1), self.dist_token.expand(b, -1, -1), x], dim=1) + self.pos_embed
+
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, N + 2, C] -> [B, C]: the final LayerNorm, then the mean of the
+        cls and dist tokens."""
+        x = self.norm(x)
         return (x[:, 0] + x[:, 1]) / 2.0

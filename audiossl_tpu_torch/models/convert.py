@@ -335,6 +335,45 @@ def ast_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]
     return sd
 
 
+def vit_block_from_jax(block: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """One block of ``audiossl_tpu.parallel.ring.init_long_ast_params`` (the
+    keys ``parallel.pipeline.vit_block`` reads: ln1, qkv, proj, ln2, fc1,
+    fc2; Dense kernels [in, out]) -> ``models.ast.ViTBlock``'s state_dict."""
+    names = {"ln1": "norm1", "qkv": "attn.qkv", "proj": "attn.proj", "ln2": "norm2", "fc1": "mlp.fc1",
+             "fc2": "mlp.fc2"}
+    sd = {}
+    for jax_key, port in names.items():
+        p = block[jax_key]
+        if "scale" in p:
+            sd[f"{port}.weight"] = _t(p["scale"])
+        else:
+            sd[f"{port}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{port}.bias"] = _t(p["bias"])
+    return sd
+
+
+def long_ast_from_jax(params_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``init_long_ast_params``'s tree (NumPy leaves) -> the port's
+    ``parallel.ring.LongAST`` state_dict."""
+    sd = {"patch.weight": _t(np.asarray(params_numpy["patch"]["kernel"]).T),
+          "patch.bias": _t(params_numpy["patch"]["bias"]), "pos": _t(params_numpy["pos"]),
+          "norm.weight": _t(params_numpy["norm"]["scale"]), "norm.bias": _t(params_numpy["norm"]["bias"])}
+    for i, blk in enumerate(params_numpy["blocks"]):
+        sd.update(_prefixed(f"blocks.{i}", vit_block_from_jax(blk)))
+    if "head" in params_numpy:
+        sd["head.weight"] = _t(np.asarray(params_numpy["head"]["kernel"]).T)
+        sd["head.bias"] = _t(params_numpy["head"]["bias"])
+    return sd
+
+
+def moe_from_jax(params_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``audiossl_tpu.parallel.moe.init_moe_params``'s dict (NumPy leaves)
+    -> the port's whole MoE parameters (the same layout: router [d, E],
+    w1 [E, d, h], b1 [E, h], w2 [E, h, d], b2 [E, d]);
+    ``parallel.moe.expert_shard`` takes a rank's part."""
+    return {k: _t(params_numpy[k]) for k in ("router", "w1", "b1", "w2", "b2")}
+
+
 def ast_reference_layout(sd: Mapping[str, torch.Tensor], grid_ft: tuple[int, int]) -> dict[str, torch.Tensor]:
     """The port's time-major AST state_dict -> the reference's freq-major one
     (``ast_to_torch``'s output): the patch conv's kernel [C, 1, freq, time],

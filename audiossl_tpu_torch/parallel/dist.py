@@ -43,11 +43,33 @@ gradients. With tp = 1 (``set_tp(1)``, the default) the data group is the
 whole world and every call is what it was. ``world()`` / ``rank()`` stay the
 process group's (rank 0 writes the files).
 
+The inner axes of the JAX package's library modules (``pipe``,
+``expert``, the sequence-parallel ``data`` axis of parallel/ring.py) take
+explicit groups: ``inner_grid(n)`` lays the world out as (world / n) x n
+as ``set_tp`` does and returns this rank's (outer, inner) groups, and the
+helpers below take such a group (None: the whole world, as in
+``torch.distributed``; with no process group, one rank and the identity):
+
+* ``ppermute``: JAX's ``lax.ppermute`` (pairs of group ranks, zeros where
+  no pair arrives), autograd-aware, its backward the inverted pairs;
+* ``all_to_all``: ``lax.all_to_all(..., tiled=True)``, its backward the
+  inverse all-to-all;
+* ``all_reduce_sum(x, kind, group)``: the psum above over any group;
+* ``sum_replicated``: a psum whose result every rank then uses alike in
+  one loss (JAX's psum into an unmapped ``shard_map`` output): the backward
+  passes the cotangent as it is, so each rank's part gets the one loss's
+  cotangent (a summed backward would give it the group's size times that).
+
 ``calls`` counts the collectives by kind; ``chip_smoke.py`` resets and reads
 it. The collectives run on the tensors' own device: NCCL for CUDA tensors,
-gloo for CPU ones (gloo also takes CUDA tensors for these operations,
-``reduce_scatter_tensor`` and ``all_gather_into_tensor`` included, which the
-two-rank checks on one card use).
+gloo for CPU ones. Gloo takes CUDA tensors for the collectives
+(``all_reduce``, ``reduce_scatter_tensor``, ``all_gather_into_tensor``,
+``all_to_all_single``, which the two-rank checks on one card use) but not
+for point-to-point: its send of a CUDA tensor fails ("writev: Bad
+address"; torch 2.11 on an H100). ``ppermute`` on a gloo group therefore
+stages a CUDA tensor through host memory, chosen from the group's backend
+and the tensor's device (in ``exchange``), and counts each copy under
+``calls["host_staging_copy"]``.
 """
 from __future__ import annotations
 
@@ -60,7 +82,7 @@ import torch.distributed as tdist
 calls: collections.Counter = collections.Counter()
 
 _tp = 1  # the model axis's size; set_tp lays out the grid
-_grids: dict = {}  # (tp, the world group) -> (this rank's data group, its model group)
+_grids: dict = {}  # (n, the world group) -> (this rank's outer group, its inner group)
 
 
 def active() -> bool:
@@ -68,12 +90,14 @@ def active() -> bool:
     return tdist.is_available() and tdist.is_initialized() and tdist.get_world_size() > 1
 
 
-def world() -> int:
-    return tdist.get_world_size() if tdist.is_available() and tdist.is_initialized() else 1
+def world(group=None) -> int:
+    """The size of ``group`` (None: the world); 1 with no process group."""
+    return tdist.get_world_size(group) if tdist.is_available() and tdist.is_initialized() else 1
 
 
-def rank() -> int:
-    return tdist.get_rank() if tdist.is_available() and tdist.is_initialized() else 0
+def rank(group=None) -> int:
+    """This process's rank in ``group`` (None: the world); 0 with no process group."""
+    return tdist.get_rank(group) if tdist.is_available() and tdist.is_initialized() else 0
 
 
 def set_tp(tp: int) -> None:
@@ -86,18 +110,37 @@ def set_tp(tp: int) -> None:
     tp, w = max(1, int(tp)), world()
     if w % tp:
         raise ValueError(f"{w} devices not divisible by tp={tp}")
-    key = (tp, tdist.group.WORLD if active() else None)
-    if tp > 1 and key not in _grids:
-        r = rank()
-        data = model = None
-        for m in range(tp):
-            g = tdist.new_group([d * tp + m for d in range(w // tp)])
-            data = g if r % tp == m else data
-        for d in range(w // tp):
-            g = tdist.new_group(list(range(d * tp, (d + 1) * tp)))
-            model = g if r // tp == d else model
-        _grids[key] = (data, model)
+    if tp > 1:
+        inner_grid(tp)
     _tp = tp
+
+
+def inner_grid(n: int) -> tuple:
+    """Lay the group out as (world // n) x n, rank r at outer index r // n and
+    inner index r % n (``set_tp``'s layout, ``make_dp_tp_mesh``'s), and
+    return this rank's (outer, inner) groups: the world // n ranks of its
+    inner index and the n ranks of its outer index. The pipe, expert and
+    sequence axes are the inner one, the data axis the outer. A collective
+    the first time an n is asked for on a group (every rank makes every
+    subgroup, in one order); with no process group, (None, None). Raises
+    JAX's ValueError when the world does not divide by n."""
+    n, w = max(1, int(n)), world()
+    if w % n:
+        raise ValueError(f"{w} devices not divisible by {n}")
+    if not active():
+        return None, None
+    key = (n, tdist.group.WORLD)
+    if key not in _grids:
+        r = rank()
+        outer = inner = None
+        for i in range(n):
+            g = tdist.new_group([o * n + i for o in range(w // n)])
+            outer = g if r % n == i else outer
+        for o in range(w // n):
+            g = tdist.new_group(list(range(o * n, (o + 1) * n)))
+            inner = g if r // n == o else inner
+        _grids[key] = (outer, inner)
+    return _grids[key]
 
 
 def _grid() -> tuple:
@@ -165,28 +208,49 @@ def _sum_(x: torch.Tensor, kind: str, group=None) -> torch.Tensor:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kind):
-        ctx.kind = kind
-        return _sum_(x.detach().clone().contiguous(), kind, data_group())
+    def forward(ctx, x, kind, group, summed):
+        ctx.kind, ctx.group, ctx.summed = kind, group, summed
+        return _sum_(x.detach().clone().contiguous(), kind, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _sum_(g.detach().clone().contiguous(), ctx.kind, data_group()), None
+        if ctx.summed:
+            g = _sum_(g.detach().clone().contiguous(), ctx.kind, ctx.group)
+        return g, None, None, None
 
 
-def all_reduce_sum(x: torch.Tensor, kind: str = "all_reduce") -> torch.Tensor:
-    """psum over the data axis, with a summed backward; ``kind`` names the
-    call in ``calls`` (forward and backward each count one)."""
-    if not data_active():
+_DATA = object()  # all_reduce_sum's default group: the data axis
+
+
+def all_reduce_sum(x: torch.Tensor, kind: str = "all_reduce", group=_DATA) -> torch.Tensor:
+    """psum over the data axis (or over ``group``), with a summed backward;
+    ``kind`` names the call in ``calls`` (forward and backward each count
+    one)."""
+    if group is _DATA:
+        if not data_active():
+            return x
+        group = data_group()
+    elif world(group) == 1:
         return x
-    return _AllReduceSum.apply(x, kind)
+    return _AllReduceSum.apply(x, kind, group, True)
+
+
+def sum_replicated(x: torch.Tensor, group, kind: str = "all_reduce") -> torch.Tensor:
+    """psum over ``group`` of a value that every rank then uses alike in one
+    loss, every rank computing that loss: the backward hands each rank's
+    part the loss's cotangent as it is (JAX's psum into an unmapped
+    ``shard_map`` output), where ``all_reduce_sum`` would hand it the sum of
+    the group's, the group's size times it. The forward counts one call."""
+    if world(group) == 1:
+        return x
+    return _AllReduceSum.apply(x, kind, group, False)
 
 
 def all_reduce_mean(x: torch.Tensor, kind: str = "all_reduce") -> torch.Tensor:
     """pmean over the data axis, with a summed backward over its size."""
     if not data_active():
         return x
-    return _AllReduceSum.apply(x, kind) / dp_world()
+    return _AllReduceSum.apply(x, kind, data_group(), True) / dp_world()
 
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:
@@ -274,3 +338,116 @@ def all_gather_flat(flat: torch.Tensor, kind: str = "all_gather_flat") -> torch.
     out = torch.empty(flat.numel() * dp_world(), dtype=flat.dtype, device=flat.device)
     tdist.all_gather_into_tensor(out, flat.detach().reshape(-1).contiguous(), group=data_group())
     return out
+
+
+# ---------------------------------------------------------------- point-to-point and all-to-all over a group
+
+def _check_perm(perm, n: int) -> tuple:
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts) or not all(0 <= r < n for r in srcs + dsts):
+        raise ValueError(f"ppermute pairs must name distinct sources and destinations among {n} ranks, got {perm}")
+    return perm
+
+
+def exchange(send: torch.Tensor | None, like: torch.Tensor, perm, group, kind: str) -> torch.Tensor | None:
+    """One step of a permutation, no gradient: for each pair (src, dst) of
+    group ranks, src sends ``send`` and dst receives a tensor shaped as
+    ``like``. Returns what this rank received, or None where no pair sends
+    to it. Every rank of the group calls it with the same pairs, in the
+    same order as its other calls; a rank in no pair returns at once."""
+    me = rank(group)
+    dst = next((d for s, d in perm if s == me), None)
+    src = next((s for s, d in perm if d == me), None)
+    if dst is None and src is None:
+        return None
+    calls[kind] += 1
+    if dst == me:  # a pair onto itself, with nothing else to move
+        return send.detach().clone()
+    # gloo's send of a CUDA tensor fails (chip_smoke.py's gloo probe): stage it through the host
+    staged = like.is_cuda and tdist.get_backend(group) == "gloo"
+    ops, buf = [], None
+    if dst is not None:
+        out = send.detach().contiguous()
+        if staged:
+            out = out.cpu()
+            calls["host_staging_copy"] += 1
+        peer = dst if group is None else tdist.get_global_rank(group, dst)
+        ops.append(tdist.P2POp(tdist.isend, out, peer, group))
+    if src is not None:
+        buf = torch.empty(like.shape, dtype=like.dtype, device="cpu" if staged else like.device)
+        peer = src if group is None else tdist.get_global_rank(group, src)
+        ops.append(tdist.P2POp(tdist.irecv, buf, peer, group))
+    for work in tdist.batch_isend_irecv(ops):
+        work.wait()
+    if buf is not None and staged:
+        buf = buf.to(like.device)
+        calls["host_staging_copy"] += 1
+    return buf
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group, kind):
+        ctx.perm, ctx.group, ctx.kind = perm, group, kind
+        got = exchange(x, x, perm, group, kind)
+        return torch.zeros_like(x) if got is None else got
+
+    @staticmethod
+    def backward(ctx, g):
+        got = exchange(g, g, tuple((d, s) for s, d in ctx.perm), ctx.group, ctx.kind)
+        return (torch.zeros_like(g) if got is None else got), None, None, None
+
+
+def ppermute(x: torch.Tensor, perm, group=None, kind: str = "ppermute") -> torch.Tensor:
+    """JAX's ``lax.ppermute`` over ``group``: for each pair (src, dst) of
+    group ranks, dst gets src's ``x``; a rank no pair sends to gets zeros.
+    Autograd-aware: the backward sends the cotangent along the inverted
+    pairs (JAX's transpose). Every rank of the group calls it with the same
+    pairs and in the same order, forward and backward; so each call's output
+    must reach the loss on every rank that calls it, or that rank's backward
+    never sends what its peers wait for. Each direction counts one call in
+    ``calls[kind]`` on a rank that sends or receives."""
+    perm = _check_perm(perm, world(group))
+    if world(group) == 1:
+        return x if perm else torch.zeros_like(x)
+    return _PPermute.apply(x, perm, group, kind)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group, kind: str) -> torch.Tensor:
+    n = world(group)
+    split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
+    if x.shape[split_dim] % n:
+        raise ValueError(f"an all-to-all over {n} ranks splits dim {split_dim} of {tuple(x.shape)} evenly")
+    calls[kind] += 1
+    chunks = x.movedim(split_dim, 0)
+    chunks = chunks.reshape(n, chunks.shape[0] // n, *chunks.shape[1:]).contiguous()
+    got = torch.empty_like(chunks)  # [n, ...]: chunk i from group rank i
+    tdist.all_to_all_single(got, chunks, group=group)
+    got = got.movedim(1, split_dim + 1)  # each chunk back in x's layout, the source rank in front
+    return torch.cat(got.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group, kind):
+        ctx.dims, ctx.group, ctx.kind = (split_dim, concat_dim), group, kind
+        return _all_to_all(x.detach(), split_dim, concat_dim, group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim, ctx.group, ctx.kind), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group=None, kind: str = "all_to_all") -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)`` over
+    ``group``: ``x`` cut into n equal chunks along ``split_dim``, chunk i
+    sent to group rank i, the n chunks received joined along
+    ``concat_dim`` in rank order. The backward is the inverse all-to-all
+    (split along ``concat_dim``, join along ``split_dim``). Gloo takes CUDA
+    tensors for ``all_to_all_single``, so nothing is staged. Each direction
+    counts one call in ``calls[kind]``."""
+    if world(group) == 1:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group, kind)

@@ -75,16 +75,6 @@ class _Copy(torch.autograd.Function):
         return _all_reduce(g, "tp_copy")
 
 
-class _Reduce(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        return _all_reduce(x, "tp_reduce")
-
-    @staticmethod
-    def backward(ctx, g):
-        return g
-
-
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
@@ -112,7 +102,7 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """The sum over the model axis; the gradient passed through as it is."""
-    return _Reduce.apply(x) if dist.tp_world() > 1 else x
+    return dist.sum_replicated(x, dist.model_group(), "tp_reduce") if dist.tp_world() > 1 else x
 
 
 def gather_from_model(x: torch.Tensor) -> torch.Tensor:

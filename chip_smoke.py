@@ -171,6 +171,22 @@ with 128).
     one fresh process's at a rank's batch (B=32), and the collectives a step
     a rank by kind.
 
+  * the parallelism library (pipeline, expert, sequence): first a probe of which gloo
+    operations take CUDA tensors, in two processes of its own
+    (all_to_all_single does; point-to-point does not, and its refusal can
+    end the process, so parallel/dist.py stages it through the host); then
+    one spawn of two gloo ranks sharing the card: AST-base pipelined over 2
+    stages (B = 8 as 4 microbatches, bf16 attention, 24 forward launches a
+    rank) against one process; the vit_block stack at AST-base's widths
+    (12 blocks, 1214 tokens, f32 attention) forward and backward through
+    the GPipe schedule (24 / 24 / 24 a rank) against the sequential stack,
+    which the planted summed output backward must fail; the Switch MoE at d
+    768, hidden 3072, E = 8, 2 x 1214 tokens a rank, at capacity 379 and 94,
+    against the dense one-process computation; 61.44 s clips through the sp
+    log-mel (one launch a rank) and the blockwise AST with ring attention
+    against world 1, and 10 s clips' sp log-mel against the one-process
+    kernel frame for frame.
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
 the attention at MAST-B's shapes and at AST-base's), serving (AudioNTT,
@@ -388,6 +404,12 @@ def main() -> int:
     # frames at 128 mels; the AudioNTT probe, 101 frames), from generators of
     # their own as well
     ast_gen, probe_gen = np.random.default_rng(2), np.random.default_rng(3)
+    # the sequence-parallel frontend's shapes (phase 46): a rank's slice plus
+    # the n_fft - hop halo, framed with center=False, of the 61.44 s clips and
+    # of the 10 s clips after pad_for_sp; from a generator of their own too
+    sp_gen, halo, unit = np.random.default_rng(4), default.n_fft - default.hop, default.hop * PAR_WORLD
+    sp_long = SP_CLIP // PAR_WORLD + halo
+    sp_10s = -(-(SP_FRAMES_CLIP + default.n_fft) // unit) * unit // PAR_WORLD + halo
     cases = [
         ("[256, 15200] hop 160", (SERVE_BATCH, CLIP), default, rng),
         ("[5, 12345] hop 160", (5, 12345), default, rng),
@@ -398,6 +420,8 @@ def main() -> int:
         (f"[{AST_BATCH}, {AST_CLIP}] 128 mels (the AST-base fine-tune)", (AST_BATCH, AST_CLIP),
          LogMelConfig(n_mels=128), ast_gen),
         ("[32, 16000] (the AudioNTT probe)", (32, 16000), default, probe_gen),
+        (f"[2, {sp_long}] center=False (sp long audio, a rank)", (2, sp_long), LogMelConfig(center=False), sp_gen),
+        (f"[2, {sp_10s}] center=False (the 10 s sp clips, a rank)", (2, sp_10s), LogMelConfig(center=False), sp_gen),
     ]
     kernel_err = 0.0
     for label, shape, cfg, gen in cases:
@@ -687,6 +711,19 @@ def main() -> int:
     slice15 = {key: shard[key] for key in ("fsdp_ssmast_launches_per_rank", "zero_ssmast_launches_per_rank",
                                            "fsdp_finetune_launches_per_rank")}
     stamp(41)
+    # phases 42-46: the parallelism library modules (pipeline, MoE, ring, sp), two gloo ranks
+    # sharing the card. Phase 42: the gloo probe (which operations take CUDA
+    # tensors; printed first); 43: AST-base pipelined over 2 stages (pp-serve)
+    # against one process; 44: the vit_block stack's forward and backward
+    # through the schedule (pp-train), the f32 gate and its planted fault;
+    # 45: the Switch MoE (ep) against the dense computation, with and
+    # without drops; 46: the 61.44 s long-audio path (sp log-mel + ring
+    # attention) against world 1, and the 10 s sp log-mel frame for frame
+    with tempfile.TemporaryDirectory() as tmp:
+        par = parallel_lib_runs(tmp, dev, card)
+    slice16 = {key: par[key] for key in ("pp_serve_launches_per_rank", "pp_train_launches_per_rank",
+                                         "sp_long_audio_launches_per_rank", "sp_frames_launches_per_rank")}
+    stamp(46)
 
     # phase 25: the kernel line
     entries = [{
@@ -707,6 +744,7 @@ def main() -> int:
         **{key: c["log_mel_fused"] for key, c in slice13.items()},
         **{key: c["log_mel_fused"] for key, c in slice14.items()},
         **{key: c["log_mel_fused"] for key, c in slice15.items()},
+        **{key: c["log_mel_fused"] for key, c in slice16.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -730,6 +768,7 @@ def main() -> int:
             **{key: c[name] for key, c in slice13.items()},
             **{key: c[name] for key, c in slice14.items()},
             **{key: c[name] for key, c in slice15.items()},
+            **{key: c[name] for key, c in slice16.items()},
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -748,6 +787,7 @@ def main() -> int:
             **{key: c[name] for key, c in slice13.items()},
             **{key: c[name] for key, c in slice14.items()},
             **{key: c[name] for key, c in slice15.items()},
+            **{key: c[name] for key, c in slice16.items()},
             "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name], ft_attn_err[name], tp_attn_err[name]),
             "ast_tp_max_abs_err": tp_attn_err[name],
             "mast_probe_max_abs_err": probe9_err[name],
@@ -771,6 +811,7 @@ def main() -> int:
             **{key: c[name] for key, c in slice13.items()},
             **{key: c[name] for key, c in slice14.items()},
             **{key: c[name] for key, c in slice15.items()},
+            **{key: c[name] for key, c in slice16.items()},
             "max_abs_err": max(rows_err[name], dispatch["max_abs_err"]) if name == "fused_rows_librosa" else rows_err[name],
             **rows_t[name],
         })
@@ -789,7 +830,8 @@ def main() -> int:
                       "data_parallel": {k: v for k, v in ddp.items() if not k.endswith("_per_rank")},
                       "tar_native": {k: v for k, v in tar_run.items() if k != "counts"}, "nccl_world_one": nccl,
                       "tensor_parallel": {k: v for k, v in tp.items() if not k.endswith(("_per_rank", "_launches"))},
-                      "sharded_state": {k: v for k, v in shard.items() if not k.endswith(("_per_rank", "_launches"))}}))
+                      "sharded_state": {k: v for k, v in shard.items() if not k.endswith(("_per_rank", "_launches"))},
+                      "parallelism_library": {k: v for k, v in par.items() if not k.endswith("_launches_per_rank")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -2028,9 +2070,12 @@ def ast_attention_checks(dev) -> dict[str, float]:
     """The attention kernels with no bias where the keys do not fit in shared
     memory (the streamed designs), f32 and bf16, against their plain
     versions: AST-base's (384, 1214, 64), equal bits twice there; a ragged
-    1500; keys one past a multiple of the 64-key chunk."""
+    1500; keys one past a multiple of the 64-key chunk; a microbatch of the
+    pipelined AST-base and of the vit_block pipeline (phases 43-44)."""
+    mb = PP_MB * PP_HEADS
     cases = [("AST-base [384, 1214, 1214] D=64", 384, 1214, 1214), ("ragged [24, 1500, 1500] D=64", 24, 1500, 1500),
-             ("64 n + 1 keys [6, 1217, 1217] D=64", 6, 1217, 1217)]
+             ("64 n + 1 keys [6, 1217, 1217] D=64", 6, 1217, 1217),
+             (f"a pipeline microbatch [{mb}, {PP_TOKENS}, {PP_TOKENS}] D=64", mb, PP_TOKENS, PP_TOKENS)]
     errs = dict.fromkeys(ATTN_KERNELS, 0.0)
     for i, (label, bh, lq, lk) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
@@ -4532,6 +4577,474 @@ def shard_runs(wav, tmp: str, dev, card) -> dict:
         "one_process_peak_gib_b32": {k: v / 2**30 for k, v in peaks.items()},
         "finetune_eval": {k: rs[0]["finetune"]["stats"][k] for k in ("mAP", "AUC", "d_prime")},
         "served_launches": served})
+    return report
+
+
+
+# ---------------------------------------------------------------- the parallelism library: pipeline, expert, sequence
+
+PAR_WORLD = 2  # gloo ranks sharing the one card (NCCL refuses two ranks on one GPU)
+PP_MICRO, PP_MB = 4, 2  # pp-serve and pp-train: B = 8 as M = 4 microbatches of 2 over PAR_WORLD stages
+PP_DEPTH, PP_WIDTH, PP_HEADS, PP_TOKENS = 12, 768, 12, 1214  # AST-base: MLP 4 x 768, 1214 tokens at 128 x 1024
+PP_SERVE_INPUT = (128, 1024)  # AST-base's published input: mels x frames
+PP_SEED = 1601
+# pp-serve keeps AST's bf16 attention operands: the pipelined forward and one
+# process run the same kernels on the same rows, but the f32 GEMMs see
+# batches of 2 against 8 and may sum in another order, which can move a bf16
+# rounding of an attention operand; so a bound well above f32 round-off
+TOL_PP_BF16 = 5e-3  # relative to max(1, max|ref|)
+TOL_PAR = 1e-5  # f32 outputs, losses, aux losses and embeddings against one process on the card, relative
+TOL_PAR_GRAD = (1e-3, 1e-5)  # each f32 gradient within 1e-3 of its own max|ref| + 1e-5 of the largest (the tp gates')
+EP_EXPERTS, EP_WIDTH, EP_HIDDEN, EP_TOKENS = 8, 768, 3072, 2 * 1214  # AST-base's FFN; 4 experts, 2 x 1214 tokens a rank
+EP_CAPACITY = {"ample": int(1.25 * EP_TOKENS / EP_EXPERTS), "drops": int(1.25 * EP_TOKENS / EP_EXPERTS) // 4}
+SP_CLIP = 983040  # 61.44 s at 16 kHz: 6144 frames, 1536 tokens; 3072 frames and 768 tokens a rank
+SP_FRAMES_CLIP = 160000  # JAX's test_sp_frontend case: 10 s clips, the default log-mel config
+GLOO_PROBE_OPS = ("all_to_all_single", "batch_isend_irecv")
+
+
+@contextlib.contextmanager
+def planted_pp_fault(fault: str | None):
+    """The pipeline's output collective with a summed backward for the block
+    (the package is not changed): every stage gets PAR_WORLD times its
+    gradient."""
+    from audiossl_tpu_torch.parallel import dist, pipeline
+
+    saved = pipeline.output_sum
+    if fault == "summed_output_backward":
+        pipeline.output_sum = lambda buffer, group: dist.all_reduce_sum(buffer, "pp_output", group)
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        pipeline.output_sum = saved
+
+
+def pp_serve_encoder(dev):
+    """AST-base at its published 128 x 1024 input (1214 tokens), seeded weights, eval."""
+    from audiossl_tpu_torch.models.ast import ASTEncoder
+
+    torch.manual_seed(PP_SEED)
+    return ASTEncoder(*PP_SERVE_INPUT, "base").eval().to(dev)
+
+
+def pp_train_block(i: int, dev):
+    """Block i of the vit_block stack at AST-base's widths, seeded, with f32
+    attention operands (the f32 gate)."""
+    from audiossl_tpu_torch.parallel.pipeline import vit_block
+
+    torch.manual_seed(PP_SEED + 1 + i)
+    return vit_block(PP_WIDTH, PP_HEADS, 4.0, attention_dtype=torch.float32).to(dev)
+
+
+def sp_model(dev):
+    """The blockwise AST at LongASTConfig's defaults (64 mels, time patch 4, D
+    192, depth 4, 3 heads) over SP_CLIP's 1536 tokens, seeded."""
+    from audiossl_tpu_torch.parallel.ring import LongASTConfig, init_long_ast_params
+
+    cfg = LongASTConfig(tokens_global=SP_CLIP // 160 // 4)
+    return init_long_ast_params(cfg, torch.Generator().manual_seed(PP_SEED + 40)).to(dev)
+
+
+def grad_errors(grads: dict, ref: dict, largest: float) -> dict[str, float]:
+    """Each gradient's max|d| over its bound (TOL_PAR_GRAD): > 1 fails."""
+    rel, floor = TOL_PAR_GRAD
+    return {k: float((grads[k] - r).abs().max()) / (rel * float(r.abs().max()) + floor * largest)
+            for k, r in ref.items()}
+
+
+def timed_phase(fn):
+    """(fn(), seconds, launches, collectives): counts from 0 around the call,
+    the host clock ending in a synchronize."""
+    from audiossl_tpu_torch.parallel import dist
+
+    torch.cuda.synchronize()
+    dist.calls.clear()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches(), dict(dist.calls)
+
+
+def pp_serve_rank(d: dict, dev) -> dict:
+    """(pp-serve) AST-base pipelined over the two ranks, eval, B = 8 as M = 4."""
+    from audiossl_tpu_torch.parallel import dist
+    from audiossl_tpu_torch.parallel.pipeline_ast import pipelined_ast_forward
+
+    _, group = dist.inner_grid(PAR_WORLD)
+    enc = pp_serve_encoder(dev)
+    x = torch.from_numpy(d["pp_serve_x"]).to(dev)
+    with torch.no_grad():
+        z, secs, counts, calls = timed_phase(lambda: pipelined_ast_forward(enc, x, PP_MICRO, group))
+    return {"z": z.cpu(), "seconds": secs, "counts": counts, "calls": calls}
+
+
+def pp_train_rank(d: dict, rank: int, dev) -> dict:
+    """(pp-train) this rank's 6 blocks of the 12, forward and backward
+    through the schedule, correct and with the planted fault; each
+    gradient's error against the one-process reference of its blocks."""
+    from audiossl_tpu_torch.parallel import dist, pipeline
+
+    _, group = dist.inner_grid(PAR_WORLD)
+    stage = pipeline.stack_stage_params(lambda i: pp_train_block(i, dev), PP_DEPTH, group)
+    x, tgt = (torch.from_numpy(d[k]).to(dev) for k in ("pp_train_x", "pp_train_tgt"))
+    ref = torch.load(d["pp_train_ref"][rank], map_location=dev, weights_only=True)
+    out = {}
+    for fault in (None, "summed_output_backward"):
+        stage.zero_grad(set_to_none=True)
+
+        def step():
+            y = pipeline.pipeline_forward(stage, list(stage.parameters()), x, group)
+            loss = ((y - tgt) ** 2).mean()
+            loss.backward()
+            return float(loss.detach())
+
+        with planted_pp_fault(fault):
+            loss, secs, counts, calls = timed_phase(step)
+        grads = {k: p.grad for k, p in stage.named_parameters()}
+        out[fault or "correct"] = {"loss": loss, "errors": grad_errors(grads, ref["grads"], d["pp_train_largest"]),
+                                   "seconds": secs, "counts": counts, "calls": calls}
+    return out
+
+
+def ep_rank(d: dict, rank: int, dev) -> dict:
+    """(ep) the Switch MoE over the two ranks (4 experts each), at each
+    capacity: this rank's output, the aux loss, the router's gradient summed
+    over the group and this rank's rows of w1's."""
+    from audiossl_tpu_torch.parallel import dist, moe
+
+    _, group = dist.inner_grid(PAR_WORLD)
+    params = {k: v.detach().to(dev, copy=True).requires_grad_() for k, v in d["ep_params"].items()}
+    x = torch.from_numpy(d["ep_x"][rank]).to(dev)
+    k = EP_EXPERTS // PAR_WORLD
+    out = {}
+    for case, cap in EP_CAPACITY.items():
+        for p in params.values():
+            p.grad = None
+
+        def step():
+            y, aux = moe.moe_apply(params, x, cap, group)
+            ((y ** 2).sum() / (EP_TOKENS * PAR_WORLD * y.shape[1]) + 0.01 * aux).backward()
+            moe.sum_router_grad_(params["router"], group)
+            return y.detach(), float(aux.detach())
+
+        (y, aux), secs, counts, calls = timed_phase(step)
+        out[case] = {"out": y.cpu(), "aux": aux, "router": params["router"].grad.cpu(),
+                     "w1": params["w1"].grad[rank * k:(rank + 1) * k].cpu(), "seconds": secs, "counts": counts,
+                     "calls": calls}
+    return out
+
+
+def sp_rank(d: dict, rank: int, dev) -> dict:
+    """(sp) the 61.44 s clips through long_audio_forward over the two ranks,
+    the ranks' mean gradient of sum(emb^2); then the 10 s clips' sp log-mel
+    block of this rank."""
+    from audiossl_tpu_torch.frontend import sp
+    from audiossl_tpu_torch.frontend.stft import LogMelConfig
+    from audiossl_tpu_torch.parallel import dist, ring
+
+    _, group = dist.inner_grid(PAR_WORLD)
+    model = sp_model(dev)
+    wave = torch.from_numpy(d["sp_wave"]).to(dev).chunk(PAR_WORLD, dim=1)[rank].contiguous()
+    emb, secs, counts, calls = timed_phase(lambda: ring.long_audio_forward(model, wave, LogMelConfig(center=False),
+                                                                           group))
+    (emb * emb).sum().backward()
+    grads = {k: (dist.all_reduce_sum(p.grad, "sp_grad_mean", group) / PAR_WORLD).cpu()
+             for k, p in model.named_parameters()}
+    cfg = LogMelConfig()
+    padded = sp.pad_for_sp(torch.from_numpy(d["sp_frames_wave"]).to(dev), cfg, PAR_WORLD)
+    local = padded.chunk(PAR_WORLD, dim=1)[rank].contiguous()
+    block, fsecs, fcounts, fcalls = timed_phase(lambda: sp.sp_log_mel_local(local, cfg, group))
+    return {"emb": emb.detach().cpu(), "grads": grads, "seconds": secs, "counts": counts, "calls": calls,
+            "frames": block.cpu(), "frames_seconds": fsecs, "frames_counts": fcounts, "frames_calls": fcalls}
+
+
+def gloo_probe_ops(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of the gloo probe on the card: each operation the new
+    helpers use, on CUDA tensors, its verdict written after each. A refused
+    send may end the process (gloo throws on its own thread: SIGABRT), so
+    the point-to-point goes last and the op being tried is written first."""
+    import torch.distributed as tdist
+
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + 100 * rank
+    res, peer, path = {}, 1 - rank, os.path.join(out_dir, f"probe{rank}.json")
+    for op in GLOO_PROBE_OPS:
+        with open(path, "w") as f:
+            json.dump({**res, "trying": op}, f)
+        out = torch.empty_like(x)
+        try:
+            if op == "all_to_all_single":
+                tdist.all_to_all_single(out, x)
+                want = torch.cat([torch.arange(4) + 4 * rank, torch.arange(4) + 4 * rank + 100]).float()
+            else:
+                for work in tdist.batch_isend_irecv([tdist.P2POp(tdist.isend, x, peer), tdist.P2POp(tdist.irecv, out, peer)]):
+                    work.wait()
+                want = torch.arange(8).float() + 100 * peer
+            torch.cuda.synchronize()
+            res[op] = "native" if torch.equal(out.cpu(), want) else "wrong values"
+        except RuntimeError as e:  # the probe's question: does gloo take a CUDA tensor here
+            res[op] = "refused: " + str(e).strip().splitlines()[0][-200:]
+        with open(path, "w") as f:
+            json.dump(res, f)
+        if res[op] != "native":
+            break
+    os._exit(0)  # no teardown of a group that a refused send may have broken
+
+
+def gloo_probe(tmp: str, card) -> dict[str, str]:
+    """Phase 42: which operations of the new helpers gloo takes on CUDA
+    tensors, two fresh processes on the card (a refused send may end them),
+    60 s at most. Raises where gloo refuses an operation that
+    parallel/dist.py sends natively."""
+    import multiprocessing
+
+    sub = os.path.join(tmp, "gloo_probe")
+    os.makedirs(sub)
+    ctx, port = multiprocessing.get_context("spawn"), free_port()
+    procs = [ctx.Process(target=gloo_probe_ops, args=(r, PAR_WORLD, port, sub)) for r in range(PAR_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + 60
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    verdicts: dict[str, list[str]] = {op: [] for op in GLOO_PROBE_OPS}
+    for r, p in enumerate(procs):
+        path = os.path.join(sub, f"probe{r}.json")
+        res = json.load(open(path)) if os.path.exists(path) else {"trying": GLOO_PROBE_OPS[0]}
+        if "trying" in res:  # the process ended (or hung) inside it
+            res[res.pop("trying")] = f"refused: the process ended with exit code {p.exitcode}"
+        for op, v in res.items():
+            verdicts[op].append(f"rank {r} {v}")
+    probe = {op: "native" if v and all(x.endswith(" native") for x in v) else "; ".join(v) or "not reached"
+             for op, v in verdicts.items()}
+    print(f"[{card}] gloo probe on CUDA tensors, two ranks on this card (torch {torch.__version__}): "
+          + "; ".join(f"{op}: {v}" for op, v in probe.items())
+          + "; parallel/dist.py stages point-to-point through the host, sends all_to_all_single natively")
+    if probe["all_to_all_single"] != "native":
+        raise RuntimeError(f"gloo does not take CUDA tensors for all_to_all_single ({probe['all_to_all_single']}), "
+                           "which parallel/dist.py sends natively")
+    return probe
+
+
+def par_rank(rank: int, world: int, port: int, in_path: str, out_dir: str) -> None:
+    """One gloo rank on the one card: pp-serve, pp-train (with its fault),
+    ep and sp, results to ``out_dir/rank<r>.pt``."""
+    sys.path.insert(0, ROOT)
+    logging.basicConfig(level=logging.WARNING)
+    d = torch.load(in_path, weights_only=False)
+    dev = torch.device(d["device"])
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    try:  # the kernels load from the parent's build at first launch
+        t0 = time.perf_counter()
+        out = {"pp_serve": pp_serve_rank(d, dev), "pp_train": pp_train_rank(d, rank, dev), "ep": ep_rank(d, rank, dev),
+               "sp": sp_rank(d, rank, dev)}
+        out["seconds"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def ep_reference(params: dict, xs: list, cap: int, dev) -> dict:
+    """The MoE as one process computes it densely: each token's top-1 expert
+    FFN scaled by its gate, a token past its source rank's capacity for its
+    expert dropped; the aux loss over all tokens; the gradients of
+    sum(out^2) / (N d) + 0.01 aux."""
+    import torch.nn.functional as F
+
+    p = {k: v.detach().to(dev, copy=True).requires_grad_() for k, v in params.items()}
+    outs, onehots, probs_all, dropped = [], [], [], 0
+    for x in xs:
+        x = torch.from_numpy(x).to(dev)
+        probs = torch.softmax(x @ p["router"], dim=-1)
+        gate, expert = probs.max(dim=-1)
+        onehot = F.one_hot(expert, EP_EXPERTS).float()
+        pos = (torch.cumsum(onehot, 0) - onehot).gather(1, expert[:, None])[:, 0]
+        kept = pos < cap
+        dropped += int((~kept).sum())
+        out = torch.zeros_like(x)
+        for e in range(EP_EXPERTS):
+            idx = torch.nonzero((expert == e) & kept).squeeze(1)
+            h = F.gelu(x[idx] @ p["w1"][e] + p["b1"][e]) @ p["w2"][e] + p["b2"][e]
+            out = out.index_put((idx,), gate[idx, None] * h)
+        outs.append(out)
+        onehots.append(onehot)
+        probs_all.append(probs)
+    n = sum(len(x) for x in xs)
+    aux = EP_EXPERTS * torch.sum(torch.cat(onehots).sum(0) / n * (torch.cat(probs_all).sum(0) / n))
+    loss = sum((o ** 2).sum() for o in outs) / (n * outs[0].shape[1]) + 0.01 * aux
+    loss.backward()
+    return {"outs": [o.detach().cpu() for o in outs], "aux": float(aux.detach()), "router": p["router"].grad.cpu(),
+            "w1": p["w1"].grad.cpu(), "dropped": dropped}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def parallel_lib_runs(tmp: str, dev, card) -> dict:
+    """Phases 42-46: the parallelism library modules (pipeline, pipelined
+    AST, MoE, ring and sp), two gloo ranks sharing the card. The gloo probe
+    first, in processes of its own; the parent makes every one-process
+    reference on the card; then one spawn of PAR_WORLD ranks runs the four
+    paths. Checks each path against its reference, the launches a rank and
+    the planted fault."""
+    from audiossl_tpu_torch.frontend.fused_stft import log_mel_fused
+    from audiossl_tpu_torch.frontend.stft import LogMelConfig
+    from audiossl_tpu_torch.parallel import dist, ring
+    from audiossl_tpu_torch.parallel.moe import init_moe_params
+
+    probe = gloo_probe(tmp, card)
+    t_refs = time.perf_counter()
+    rng = np.random.default_rng(PP_SEED)
+    d = {"device": str(dev), "pp_serve_x": rng.standard_normal((PP_MICRO * PP_MB, 1, *PP_SERVE_INPUT)).astype(np.float32),
+         "pp_train_x": (0.5 * rng.standard_normal((PP_MICRO, PP_MB, PP_TOKENS, PP_WIDTH))).astype(np.float32),
+         "pp_train_tgt": rng.standard_normal((PP_MICRO, PP_MB, PP_TOKENS, PP_WIDTH)).astype(np.float32),
+         "ep_params": init_moe_params(EP_WIDTH, EP_HIDDEN, EP_EXPERTS, torch.Generator().manual_seed(PP_SEED + 20)),
+         "ep_x": [(0.7 * rng.standard_normal((EP_TOKENS, EP_WIDTH))).astype(np.float32) for _ in range(PAR_WORLD)],
+         "sp_wave": (0.3 * rng.standard_normal((2, SP_CLIP))).astype(np.float32),
+         "sp_frames_wave": (0.3 * rng.standard_normal((2, SP_FRAMES_CLIP))).astype(np.float32)}
+    # pp-serve: one process's AST-base on the whole batch
+    with torch.no_grad():
+        serve_ref = pp_serve_encoder(dev)(torch.from_numpy(d["pp_serve_x"]).to(dev)).cpu()
+    # pp-train: the sequential stack in one process on the whole batch; each stage's blocks' gradients to a file
+    blocks = [pp_train_block(i, dev) for i in range(PP_DEPTH)]
+    x = torch.from_numpy(d["pp_train_x"]).to(dev)
+    y = x.reshape(-1, *x.shape[2:])
+    for blk in blocks:
+        y = blk(y)
+    loss_ref = ((y.reshape(x.shape) - torch.from_numpy(d["pp_train_tgt"]).to(dev)) ** 2).mean()
+    loss_ref.backward()
+    per = PP_DEPTH // PAR_WORLD
+    d["pp_train_largest"] = max(float(p.grad.abs().max()) for blk in blocks for p in blk.parameters())
+    d["pp_train_ref"] = []
+    for s in range(PAR_WORLD):
+        path = os.path.join(tmp, f"pp_train_ref{s}.pt")
+        torch.save({"grads": {f"{j}.{n}": p.grad.cpu() for j in range(per)
+                              for n, p in blocks[s * per + j].named_parameters()}}, path)
+        d["pp_train_ref"].append(path)
+    del blocks, x, y
+    loss_ref = float(loss_ref.detach())
+    # ep: the dense one-process MoE at each capacity
+    ep_ref = {case: ep_reference(d["ep_params"], d["ep_x"], cap, dev) for case, cap in EP_CAPACITY.items()}
+    # sp: world 1 (one shard: the whole clips, one log-mel launch, one ring step) and the one-process kernel
+    model = sp_model(dev)
+    emb_ref = ring.long_audio_forward(model, torch.from_numpy(d["sp_wave"]).to(dev), LogMelConfig(center=False))
+    (emb_ref * emb_ref).sum().backward()
+    sp_grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    emb_ref = emb_ref.detach().cpu()
+    frames_ref = log_mel_fused(torch.from_numpy(d["sp_frames_wave"]).to(dev), LogMelConfig()).cpu()
+    torch.cuda.synchronize()
+    t_refs = time.perf_counter() - t_refs
+
+    sub = os.path.join(tmp, "parallel_lib")
+    os.makedirs(sub)
+    torch.save(d, os.path.join(sub, "in.pt"))
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(par_rank, args=(PAR_WORLD, free_port(), os.path.join(sub, "in.pt"), sub),
+                                nprocs=PAR_WORLD, join=True)
+    t_spawn = time.perf_counter() - t0
+    rs = [torch.load(os.path.join(sub, f"rank{r}.pt"), weights_only=False) for r in range(PAR_WORLD)]
+
+    failures, report = [], {"gloo_probe": probe, "references_seconds": t_refs, "spawn_seconds": t_spawn}
+
+    # phase 43: pp-serve
+    for r, res in enumerate(rs):
+        ps = res["pp_serve"]
+        err = rel_err(ps["z"], serve_ref)
+        expect_counts(f"pp-serve, rank {r}", ps["counts"], {"rel_attention_fwd": PP_MICRO * PP_DEPTH // PAR_WORLD})
+        print(f"[{card}] pp-serve: AST-base ({PP_DEPTH} blocks, {PP_TOKENS} tokens, seeded) pipelined over {PAR_WORLD} stages, B = "
+              f"{PP_MICRO * PP_MB} as {PP_MICRO} microbatches, bf16 attention, rank {r}: {ps['seconds']:.3f} s; "
+              f"against one process {err:.3e} (bound {TOL_PP_BF16}); launches {ps['counts']}; collectives "
+              f"{ps['calls']}")
+        report[f"pp_serve_rel_err_rank{r}"] = err
+        if not err <= TOL_PP_BF16:
+            failures.append(f"pp-serve rank {r}: {err:.3e} from one process")
+    # phase 44: pp-train, the f32 gate and the planted fault
+    for r, res in enumerate(rs):
+        for case, pt in res["pp_train"].items():
+            lerr = abs(pt["loss"] - loss_ref) / abs(loss_ref)
+            worst = max(pt["errors"], key=pt["errors"].get)
+            caught = lerr > TOL_PAR or pt["errors"][worst] > 1.0
+            print(f"[{card}] pp-train f32: the vit_block stack ({PP_DEPTH} blocks, D {PP_WIDTH}, {PP_TOKENS} tokens) over "
+                  f"{PAR_WORLD} stages, M = {PP_MICRO} of {PP_MB}, forward and backward, rank {r}, {case}: "
+                  f"{pt['seconds']:.3f} s; loss rel {lerr:.2e} (bound {TOL_PAR}); worst gradient {worst} at "
+                  f"{pt['errors'][worst]:.3e} of its bound; " + ("fails the gate" if caught else "passes the gate")
+                  + f"; launches {pt['counts']}; collectives {pt['calls']}")
+            report[f"pp_train_rank{r}_{case}"] = {"loss_rel": lerr, "worst_grad_of_bound": pt["errors"][worst]}
+            if case == "correct":
+                if caught:
+                    failures.append(f"pp-train rank {r} strays from one process: loss {lerr:.2e}, {worst}")
+                n = PP_MICRO * PP_DEPTH // PAR_WORLD
+                expect_counts(f"pp-train, rank {r}", pt["counts"], {name: n for name in ATTN_KERNELS})
+            elif not caught:
+                failures.append(f"the pp-train gate does not catch {case} on rank {r}")
+    # phase 45: ep
+    for case, ref in ep_ref.items():
+        for r, res in enumerate(rs):
+            e = res["ep"][case]
+            k = EP_EXPERTS // PAR_WORLD
+            largest = max(float(ref["router"].abs().max()), float(ref["w1"].abs().max()))
+            errs = {"out": rel_err(e["out"], ref["outs"][r]), "aux": abs(e["aux"] - ref["aux"]) / abs(ref["aux"]),
+                    **{g: max(grad_errors({g: e[g]}, {g: want}, largest).values()) for g, want in
+                       (("router", ref["router"]), ("w1", ref["w1"][r * k:(r + 1) * k]))}}
+            print(f"[{card}] ep f32: the Switch MoE (d {EP_WIDTH}, hidden {EP_HIDDEN}, E = {EP_EXPERTS}, {k} a rank, "
+                  f"{EP_TOKENS} tokens a rank, capacity {EP_CAPACITY[case]}: {ref['dropped']} of "
+                  f"{EP_TOKENS * PAR_WORLD} tokens dropped), rank {r}: {e['seconds']:.3f} s; out {errs['out']:.2e}, aux "
+                  f"{errs['aux']:.2e} (bound {TOL_PAR}); router and w1 gradients at {errs['router']:.3e} and "
+                  f"{errs['w1']:.3e} of their bounds; collectives {e['calls']}; launches {e['counts']}")
+            report[f"ep_{case}_rank{r}"] = {**errs, "dropped": ref["dropped"]}
+            if errs["out"] > TOL_PAR or errs["aux"] > TOL_PAR or errs["router"] > 1.0 or errs["w1"] > 1.0:
+                failures.append(f"ep {case} rank {r} strays from the dense computation: {errs}")
+            expect_counts(f"ep {case}, rank {r}", e["counts"], {})
+    if ep_ref["drops"]["dropped"] == 0:
+        failures.append("the ep case with drops dropped no token")
+    # phase 46: sp
+    largest = max(float(g.abs().max()) for g in sp_grads.values())
+    frames = torch.cat([res["sp"]["frames"] for res in rs], dim=2)[..., :frames_ref.shape[-1]]
+    ferr = float((frames - frames_ref).abs().max())
+    for r, res in enumerate(rs):
+        spr = res["sp"]
+        eerr = rel_err(spr["emb"], emb_ref)
+        gerr = grad_errors(spr["grads"], sp_grads, largest)
+        worst = max(gerr, key=gerr.get)
+        print(f"[{card}] sp f32: long_audio_forward on {SP_CLIP / 16000:.2f} s clips, B = 2, over {PAR_WORLD} ranks "
+              f"({SP_CLIP // PAR_WORLD} samples, {SP_CLIP // PAR_WORLD // 160} frames, {SP_CLIP // PAR_WORLD // 640} "
+              f"tokens a rank), rank {r}: forward {spr['seconds']:.3f} s; embeddings {eerr:.2e} (bound {TOL_PAR}); the "
+              f"ranks' mean gradient: worst {worst} at {gerr[worst]:.3e} of its bound; launches {spr['counts']}; "
+              f"collectives {spr['calls']}")
+        report[f"sp_rank{r}"] = {"emb_rel": eerr, "worst_grad_of_bound": gerr[worst]}
+        if eerr > TOL_PAR or gerr[worst] > 1.0:
+            failures.append(f"sp rank {r} strays from world 1: embeddings {eerr:.2e}, {worst}")
+        expect_counts(f"sp long audio, rank {r}", spr["counts"], {"log_mel_fused": 1})
+        expect_counts(f"sp frames, rank {r}", spr["frames_counts"], {"log_mel_fused": 1})
+    print(f"[{card}] sp frames: {SP_FRAMES_CLIP / 16000:.0f} s clips (the default config) padded and split over "
+          f"{PAR_WORLD} ranks, the blocks joined and cut to {frames_ref.shape[-1]} frames, against the one-process "
+          f"kernel on the whole clips: max|d| {ferr:.3e} (bound {TOL_KERNEL}); "
+          + ("bit for bit equal" if ferr == 0.0 else "not bit for bit equal"))
+    report.update(sp_frames_max_abs=ferr, sp_frames_bit_equal=ferr == 0.0)
+    if not ferr <= TOL_KERNEL:
+        failures.append(f"the sp log-mel blocks are {ferr:.3e} from the one-process kernel")
+    print(f"parallelism library: references in one process {t_refs:.1f} s; {PAR_WORLD} gloo ranks on this card, spawn "
+          f"and every path {t_spawn:.1f} s (the paths {max(res['seconds'] for res in rs):.1f} s a rank)")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    report.update({"pp_serve_launches_per_rank": rs[0]["pp_serve"]["counts"],
+                   "pp_train_launches_per_rank": rs[0]["pp_train"]["correct"]["counts"],
+                   "sp_long_audio_launches_per_rank": rs[0]["sp"]["counts"],
+                   "sp_frames_launches_per_rank": rs[0]["sp"]["frames_counts"],
+                   "seconds_per_rank": {k: [res[k]["seconds"] if k != "pp_train" else res[k]["correct"]["seconds"]
+                                            for res in rs] for k in ("pp_serve", "pp_train", "sp")},
+                   "host_staging_copies_per_rank": {k: rs[0][k]["calls"].get("host_staging_copy", 0)
+                                                    for k in ("pp_serve", "sp")}})
     return report
 
 

@@ -941,3 +941,88 @@ def test_sharded_state_f32_gates_on_the_card(cuda, tmp_path):
     finally:
         pmast.VARIANTS.clear()
         pmast.VARIANTS.update(saved)
+
+
+# ---------------------------------------------------------------- pipeline and sequence parallelism
+
+
+@pytest.fixture(scope="module")
+def parallel_lib_ranks(tmp_path_factory):
+    """One spawn of two gloo ranks sharing the card (gloo refuses CUDA
+    tensors for send / recv, so the pipeline's and the halo's exchanges are
+    staged through the host): the pipeline at 2 stages, correct and with
+    the planted summed output backward, and the sp log-mel of 10 s clips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tests import torch_parallel_lib_worker as worker
+
+    rng = np.random.default_rng(0)
+    pp = {"stages": 2, "heads": 3, "blocks": worker.jax_vit_blocks(4, 192, rng), "attention_f32": True,
+          "x": (0.5 * rng.standard_normal((4, 1, 1214, 192))).astype(np.float32),
+          "tgt": rng.standard_normal((4, 1, 1214, 192)).astype(np.float32)}
+    inputs = {"pp": pp, "pp fault": {**pp, "fault": "summed_output_backward"},
+              "sp": {"wave": (0.3 * rng.standard_normal((2, 160000))).astype(np.float32)}}
+    tmp = tmp_path_factory.mktemp("parallel_lib")
+    torch.save(inputs, str(tmp / "in.pt"))
+    torch.multiprocessing.spawn(worker.run_on_card, args=(2, f"file://{tmp / 'rendezvous'}", str(tmp / "in.pt"), str(tmp)),
+                                nprocs=2, join=True)
+    return inputs, [torch.load(str(tmp / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+
+
+def test_pipeline_f32_gate_on_the_card(cuda, parallel_lib_ranks):
+    """A 4-block vit_block stack at AST-tiny's width (192, 3 heads) over
+    1214 tokens (the streamed f32 attention kernels) in 2 stages, M = 4
+    microbatches of 1, against the sequential stack in one process on the
+    card: the loss 1e-5 relative, each gradient within 1e-3 of its own
+    max|ref| + 1e-5 of the largest, the input's gradient 1e-3 of its max;
+    each rank launches each attention kernel 2 blocks x 4 microbatches = 8
+    times and exchanges at 4 ticks each way, each staged through the host
+    (one copy a tick: down where it sends, up where it receives); the
+    planted summed output backward (twice each gradient) fails the bound."""
+    from tests import torch_parallel_lib_worker as worker
+
+    inputs, ranks = parallel_lib_ranks
+    pp = inputs["pp"]
+    blocks = worker.vit_blocks(pp, range(4), cuda)
+    x = torch.from_numpy(pp["x"]).to(cuda).requires_grad_()
+    y = x.reshape(-1, *x.shape[2:])
+    for blk in blocks:
+        y = blk(y)
+    loss = ((y.reshape(x.shape) - torch.from_numpy(pp["tgt"]).to(cuda)) ** 2).mean()
+    loss.backward()
+    loss = loss.item()
+    want = {f"{i}.{n}": p.grad.cpu().numpy() for i, blk in enumerate(blocks) for n, p in blk.named_parameters()}
+    largest = max(float(np.abs(g).max()) for g in want.values())
+
+    def far(got, r):
+        return [n for n, g in got.items()
+                if not np.abs(g - want[f"{2 * r + int(n.split('.')[0])}.{n.split('.', 1)[1]}"]).max()
+                <= 1e-3 * np.abs(want[f"{2 * r + int(n.split('.')[0])}.{n.split('.', 1)[1]}"]).max() + 1e-5 * largest]
+
+    for r, res in enumerate(ranks):
+        out = res["pp"]
+        assert abs(out["loss"] - loss) <= 1e-5 * abs(loss)
+        assert not far(out["grads"], r), r
+        dx = x.grad.cpu().numpy()
+        assert np.abs(out["dx"] - dx).max() <= 1e-3 * np.abs(dx).max()
+        assert out["launches"] == [8, 8, 8, 0]
+        assert out["calls"]["pp_permute"] == 8 and out["calls"]["host_staging_copy"] == 8
+        assert len(far(res["pp fault"]["grads"], r)) == len(out["grads"]), r
+
+
+def test_sp_log_mel_frames_on_the_card(cuda, parallel_lib_ranks):
+    """10 s clips (the default config) padded by pad_for_sp and split over
+    the two ranks: each rank's block from one log-mel launch on its slice
+    and the halo; joined and cut to sp_num_frames, within the kernel's 1e-3
+    of the one-process kernel on the whole clips (each frame reads the same
+    samples, so the bits are expected equal)."""
+    from audiossl_tpu_torch.frontend.sp import sp_num_frames
+
+    inputs, ranks = parallel_lib_ranks
+    wave = torch.from_numpy(inputs["sp"]["wave"]).to(cuda)
+    want = fused_stft.log_mel_fused(wave, LogMelConfig()).cpu().numpy()
+    got = np.concatenate([r["sp"]["out"] for r in ranks], axis=2)[..., :sp_num_frames(LogMelConfig(), 160000)]
+    assert got.shape == want.shape == (2, 64, 1001)
+    assert np.abs(got - want).max() <= 1e-3
+    for r in ranks:
+        assert r["sp"]["launches"] == [0, 0, 0, 1] and r["sp"]["calls"]["sp_halo"] == 1

@@ -21,7 +21,6 @@ Tolerances, each relative to max(1, max|ref|) unless said otherwise:
 import copy
 import functools
 import os
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -386,12 +385,6 @@ def _kmeans_inputs():
     return {"emb": emb, "idx": idx, "n_total": 40, "k": KM_K, "pick": pick, "iters": 10}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Both gloo ranks' results of every check (one spawn); while they run,
@@ -401,7 +394,7 @@ def ranks(tmp_path_factory):
     env = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",)}
     os.environ["OMP_NUM_THREADS"] = "1"
     try:
-        ctx = torch.multiprocessing.spawn(worker.run, args=(WORLD, _free_port(), str(d / "inputs.pt"), str(d)),
+        ctx = torch.multiprocessing.spawn(worker.run, args=(WORLD, f"file://{d / 'rendezvous'}", str(d / "inputs.pt"), str(d)),
                                           nprocs=WORLD, join=False)
     finally:
         for k, v in env.items():

@@ -42,7 +42,6 @@ import concurrent.futures
 import copy
 import functools
 import os
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -260,12 +259,6 @@ def _inputs(d, ft_data):
                                                       "save_path": str(d / "ft_fault")}}}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory, data):  # noqa: F811 (the fine-tune's data fixture)
     """Every rank's results of every check, both spawns at once; while they
@@ -282,7 +275,7 @@ def ranks(tmp_path_factory, data):  # noqa: F811 (the fine-tune's data fixture)
             sub.mkdir()
             torch.save(checks, str(sub / "inputs.pt"))
             ctxs[name] = torch.multiprocessing.spawn(
-                worker.run, args=(WORLD, _free_port(), str(sub / "inputs.pt"), str(sub)), nprocs=WORLD, join=False)
+                worker.run, args=(WORLD, f"file://{sub / 'rendezvous'}", str(sub / "inputs.pt"), str(sub)), nprocs=WORLD, join=False)
     finally:
         os.environ.pop("OMP_NUM_THREADS") if saved is None else os.environ.__setitem__("OMP_NUM_THREADS", saved)
     try:  # JAX's trainer installs a signal handler: it runs in this thread, the other references beside it

@@ -81,6 +81,20 @@ def test_clustering_family_is_scanned_and_needs_no_sklearn():
     assert not bad, bad
 
 
+def test_parallelism_library_modules_are_scanned():
+    """The pipeline, pipelined AST, MoE, ring and sequence-parallel modules
+    are among the scanned files (so none of them imports JAX), and each
+    port file of the slice names its JAX counterpart, which exists."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    family = ["parallel/pipeline.py", "parallel/pipeline_ast.py", "parallel/moe.py", "parallel/ring.py",
+              "frontend/sp.py"]
+    assert {os.path.join("audiossl_tpu_torch", m) for m in family} <= files
+    for m in family:
+        assert os.path.exists(os.path.join(ROOT, "audiossl_tpu", m)), m
+        with open(os.path.join(ROOT, "audiossl_tpu_torch", m)) as f:
+            assert "audiossl_tpu." + m[:-3].replace("/", ".") in f.read(), m
+
+
 def test_importing_the_port_loads_no_jax():
     mods = [
         "audiossl_tpu_torch." + os.path.relpath(p, os.path.join(ROOT, "audiossl_tpu_torch"))[:-3].replace(os.sep, ".")

@@ -38,7 +38,6 @@ import copy
 import dataclasses
 import functools
 import os
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -233,12 +232,6 @@ def _inputs(d):
                 **{f"ssmast_{fault}": {**ss, "fault": fault} for fault in ("sum_backward_reduce", "world_grad_mean")}}}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every rank's results of every check, both worlds spawned at once;
@@ -255,7 +248,7 @@ def ranks(tmp_path_factory):
             sub.mkdir()
             torch.save(inputs[world], str(sub / "inputs.pt"))
             ctxs[world] = torch.multiprocessing.spawn(
-                worker.run, args=(world, tp, _free_port(), str(sub / "inputs.pt"), str(sub)), nprocs=world, join=False)
+                worker.run, args=(world, tp, f"file://{sub / 'rendezvous'}", str(sub / "inputs.pt"), str(sub)), nprocs=world, join=False)
     finally:
         for k, v in env.items():
             os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)

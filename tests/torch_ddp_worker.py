@@ -226,7 +226,7 @@ def run_on_card(rank: int, world: int, port: int, in_path: str, out_dir: str) ->
         torch.distributed.destroy_process_group()
 
 
-def run(rank: int, world: int, port: int, in_path: str, out_dir: str) -> None:
+def run(rank: int, world: int, init: str, in_path: str, out_dir: str) -> None:
     """One gloo rank: every check on its share, the results and the
     collective counts of each check to ``out_dir/rank<r>.pt``."""
     from audiossl_tpu_torch.models import mast as pmast
@@ -234,7 +234,7 @@ def run(rank: int, world: int, port: int, in_path: str, out_dir: str) -> None:
 
     torch.set_num_threads(1)
     pmast.VARIANTS["tiny"] = lambda **kw: MViTConfig._variant(4, 0.1, (1, 2, 3), kw)  # MAST tiny cut to 4 blocks
-    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    torch.distributed.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     try:
         inputs = torch.load(in_path, weights_only=False)
         out = {}

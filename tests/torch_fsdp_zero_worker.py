@@ -261,12 +261,12 @@ def run_on_card(rank: int, world: int, port: int, in_path: str, out_dir: str) ->
         torch.distributed.destroy_process_group()
 
 
-def run(rank: int, world: int, port: int, in_path: str, out_dir: str) -> None:
+def run(rank: int, world: int, init: str, in_path: str, out_dir: str) -> None:
     """One gloo rank: every check in the inputs, its results and collective
     counts to ``out_dir/rank<r>.pt``."""
     torch.set_num_threads(1)
     cut_tiny()
-    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    torch.distributed.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     try:
         inputs = torch.load(in_path, weights_only=False)
         out = {}

@@ -264,12 +264,12 @@ def run_on_card(rank: int, world: int, port: int, in_path: str, out_dir: str) ->
         torch.distributed.destroy_process_group()
 
 
-def run(rank: int, world: int, tp: int, port: int, in_path: str, out_dir: str) -> None:
+def run(rank: int, world: int, tp: int, init: str, in_path: str, out_dir: str) -> None:
     """One gloo rank of a (world // tp) x tp grid: every check in the inputs,
     its results and collective counts to ``out_dir/rank<r>.pt``."""
     torch.set_num_threads(1)
     cut_tiny()
-    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    torch.distributed.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     try:
         inputs = torch.load(in_path, weights_only=False)
         dist.set_tp(tp)
