@@ -1,13 +1,16 @@
 // Spectrogram rows on Hopper: frame rows -> window -> zero-pad to N ->
-// |real DFT|^2 -> mel over each filter's nonzero bins -> log, in one of two
-// log modes.
+// |real DFT|^2 -> mel over each filter's nonzero bins -> log, in one of three
+// modes (the launch's `mode`: kModeKaldi, kModeLibrosa, kModeKaldiMagnitude).
 //
 // Replaces the TPU kernel audiossl_tpu/frontend/pallas_stft.py _fused_rows
 // (pallas_call at :137, body _kernel at :80), which two functions reach:
 //   kaldi_fbank_fused (:533), log mode "kaldi":   log(max(mel(power), EPS32)),
 //     rows of 400 samples after DC removal and preemphasis, the symmetric
 //     Hanning window, zero-padded to a 512-point real DFT, Kaldi mel banks
-//     with the Nyquist column;
+//     with the Nyquist column; with use_power=False (kModeKaldiMagnitude)
+//     the magnitude sqrt(power) goes into the mel product, as the plain
+//     kaldi_fbank does (audiossl_tpu/frontend/fbank.py:118-119; the TPU
+//     kernel ignores the flag and always takes the power);
 //   log_mel_fused (:99), log mode "librosa": log(mel(power + EPS64) + EPS32),
 //     rows of n_fft samples, the periodic Hann (centred in n_fft).
 // Framing, DC removal and preemphasis run in plain torch before the kernel,
@@ -72,6 +75,9 @@ namespace {
 
 constexpr float kEps64 = 2.220446049250313e-16f;    // np.finfo(np.float64).eps
 constexpr float kEps32 = 1.1920928955078125e-07f;   // np.finfo(np.float32).eps
+constexpr int kModeKaldi = 0;                        // log(max(mel(power), EPS32))
+constexpr int kModeLibrosa = 1;                      // log(mel(power + EPS64) + EPS32)
+constexpr int kModeKaldiMagnitude = 2;               // log(max(mel(sqrt(power)), EPS32))
 constexpr int kMaxThreads = 544;                     // 17 warps: one thread per bin up to 544 bins
 constexpr int kSmemLimit = 232448;                   // 227 KB per block on sm_90
 constexpr int kFftWarps = 8;                         // rows in flight per block of the FFT kernel
@@ -91,7 +97,7 @@ __host__ __device__ inline int fft_smem_bytes(int win, int n, int nnz, int n_mel
 __global__ void __launch_bounds__(32 * kFftWarps)
 fft_rows_kernel(const float* __restrict__ frames, int rows, int win, int n, int n_mels, int nnz, int vec,
                 const float* __restrict__ window, const float2* __restrict__ twiddle, const float* __restrict__ fbp,
-                const int* __restrict__ mel_range, const int* __restrict__ mel_off, int librosa, int n_dense,
+                const int* __restrict__ mel_range, const int* __restrict__ mel_off, int mode, int n_dense,
                 const float* __restrict__ dense_pw, float* __restrict__ out) {
     extern __shared__ __align__(16) float smem[];
     const int m = n / 2;
@@ -148,9 +154,12 @@ fft_rows_kernel(const float* __restrict__ frames, int rows, int win, int n, int 
             const float* w = fw + mr[3 * i + 2] - lo;
             float acc = 0.0f;
             float v;
-            if (librosa) {
+            if (mode == kModeLibrosa) {
                 for (int k = lo; k < hi; ++k) acc = fmaf(w[k], pw[k] + kEps64, acc);
                 v = logf(acc + kEps32);
+            } else if (mode == kModeKaldiMagnitude) {
+                for (int k = lo; k < hi; ++k) acc = fmaf(w[k], sqrtf(pw[k]), acc);
+                v = logf(fmaxf(acc, kEps32));
             } else {
                 for (int k = lo; k < hi; ++k) acc = fmaf(w[k], pw[k], acc);
                 v = logf(fmaxf(acc, kEps32));
@@ -170,7 +179,7 @@ template <int R>
 __global__ void __launch_bounds__(kMaxThreads)
 dense_rows_kernel(const float* __restrict__ frames, int rows, int win, int n_bins, int n_mels,
                   const float* __restrict__ bank, const float* __restrict__ fb,
-                  const int* __restrict__ mel_range, int librosa, float* __restrict__ out) {
+                  const int* __restrict__ mel_range, int mode, float* __restrict__ out) {
     extern __shared__ __align__(16) float smem[];
     constexpr int ld = R + 4;
     float* xt = smem;              // [win][ld]: the tile's rows, transposed
@@ -226,9 +235,12 @@ dense_rows_kernel(const float* __restrict__ frames, int rows, int win, int n_bin
         const float* w = fb + static_cast<long long>(i) * n_bins;
         const float* p = pw + r * n_bins;
         float acc = 0.0f;
-        if (librosa) {
+        if (mode == kModeLibrosa) {
             for (int k = lo; k < hi; ++k) acc = fmaf(w[k], p[k] + kEps64, acc);
             out[row * n_mels + i] = logf(acc + kEps32);
+        } else if (mode == kModeKaldiMagnitude) {
+            for (int k = lo; k < hi; ++k) acc = fmaf(w[k], sqrtf(p[k]), acc);
+            out[row * n_mels + i] = logf(fmaxf(acc, kEps32));
         } else {
             for (int k = lo; k < hi; ++k) acc = fmaf(w[k], p[k], acc);
             out[row * n_mels + i] = logf(fmaxf(acc, kEps32));
@@ -238,7 +250,7 @@ dense_rows_kernel(const float* __restrict__ frames, int rows, int win, int n_bin
 
 template <int R>
 int dense_launch(const float* frames, int rows, int win, int n_bins, int n_mels, const float* bank,
-           const float* fb, const int* mel_range, int librosa, float* out, cudaStream_t stream) {
+           const float* fb, const int* mel_range, int mode, float* out, cudaStream_t stream) {
     const int smem = smem_bytes<R>(win, n_bins);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -249,7 +261,7 @@ int dense_launch(const float* frames, int rows, int win, int n_bins, int n_mels,
     if (threads > kMaxThreads) threads = kMaxThreads;
     const int blocks = (rows + R - 1) / R;
     dense_rows_kernel<R><<<blocks, threads, smem, stream>>>(
-        frames, rows, win, n_bins, n_mels, bank, fb, mel_range, librosa, out);
+        frames, rows, win, n_bins, n_mels, bank, fb, mel_range, mode, out);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,20 +374,20 @@ extern "C" int audiossl_fused_rows_fft_warps(int win, int n, int nnz, int n_mels
 
 // Dense design. frames [rows, win] f32; bank [win, 2 * n_bins] f32 (cos
 // columns, then sin); fb [n_mels, n_bins] f32; mel_range [n_mels, 2] int32
-// (first nonzero bin, one past the last); out [rows, n_mels] f32. librosa:
-// 1 for the librosa log mode, 0 for Kaldi's. Returns cudaGetLastError()
+// (first nonzero bin, one past the last); out [rows, n_mels] f32. mode:
+// kModeKaldi (0), kModeLibrosa (1) or kModeKaldiMagnitude (2). Returns cudaGetLastError()
 // after the launch (0 on success); launches on `stream`, allocates nothing
 // and does not synchronise.
 extern "C" int audiossl_fused_rows(const float* frames, int rows, int win, int n_bins, int n_mels,
                                    const float* bank, const float* fb, const int* mel_range,
-                                   int librosa, float* out, void* stream) {
-    if (rows <= 0 || win <= 0 || n_bins <= 0 || n_mels <= 0)
+                                   int mode, float* out, void* stream) {
+    if (rows <= 0 || win <= 0 || n_bins <= 0 || n_mels <= 0 || mode < kModeKaldi || mode > kModeKaldiMagnitude)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (audiossl_fused_rows_tile(win, n_bins)) {
-        case 32: return dense_launch<32>(frames, rows, win, n_bins, n_mels, bank, fb, mel_range, librosa, out, s);
-        case 16: return dense_launch<16>(frames, rows, win, n_bins, n_mels, bank, fb, mel_range, librosa, out, s);
-        case 8: return dense_launch<8>(frames, rows, win, n_bins, n_mels, bank, fb, mel_range, librosa, out, s);
+        case 32: return dense_launch<32>(frames, rows, win, n_bins, n_mels, bank, fb, mel_range, mode, out, s);
+        case 16: return dense_launch<16>(frames, rows, win, n_bins, n_mels, bank, fb, mel_range, mode, out, s);
+        case 8: return dense_launch<8>(frames, rows, win, n_bins, n_mels, bank, fb, mel_range, mode, out, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -391,9 +403,10 @@ extern "C" int audiossl_fused_rows(const float* frames, int rows, int win, int n
 // audiossl_fused_rows.
 extern "C" int audiossl_fused_rows_fft(const float* frames, int rows, int win, int n, int n_mels, int nnz,
                                        const float* window, const float* twiddle, const float* fbp,
-                                       const int* mel_range, const int* mel_off, int librosa, const float* bank,
+                                       const int* mel_range, const int* mel_off, int mode, const float* bank,
                                        int n_dense, float* dense_pw, float* out, void* stream) {
-    if (rows <= 0 || n_mels <= 0 || nnz < 0 || n_dense < 0 || n_dense > n / 2 + 1 || (n_dense > 0 && !dense_pw))
+    if (rows <= 0 || n_mels <= 0 || nnz < 0 || n_dense < 0 || n_dense > n / 2 + 1 || (n_dense > 0 && !dense_pw) ||
+        mode < kModeKaldi || mode > kModeKaldiMagnitude)
         return static_cast<int>(cudaErrorInvalidValue);
     const int warps = audiossl_fused_rows_fft_warps(win, n, nnz, n_mels);
     if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -417,6 +430,6 @@ extern "C" int audiossl_fused_rows_fft(const float* frames, int rows, int win, i
     }
     fft_rows_kernel<<<blocks, 32 * warps, smem, s>>>(
         frames, rows, win, n, n_mels, nnz, vec, window, reinterpret_cast<const float2*>(twiddle), fbp, mel_range,
-        mel_off, librosa, n_dense, dense_pw, out);
+        mel_off, mode, n_dense, dense_pw, out);
     return static_cast<int>(cudaGetLastError());
 }

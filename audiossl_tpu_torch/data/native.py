@@ -2,11 +2,17 @@
 
 The source is the port's own copy, ``csrc/wavloader.cpp``. At first use it
 is compiled with ``g++`` into ``.torch_build/`` at the repo root (the kernel
-libraries' directory), as ``libwavloader-<hash of the source and flags>.so``,
-written to a temporary name and renamed, so that processes building at once
-never load a half-written file. When ``g++`` is missing or the build or the
-load fails, ``available()`` is False and the loaders decode with NumPy, as the
-JAX package falls back; the reason is logged once.
+libraries' directory), as ``libwavloader-<hash of the source and flags>.so``.
+One process builds it: the build holds an exclusive ``flock`` on the build
+directory, and a process that waits for the lock finds the library built
+when it gets it. The library is written to a temporary name and
+renamed, so a ``.so`` on disk is always whole. When ``g++`` is not installed,
+``available()`` is False and the loaders decode with NumPy, as the JAX package
+falls back: every process of the host then does the same, and a warning says
+so. A build or a load that fails where ``g++`` is installed raises: the
+NumPy path draws other windows than the native one, so a process that fell
+back alone would read other clips than its peers (``native=False`` asks every
+loader for NumPy).
 
 ``load_batch`` decodes, resamples and windows a batch on a C++ thread pool;
 its window starts come from a per-batch seed, so its batches equal the JAX
@@ -15,9 +21,11 @@ native path's for that seed, not the NumPy path's draws.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import logging
 import os
+import shutil
 import subprocess
 import threading
 
@@ -42,18 +50,26 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libwavloader-{h.hexdigest()[:16]}.so")
 
 
-def _build(so: str) -> bool:
+def _build(so: str) -> None:
+    """Compile the library to ``so`` under the build lock; a process that
+    waited for the lock finds it built and returns."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}"
+    fd = os.open(BUILD_DIR, os.O_RDONLY)
     try:
-        subprocess.run(["g++", *FLAGS, _SRC, "-o", tmp], check=True, capture_output=True, timeout=120)
-        os.replace(tmp, so)
-        return True
-    except Exception as e:  # no toolchain, a read-only tree
-        log.info("native wavloader build failed (%s); the loaders decode with NumPy", e)
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        return False
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        if os.path.exists(so):
+            return
+        tmp = f"{so}.tmp{os.getpid()}"
+        try:
+            r = subprocess.run(["g++", *FLAGS, _SRC, "-o", tmp], capture_output=True, text=True, timeout=600)
+            if r.returncode:
+                raise RuntimeError(f"g++ failed building {_SRC}:\n{r.stderr[-4000:]}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    finally:
+        os.close(fd)  # releases the lock
 
 
 def get_lib():
@@ -61,15 +77,14 @@ def get_lib():
     with _lock:
         if _lib is not None or _tried:
             return _lib
-        _tried = True
+        if shutil.which("g++") is None:
+            _tried = True
+            log.warning("g++ is not installed: the native wavloader is unavailable and the loaders decode with NumPy")
+            return None
         so = library_path()
-        if not os.path.exists(so) and not _build(so):
-            return None
-        try:
-            lib = ctypes.CDLL(so)
-        except OSError as e:
-            log.info("native wavloader load failed (%s); the loaders decode with NumPy", e)
-            return None
+        if not os.path.exists(so):
+            _build(so)
+        lib = ctypes.CDLL(so)  # an OSError here is a broken library, not a missing toolchain: it raises
         lib.avl_decode.restype = ctypes.c_int
         lib.avl_decode.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_long]
         lib.avl_load_batch2.restype = ctypes.c_int

@@ -59,7 +59,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.checkpoint:
         from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6
         from audiossl_tpu_torch.models.surgery import newest_encoder
+        from audiossl_tpu_torch.train.checkpoint import wait_until_finished
 
+        wait_until_finished()  # a save of this process still in flight is on disk first
         sd = torch.load(newest_encoder(args.checkpoint), map_location="cpu", weights_only=True)
         model = AudioNTT2020Task6(n_mels=args.n_mels, d=int(sd["fc.3.weight"].shape[0]))
         model.load_state_dict(sd, strict=True)

@@ -71,6 +71,7 @@ from audiossl_tpu_torch.models.surgery import newest_encoder
 from audiossl_tpu_torch.objectives.unfused import cross_entropy
 from audiossl_tpu_torch.parallel import dist
 from audiossl_tpu_torch.parallel.tp_ast import shard_ast_
+from audiossl_tpu_torch.train.checkpoint import wait_until_finished
 from audiossl_tpu_torch.train.loop import global_batch, join_group, stats_log
 from audiossl_tpu_torch.utils.metrics import Accuracy, AverageMeter
 
@@ -150,6 +151,7 @@ def load_encoder(model: DownstreamModel, ckpt_dir: str, input_hw: tuple[int, int
     and a MAST or AST pretrained at another input shape takes the
     cross-shape surgery. Raises unless every tensor of the encoder was
     copied or adapted. Returns the file it read."""
+    wait_until_finished()  # a save of this process still in flight is on disk first
     enc_type = model.encoder_type
     src_hw = upstream_input_hw(ckpt_dir, input_hw[1]) or input_hw
     stats: dict = {}

@@ -112,7 +112,13 @@ def frame_rows(wave: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
     and preemphasis (the per-frame work ``kaldi_fbank_fused`` leaves outside
     its kernel, pallas_stft.py:551-558)."""
     n_frames = cfg.num_frames(wave.shape[-1])
-    frames = wave.float()[..., : (n_frames - 1) * cfg.shift + cfg.window_size].unfold(-1, cfg.window_size, cfg.shift)
+    return prepare_frames(
+        wave.float()[..., : (n_frames - 1) * cfg.shift + cfg.window_size].unfold(-1, cfg.window_size, cfg.shift), cfg)
+
+
+def prepare_frames(frames: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
+    """DC removal and preemphasis of raw [..., T, window_size] frames (each
+    frame on its own: the streaming frontend's chunks take them too)."""
     if cfg.remove_dc_offset:
         frames = frames - frames.mean(-1, keepdim=True)
     if cfg.preemphasis:
@@ -122,13 +128,13 @@ def frame_rows(wave: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
 
 
 def fbank_from_frames(frames: torch.Tensor, cfg: FbankConfig) -> torch.Tensor:
-    """[..., T, window_size] prepared frames -> [..., T, num_mel_bins]."""
+    """[..., T, window_size] prepared frames -> [..., T, num_mel_bins]
+    (``use_power=False``: the square root of the power goes into the mel
+    product, as JAX's plain ``kaldi_fbank``)."""
     from audiossl_tpu_torch.frontend.fused_stft import fused_rows_plain
 
-    if not cfg.use_power:
-        raise NotImplementedError("use_power=False (magnitude fbank) is not ported")
     bank, mel_t = device_constants(cfg, frames.device)
-    return fused_rows_plain(frames, bank, mel_t, "kaldi")
+    return fused_rows_plain(frames, bank, mel_t, "kaldi", magnitude=not cfg.use_power)
 
 
 def kaldi_fbank(wave: torch.Tensor, cfg: FbankConfig = FbankConfig()) -> torch.Tensor:

@@ -46,6 +46,7 @@ from audiossl_tpu_torch.frontend import stft as stftmod
 from audiossl_tpu_torch.frontend.stft import EPS32, EPS64, LogMelConfig, log_mel, padded_window, reflect_pad
 
 ROW_MODES = ("kaldi", "librosa")
+_MODE_CODE = {("kaldi", False): 0, ("librosa", False): 1, ("kaldi", True): 2}  # csrc/fused_rows.cu's kMode*
 
 
 def ct_eligible(cfg: LogMelConfig) -> bool:
@@ -205,18 +206,50 @@ def log_mel_fused(wave: torch.Tensor, cfg: LogMelConfig = LogMelConfig()) -> tor
 log_mel_fused.launches = 0  # kernel launches; the chip smoke run resets and reads it
 
 
+@torch.library.custom_op("audiossl_torch::log_mel", mutates_args=())
+def log_mel_op(wave: torch.Tensor, sample_rate: int, n_fft: int, win_length: int, hop: int, n_mels: int,
+               fmin: float, fmax: float, center: bool, htk: bool, norm: str | None, power: float) -> torch.Tensor:
+    """``log_mel_fused`` as a ``torch.library`` custom op, so that
+    ``torch.export`` records the log-mel kernel as one node (the native
+    serving artifact, serve/export.py): [B, n] -> [B, n_mels, n_frames], the
+    kernel on a CUDA tensor, the plain version on the CPU. ``win_length`` 0
+    is n_fft. Call it through ``log_mel_native``."""
+    cfg = LogMelConfig(sample_rate=sample_rate, n_fft=n_fft, win_length=win_length or None, hop=hop, n_mels=n_mels,
+                       fmin=fmin, fmax=fmax, center=center, htk=htk, norm=norm, power=power)
+    return log_mel_fused(wave.contiguous(), cfg).contiguous()
+
+
+@log_mel_op.register_fake
+def _log_mel_op_fake(wave, sample_rate, n_fft, win_length, hop, n_mels, fmin, fmax, center, htk, norm, power):
+    n_frames = 1 + (wave.shape[-1] + (n_fft if center else 0) - n_fft) // hop
+    return wave.new_empty((wave.shape[0], n_mels, n_frames), dtype=torch.float32)
+
+
+def log_mel_native(wave: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
+    """[B, n] -> [B, n_mels, n_frames] through ``log_mel_op``."""
+    return log_mel_op(wave.float(), cfg.sample_rate, cfg.n_fft, cfg.win_length or 0, cfg.hop, cfg.n_mels, cfg.fmin,
+                      cfg.fmax, cfg.center, cfg.htk, cfg.norm, cfg.power)
+
+
 # ---------------------------------------------------------------- dense rows (csrc/fused_rows.cu)
 
 
-def fused_rows_plain(frames: torch.Tensor, bank: torch.Tensor, mel_t: torch.Tensor, mode: str) -> torch.Tensor:
+def fused_rows_plain(frames: torch.Tensor, bank: torch.Tensor, mel_t: torch.Tensor, mode: str,
+                     magnitude: bool = False) -> torch.Tensor:
     """[..., win] frame rows -> [..., n_mels]: frames @ bank [win, 2 nb]
     (cos columns, then sin), power, then ``mode`` "kaldi":
     log(max(power @ mel_t, EPS32)) or "librosa": log((power + EPS64) @ mel_t
-    + EPS32). f32 products with TF32 off: the plain version of the kernel."""
+    + EPS32). ``magnitude`` (Kaldi only, ``use_power=False``): sqrt(power)
+    takes the power's place. f32 products with TF32 off: the plain version
+    of the kernel."""
     n_bins = mel_t.shape[0]
+    if magnitude and mode != "kaldi":
+        raise ValueError("the magnitude spectrum is a Kaldi-mode option")
     with no_tf32():
         spec = torch.matmul(frames.float(), bank)
         power = spec[..., :n_bins].square() + spec[..., n_bins:].square()
+        if magnitude:
+            power = power.sqrt()
         if mode == "kaldi":
             return torch.log(torch.clamp_min(torch.matmul(power, mel_t), EPS32))
         if mode == "librosa":
@@ -325,10 +358,12 @@ def _check_wave(wave: torch.Tensor, name: str) -> None:
 def fused_rows(frames: torch.Tensor, cfg, mode: str) -> torch.Tensor:
     """The kernel on contiguous f32 frame rows [rows, win] on the card ->
     [rows, n_mels] f32: the FFT design where the transform length is a power
-    of two, else the dense design. Raises for anything else; it never falls
-    back."""
+    of two, else the dense design. In Kaldi mode an FbankConfig with
+    ``use_power=False`` launches the magnitude mode. Raises for anything
+    else; it never falls back."""
     if mode not in ROW_MODES:
         raise ValueError(f"mode must be one of {ROW_MODES}, got {mode!r}")
+    code = _MODE_CODE[(mode, mode == "kaldi" and not cfg.use_power)]
     if frames.device.type != "cuda" or frames.dim() != 2 or frames.dtype != torch.float32 or not frames.is_contiguous():
         raise ValueError(f"fused_rows takes contiguous f32 [rows, win] frames on the card, got "
                          f"{tuple(frames.shape)} {frames.dtype} on {frames.device}")
@@ -345,7 +380,6 @@ def fused_rows(frames: torch.Tensor, cfg, mode: str) -> torch.Tensor:
         raise ValueError(f"rows of {win} samples and {n_bins} bins exceed the kernel's shared-memory tile")
     out = torch.empty((rows, n_mels), dtype=torch.float32, device=frames.device)
     if rows:
-        librosa = int(mode == "librosa")
         with torch.cuda.device(frames.device):
             stream = torch.cuda.current_stream().cuda_stream
             if fft:
@@ -353,12 +387,12 @@ def fused_rows(frames: torch.Tensor, cfg, mode: str) -> torch.Tensor:
                 err = lib.audiossl_fused_rows_fft(
                     frames.data_ptr(), rows, win, c.n, n_mels, c.fb_packed.numel(), c.window.data_ptr(),
                     c.twiddle.data_ptr(), c.fb_packed.data_ptr(), c.mel_range.data_ptr(), c.mel_off.data_ptr(),
-                    librosa, c.bank.data_ptr(), c.n_dense, dense_pw.data_ptr() if c.n_dense else None,
+                    code, c.bank.data_ptr(), c.n_dense, dense_pw.data_ptr() if c.n_dense else None,
                     out.data_ptr(), stream)
             else:
                 err = lib.audiossl_fused_rows(
                     frames.data_ptr(), rows, win, n_bins, n_mels, c.bank.data_ptr(), c.fb.data_ptr(),
-                    c.mel_range.data_ptr(), librosa, out.data_ptr(), stream)
+                    c.mel_range.data_ptr(), code, out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"fused_rows kernel launch failed: CUDA error {err}")
         fused_rows.launches[mode] += 1
@@ -366,14 +400,13 @@ def fused_rows(frames: torch.Tensor, cfg, mode: str) -> torch.Tensor:
 
 
 def kaldi_fbank_fused(wave: torch.Tensor, cfg: fbankmod.FbankConfig = fbankmod.FbankConfig()) -> torch.Tensor:
-    """[B, n] -> [B, n_frames, num_mel_bins] Kaldi fbank. CPU tensor: the
-    plain version (fbank.kaldi_fbank). CUDA tensor: frames in plain torch,
-    then the kernel in Kaldi mode, or an error."""
+    """[B, n] -> [B, n_frames, num_mel_bins] Kaldi fbank (``use_power=False``:
+    of the magnitude spectrum). CPU tensor: the plain version
+    (fbank.kaldi_fbank). CUDA tensor: frames in plain torch, then the kernel
+    in Kaldi mode, or an error."""
     if wave.device.type == "cpu":
         return fbankmod.kaldi_fbank(wave, cfg)
     _check_wave(wave, "kaldi_fbank_fused")
-    if not cfg.use_power:
-        raise NotImplementedError("use_power=False (magnitude fbank) is not ported")
     b = wave.shape[0]
     frames = fbankmod.frame_rows(wave, cfg)
     n_frames = frames.shape[1]

@@ -36,7 +36,10 @@ variables -> the reference's flat ``blocks.{i}`` MViTv2 state_dict, which
 runs freq-major. The port's MViT runs time-major, as the JAX module does;
 ``mvit_reference_layout`` converts a state_dict either way (it is its own
 inverse): the patch and pooling conv kernels transpose their spatial axes
-and rel_pos_h / rel_pos_w swap.
+and rel_pos_h / rel_pos_w swap. A ``use_abs_pos`` trunk's ``pos_embed``
+([1, h * w, E]) crosses unchanged, in the time-major token order of the
+port's and JAX's trunks, in both layouts (JAX's ``mast_to_torch`` writes
+none; MAST uses no absolute position).
 
 ``efficientnet_from_flax`` carries the JAX EfficientNet-B0 (which has no
 exporter) into ``models.efficientnet.EfficientNetB0``'s efficientnet_pytorch
@@ -222,6 +225,8 @@ def mast_from_flax(variables_numpy: Mapping[str, Any]) -> dict[str, torch.Tensor
         "patch_embed.proj.weight": freq_major(mvit["patch_embed"]["kernel"]),
         "patch_embed.proj.bias": _t(mvit["patch_embed"]["bias"]),
     }
+    if "pos_embed" in mvit:  # use_abs_pos: [1, h * w, E], kept in the trunk's time-major token order
+        sd["pos_embed"] = _t(mvit["pos_embed"])
 
     def put_ln(key: str, tree: Mapping[str, Any]) -> None:
         sd[f"{key}.weight"] = _t(tree["scale"])

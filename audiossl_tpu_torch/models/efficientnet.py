@@ -116,6 +116,8 @@ class MBConv(nn.Module):
 class EfficientNetB0(nn.Module):
     """[B, 1, F, T] -> [B, 1280] pooled features (the include_top=False path)."""
 
+    out_dim = 1280
+
     def __init__(self, drop_connect_rate: float = 0.2):
         super().__init__()
         self._conv_stem = nn.Conv2d(1, 32, 3, 2, bias=False)

@@ -332,14 +332,21 @@ class MultiScaleBlock(nn.Module):
         return x + drop_path(x_mlp, self.droppath, keep2)
 
 
+def dropout_with_mask(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Dropout's deterministic core: x / (1 - rate) where ``keep``, else 0
+    (flax ``nn.Dropout`` given its mask)."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class MViT(nn.Module):
     """Token trunk: [B, C_in, H, W] -> [B, N_final, C_final] (callers pool)."""
 
     def __init__(self, cfg: MViTConfig, input_hw: tuple[int, int], in_chans: int = 1, final_norm: bool = True,
                  remat: bool = False):
         super().__init__()
-        if cfg.cls_embed_on or cfg.use_abs_pos or cfg.dropout_rate > 0.0:
-            raise NotImplementedError("cls_embed_on, use_abs_pos and dropout_rate > 0 are not ported (MAST uses none)")
+        if cfg.cls_embed_on:  # JAX raises too (audiossl_tpu/models/mvit.py:458-466): the trunk is token-grid only
+            raise NotImplementedError("cls_embed_on=True is not supported: this MViT is token-grid only (the MAST "
+                                      "family runs cls_embed_on=False; use models.ast for a cls-token transformer)")
         if cfg.fused_attention not in ("auto", "on", "off"):
             raise ValueError(f"fused_attention must be auto|on|off, got {cfg.fused_attention!r}")
         if cfg.pool_impl not in ("conv", "unrolled"):
@@ -349,6 +356,9 @@ class MViT(nn.Module):
         self.patch_embed.proj = nn.Conv2d(in_chans, cfg.embed_dim, cfg.patch_kernel, cfg.patch_stride, cfg.patch_padding)
         hw = tuple(_pool_out(input_hw[i], cfg.patch_kernel[i], cfg.patch_stride[i], cfg.patch_padding[i]) for i in range(2))
         self.grid_hw = hw
+        if cfg.use_abs_pos:  # [1, h * w, E] in the trunk's (time-major) token order, as JAX's param
+            self.pos_embed = nn.Parameter(nn.init.trunc_normal_(torch.empty(1, hw[0] * hw[1], cfg.embed_dim),
+                                                                0.0, 0.02, -0.04, 0.04))
         dim_mul, head_mul, pool_q, pool_kv, stride_q, stride_kv = prepare_block_schedule(cfg)
         dpr = np.linspace(0, cfg.droppath_rate, cfg.depth)
         embed_dim, num_heads = cfg.embed_dim, cfg.num_heads
@@ -372,21 +382,34 @@ class MViT(nn.Module):
         if final_norm:
             self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, *, draws=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None, *, draws=None,
+                pos_keep: torch.Tensor | None = None) -> torch.Tensor:
         """In training mode with drop path, ``generator`` gives its draws
         (two per block, drawn before the block runs, so a rematerialised
         block sees the same masks); ``draws``, an iterator of U(0, 1) [B]
-        tensors in that order, gives them instead."""
+        tensors in that order, gives them instead. With ``dropout_rate > 0``
+        the tokens after the position embedding take a dropout
+        (mvit_model.py:150-152 pos_drop) whose keep mask [B, N, E] is
+        ``pos_keep``, or U(0, 1) < 1 - rate drawn from ``generator`` before
+        the blocks' draws."""
         cfg = self.cfg
         dt = cfg.compute_dtype or x.dtype
         drops = self.training and cfg.droppath_rate > 0.0
-        if drops and generator is None and draws is None:
-            raise ValueError("MViT in training mode with drop path needs a generator for its masks")
+        dropout = self.training and cfg.dropout_rate > 0.0
+        if (drops or (dropout and pos_keep is None)) and generator is None and draws is None:
+            raise ValueError("MViT in training mode with drop path or dropout needs a generator for its masks")
         with no_tf32() if dt == torch.float32 else contextlib.nullcontext():
             proj = self.patch_embed.proj
             x = F.conv2d(x.to(dt), proj.weight.to(dt), proj.bias.to(dt), proj.stride, proj.padding)
             x = x.flatten(2).transpose(1, 2)  # [B, h * w, E], row-major over (h, w)
             b = x.shape[0]
+            if cfg.use_abs_pos:
+                x = (x + self.pos_embed).to(dt)
+            if dropout:
+                if pos_keep is None:
+                    u = torch.rand(x.shape, generator=generator, device=generator.device)
+                    pos_keep = u < 1.0 - cfg.dropout_rate
+                x = dropout_with_mask(x, pos_keep.to(x.device), cfg.dropout_rate)
             for blk in self.blocks:
                 keep = [None, None]
                 if drops and blk.droppath > 0.0:

@@ -7,7 +7,12 @@ encoder and heads and computes the SSL loss of two views:
 the forward. ``labels`` are the per-clip ids of a labelled batch, which only
 an objective whose class sets ``labeled`` reads (UnFuSeD); the loop loads a
 labelled manifest for it. ``export_state_dict()`` is what
-``train/checkpoint.py`` exports for serving and downstream use.
+``train/checkpoint.py`` exports for serving and downstream use;
+``export_state_dict(sd)`` takes it from a (dense) state_dict instead, as
+``run.fsdp``'s save does. Under ``run.fsdp`` (parallel/fsdp.py) an
+objective's ``fsdp_units`` are the modules gathered around their forward,
+its ``fsdp_buffers`` the root buffers sharded with the parameters, and
+``fsdp_shards`` the layout once it is sharded.
 """
 from __future__ import annotations
 
@@ -19,6 +24,22 @@ from torch import nn
 
 class Objective(nn.Module):
     labeled = False  # True: loss() takes the labels of a labelled manifest
+    fsdp_units: tuple[str, ...] = ()
+    fsdp_buffers: tuple[str, ...] = ()
+    fsdp_shards = None  # parallel/fsdp.py Shards, once the objective is sharded
+
+    def _whole(self, name: str) -> torch.Tensor:
+        """The root buffer ``name`` whole (a gather under fsdp when it is sharded)."""
+        return getattr(self, name) if self.fsdp_shards is None else self.fsdp_shards.whole(name)
+
+    def _mine(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """What this rank keeps of a whole value of buffer ``name``."""
+        return whole if self.fsdp_shards is None else self.fsdp_shards.mine(name, whole)
+
+
+def sub_state_dict(sd: dict[str, torch.Tensor], prefix: str) -> dict[str, torch.Tensor]:
+    """The entries of ``sd`` under ``prefix``, the prefix taken off."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
 _REGISTRY: dict[str, Callable[..., Objective]] = {}

@@ -42,7 +42,7 @@ from torch import nn
 from audiossl_tpu_torch import no_tf32
 from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6, max_mean_pool
 from audiossl_tpu_torch.models.heads import MLPProjector, barlow_loss
-from audiossl_tpu_torch.objectives.api import Objective, register
+from audiossl_tpu_torch.objectives.api import Objective, register, sub_state_dict
 from audiossl_tpu_torch.objectives.delores_s import DTYPES
 from audiossl_tpu_torch.ops.stats import l2_normalize
 from audiossl_tpu_torch.parallel import dist
@@ -155,10 +155,14 @@ class EncoderM(nn.Module):
 
 class MocoObjective(Objective):
     """A query encoder ``encoder``, its EMA copy ``encoder_k`` (no gradient,
-    its own BatchNorm running statistics) and the key queue."""
+    its own BatchNorm running statistics) and the key queue. Under
+    ``run.fsdp`` the queue is sharded as SS-MAST's is: read whole where the
+    logits use it, each enqueue writing the whole queue before this rank
+    keeps its piece."""
 
     encoder: nn.Module
     encoder_k: nn.Module
+    fsdp_buffers = ("queue",)
 
     def _init_moco(self, pre: dict[str, Any], emb_dim: int) -> None:
         self.emb_dim = emb_dim
@@ -206,16 +210,20 @@ class MocoObjective(Objective):
 
     def _enqueue(self, keys: torch.Tensor) -> None:
         # new tensors: the backward of a loss that read the old queue keeps it
-        self.queue, self.queue_ptr = queue_update(self.queue, self.queue_ptr, keys)
+        queue, self.queue_ptr = queue_update(self._whole("queue"), self.queue_ptr, keys)
+        self.queue = self._mine("queue", queue)
 
-    def export_state_dict(self) -> dict[str, torch.Tensor]:
+    def export_state_dict(self, sd: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
         """The query AudioNTT in the reference layout (JAX's
-        ``encoder_variables``), which serving and the probe load unchanged."""
-        return self.encoder.encoder.state_dict()
+        ``encoder_variables``), which serving and the probe load unchanged;
+        from this module or from its (dense) state_dict ``sd``."""
+        return self.encoder.encoder.state_dict() if sd is None else sub_state_dict(sd, "encoder.encoder.")
 
 
 @register("delores_m")
 class DeloresM(MocoObjective):
+    fsdp_units = ("encoder", "encoder_k", "p1", "p2", "p3")
+
     def __init__(self, config: dict[str, Any]):
         super().__init__()
         pre = config["pretrain"]
@@ -239,7 +247,7 @@ class DeloresM(MocoObjective):
         self._ema_()
         k, *k_taps = self._key_pass(v2, generator)
         k = l2_normalize(k, dim=1)
-        nce = info_nce(q, k, self.queue, self.temperature)
+        nce = info_nce(q, k, self._whole("queue"), self.temperature)
         barlow = 0.0
         for i, (tq, tk) in enumerate(zip(q_taps, k_taps), 1):
             proj = getattr(self, f"p{i}")

@@ -32,6 +32,7 @@ from audiossl_tpu_torch.frontend import FrontendSpec
 from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6, max_mean_pool
 from audiossl_tpu_torch.models.surgery import newest_encoder
 from audiossl_tpu_torch.objectives.clustering import Kmeans
+from audiossl_tpu_torch.train.checkpoint import wait_until_finished
 
 
 def get_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -58,6 +59,7 @@ def main(argv: list[str] | None = None) -> dict:
     frontend = FrontendSpec("logmel", args.n_mels, 16000)
     clip = int(args.length_wave * frontend.sample_rate)
     model = AudioNTT2020Task6(n_mels=args.n_mels, d=args.output_dim)
+    wait_until_finished()  # a save of this process still in flight is on disk first
     model.load_state_dict(torch.load(newest_encoder(args.checkpoint), map_location="cpu", weights_only=True),
                           strict=True)
     model = model.to(dev).eval()

@@ -17,7 +17,12 @@ assignments, the JAX package's combined loss (the reference backpropagates
 only ce_12, upstream_expert.py:237; JAX's choice is kept). Across
 processes the queue takes every process's keys and the BatchNorms are SyncBN;
 ``shuffle_bn`` shuffles each key pass's batch across them
-(``MocoObjective._key_pass``) and changes nothing on one process.
+(``MocoObjective._key_pass``) and changes nothing on one process. The
+cluster loss contrasts the columns of a batch's assignments, so it depends
+on which batch it sees: data-parallel, each process's own, as JAX's
+``shard_map`` step (and the reference's per-GPU loss) has it; under
+``run.fsdp`` the whole batch's, gathered with a gradient, as JAX's GSPMD
+step has it (its batch is one array there).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from audiossl_tpu_torch.models.heads import ClusterProjector
 from audiossl_tpu_torch.objectives.api import register
 from audiossl_tpu_torch.objectives.delores_m import MocoObjective, audiontt_kwargs, info_nce
 from audiossl_tpu_torch.ops.stats import l2_normalize
+from audiossl_tpu_torch.parallel import dist
 
 
 class EncoderSlicer(nn.Module):
@@ -87,6 +93,8 @@ def cluster_loss(c_i: torch.Tensor, c_j: torch.Tensor, temperature: float = 1.0)
 
 @register("slicer")
 class Slicer(MocoObjective):
+    fsdp_units = ("encoder", "encoder_k")
+
     def __init__(self, config: dict[str, Any]):
         super().__init__()
         pre = config["pretrain"]
@@ -103,7 +111,7 @@ class Slicer(MocoObjective):
         q = l2_normalize(q, dim=1)
         self._ema_()
         k = l2_normalize(self._key_pass(vk, generator)[0], dim=1)
-        ce = info_nce(q, k, self.queue, self.temperature)
+        ce = info_nce(q, k, self._whole("queue"), self.temperature)
         self._enqueue(k)
         return ce, q_clus
 
@@ -113,4 +121,6 @@ class Slicer(MocoObjective):
         the queue and its pointer (by 2B)."""
         ce_a, clus_a = self._one_direction(v1, v2, generator)
         ce_b, clus_b = self._one_direction(v2, v1, generator)
+        if self.fsdp_shards is not None:  # JAX's GSPMD step: the assignments of the whole batch
+            clus_a, clus_b = dist.gather_rows(clus_a), dist.gather_rows(clus_b)
         return ce_a + ce_b + cluster_loss(clus_a, clus_b, self.cluster_temperature)

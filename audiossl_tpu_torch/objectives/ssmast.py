@@ -69,7 +69,6 @@ def cosine_momentum(epoch: torch.Tensor, base: float = 0.99, total_epochs: int =
 class SSMast(Objective):
     fsdp_units = ("encoder", "encoder.mast.blocks.*", "encoder_k", "encoder_k.mast.blocks.*")
     fsdp_buffers = ("queue",)
-    fsdp_shards = None  # the fsdp layout (parallel/fsdp.py Shards) once the objective is sharded
 
     def __init__(self, config: dict[str, Any]):
         super().__init__()
@@ -118,15 +117,6 @@ class SSMast(Objective):
         self.queue_ptr.zero_()
         self.step.zero_()
 
-    def _whole_queue(self) -> torch.Tensor:
-        return self.queue if self.fsdp_shards is None else self.fsdp_shards.whole("queue")
-
-    def _keep_queue(self, queue: torch.Tensor, ptr: torch.Tensor) -> None:
-        """The step's queue (this rank's piece of it under fsdp) and pointer, as
-        new tensors: the loss's backward keeps the old queue."""
-        self.queue = queue if self.fsdp_shards is None else self.fsdp_shards.mine("queue", queue)
-        self.queue_ptr = ptr
-
     def momentum(self) -> torch.Tensor:
         """m at this step's epoch + 1, a device scalar (no host sync)."""
         epoch = torch.div(self.step, self.steps_per_epoch, rounding_mode="floor") + 1
@@ -150,7 +140,7 @@ class SSMast(Objective):
              labels: torch.Tensor | None = None) -> torch.Tensor:
         """The step's InfoNCE sum; advances the key encoder, queue, pointer and step."""
         m = self.momentum()
-        queue, ptr = self._whole_queue(), self.queue_ptr
+        queue, ptr = self._whole("queue"), self.queue_ptr
         shuffle = self.shuffle_bn and dist.data_active()
         if self.batched_views and not shuffle:
             b = v1.shape[0]
@@ -170,7 +160,7 @@ class SSMast(Objective):
                 k = self._keys(vk, generator, shuffle)
                 total = total + info_nce(q, k, queue, self.temperature)
                 queue, ptr = queue_update(queue, ptr, k)
-        self._keep_queue(queue, ptr)
+        self.queue, self.queue_ptr = self._mine("queue", queue), ptr  # new tensors: the backward keeps the old queue
         self.step.add_(1)
         return total
 
@@ -191,7 +181,7 @@ class SSMast(Objective):
         mb = b // accum
         params = list(self.encoder.parameters())
         m = self.momentum()
-        queue0 = queue = self._whole_queue()
+        queue0 = queue = self._whole("queue")
         ptr = self.queue_ptr
         tau = self.temperature
         query = lambda v: l2_normalize(self.encoder(v, generator), dim=1)  # noqa: E731
@@ -225,7 +215,7 @@ class SSMast(Objective):
                 grads = g if grads is None else [a + c for a, c in zip(grads, g)]
                 queue, ptr = queue_update(queue, ptr, torch.cat(ks))  # bulk enqueue in batch order
         set_grads(params, grads)
-        self._keep_queue(queue, ptr)
+        self.queue, self.queue_ptr = self._mine("queue", queue), ptr  # new tensors: the backward keeps the old queue
         self.step.add_(1)
         return total
 

@@ -22,7 +22,7 @@ import torch
 
 from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6, max_mean_pool
 from audiossl_tpu_torch.models.heads import LinearClassifier, MLPProjector
-from audiossl_tpu_torch.objectives.api import Objective, register
+from audiossl_tpu_torch.objectives.api import Objective, register, sub_state_dict
 from audiossl_tpu_torch.objectives.delores_m import TAP_DIMS, tapped_audiontt_kwargs
 from audiossl_tpu_torch.ops.stats import l2_normalize
 
@@ -61,6 +61,7 @@ class EncoderUnfused(AudioNTT2020Task6):
 @register("unfused")
 class Unfused(Objective):
     labeled = True  # consumes (view, label) batches
+    fsdp_units = ("encoder", "p1", "p2", "p3", "classifier")
 
     def __init__(self, config: dict[str, Any]):
         super().__init__()
@@ -95,6 +96,7 @@ class Unfused(Objective):
         loss_mse = self.gamma * sum(cosine_mse(t, q_clf) for t in tags)
         return loss_ce + loss_kl + loss_mse
 
-    def export_state_dict(self) -> dict[str, torch.Tensor]:
-        """The AudioNTT in the reference layout (JAX's ``encoder_variables``)."""
-        return self.encoder.state_dict()
+    def export_state_dict(self, sd: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+        """The AudioNTT in the reference layout (JAX's ``encoder_variables``),
+        from this module or from its (dense) state_dict ``sd``."""
+        return self.encoder.state_dict() if sd is None else sub_state_dict(sd, "encoder.")

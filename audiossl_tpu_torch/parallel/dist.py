@@ -16,7 +16,9 @@ process per card and calls ``torch.distributed`` at the same places:
   gives the one-process gradient of the whole batch (a plain
   ``dist.all_reduce`` inside a loss gives 1/world of it);
 * ``all_gather``: concatenation along dim 0 in rank order (``tiled=True``),
-  no gradient;
+  no gradient; ``gather_rows`` the same with a gradient, for a loss that
+  every rank computes alike on the whole batch (JAX's GSPMD step, where
+  the batch is one array);
 * ``broadcast_from``: rank ``src``'s tensor on every rank (the agreed draw
   of shuffle-BN and DECAR's centroid initialisation);
 * ``all_reduce_grads_``: the mean of every parameter's gradient over the
@@ -262,6 +264,19 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dp_world())]
     tdist.all_gather(parts, x.detach().contiguous(), group=data_group())
     return torch.cat(parts)
+
+
+def gather_rows(x: torch.Tensor, kind: str = "all_gather_rows") -> torch.Tensor:
+    """all_gather(tiled=True) over the data axis with a gradient: this rank's
+    rows at their offset in zeros, all-reduced as a sum, so the backward
+    sums the cotangents. Every rank computing one loss alike from the
+    result, and the gradients then averaged over the ranks, each rank's rows
+    get that loss's gradient, as under JAX's GSPMD step."""
+    if not data_active():
+        return x
+    b, n, r = x.shape[0], dp_world(), dp_rank()
+    zeros = lambda k: x.new_zeros((k * b, *x.shape[1:]))  # noqa: E731
+    return all_reduce_sum(torch.cat([zeros(r), x, zeros(n - 1 - r)]), kind)
 
 
 def broadcast_from(x: torch.Tensor, src: int = 0) -> torch.Tensor:

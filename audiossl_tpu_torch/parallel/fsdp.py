@@ -44,9 +44,14 @@ steps. PyTorch has no partitioner; the port writes the same layout out on
 
 What the autograd graph saves of the gathered weights (in bf16 the cast
 copies) lives from a unit's forward to its backward, as the XLA program
-keeps it; rematerialised blocks (``remat``) would need the whole weights
-again after the forward, so ``run.fsdp`` refuses ``remat``. With one process every collective is the identity: the
-pieces are the whole tensors.
+keeps it. Under ``remat`` (JAX keeps ``jax.checkpoint`` under fsdp,
+audiossl_tpu/parallel/fsdp.py:31-33) a rematerialised unit saves none of
+it: ``torch.utils.checkpoint`` calls the unit again in the backward, so its
+hooks gather the whole weights a second time for the recompute
+("fsdp_gather" counts both) and put the pieces back after it, and the
+gradients still leave through the first forward's gather, reduce-scattered
+once. With one process every collective is the identity: the pieces are
+the whole tensors.
 """
 from __future__ import annotations
 

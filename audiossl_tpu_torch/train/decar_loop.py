@@ -60,8 +60,8 @@ from audiossl_tpu_torch.objectives.decar import IGNORE_INDEX, DecarV2, kmeans_on
 from audiossl_tpu_torch.parallel import dist
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.loop import (
-    MetricsBuffer, aug_state_from_world, check_parallel_knobs, gather_generators, global_batch, join_group,
-    kmix_centroids, stats_log, world_aug_state,
+    MetricsBuffer, aug_state_from_world, check_parallel_knobs, finish_saves, gather_generators, global_batch,
+    join_group, kmix_centroids, stats_log, world_aug_state,
 )
 from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
@@ -261,4 +261,5 @@ def train_decar(
             save()
             if done:
                 break
+    finish_saves()
     return objective, train_step.step, ckpt_dir

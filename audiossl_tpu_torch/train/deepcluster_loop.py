@@ -65,8 +65,8 @@ from audiossl_tpu_torch.objectives.unfused import cross_entropy
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.decar_loop import waves_to_device
 from audiossl_tpu_torch.parallel import dist
-from audiossl_tpu_torch.train.loop import (MetricsBuffer, check_parallel_knobs, gather_generators, global_batch,
-                                           join_group, stats_log)
+from audiossl_tpu_torch.train.loop import (MetricsBuffer, check_parallel_knobs, finish_saves, gather_generators,
+                                           global_batch, join_group, stats_log)
 from audiossl_tpu_torch.train.optim import sgd_torch
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.train.step import TrainStep
@@ -258,4 +258,5 @@ def train_deepcluster_v1(
                 ckpt.save_checkpoint(ckpt_dir, step, state, net.encoder.state_dict(), config, keep_last)
             if done:
                 break
+    finish_saves()
     return net, step, ckpt_dir, labels

@@ -52,9 +52,10 @@ backward reduce-scatters its gradients as
 the data axis's mean, the leaves that stay whole take the all-reduce, the
 layer-decay groups act on the pieces, and the clip reads the global norm of
 the whole gradient (train/layer_decay.py). Rank 0 writes the dense
-checkpoint and export; a resume cuts them for this rank. ``remat`` is
-refused under fsdp, and ``run.zero_optimizer`` always: JAX's fine-tune has
-no ZeRO path (it ignores the flag), nor a tensor-parallel one.
+checkpoint and export; a resume cuts them for this rank. Under ``remat``
+each block's recompute gathers its weights again (parallel/fsdp.py).
+``run.zero_optimizer`` is refused: JAX's fine-tune has no ZeRO path (it
+ignores the flag), nor a tensor-parallel one.
 """
 from __future__ import annotations
 
@@ -87,8 +88,8 @@ from audiossl_tpu_torch.parallel.tp import map_optimizer_state
 from audiossl_tpu_torch.train import checkpoint as ckpt
 from audiossl_tpu_torch.train.accum import microbatched_value_and_grad, set_grads
 from audiossl_tpu_torch.train.layer_decay import adamw_layer_decay
-from audiossl_tpu_torch.train.loop import (MetricsBuffer, check_parallel_knobs, gather_generators, global_batch,
-                                           join_group, refuse_fsdp_remat, stats_log)
+from audiossl_tpu_torch.train.loop import (MetricsBuffer, check_parallel_knobs, finish_saves, gather_generators,
+                                           global_batch, join_group, stats_log)
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.utils.metrics import auc_roc, d_prime, mean_average_precision
 
@@ -336,8 +337,6 @@ def train_finetune_mast(
     dev = resolve_device(device)
     check_parallel_knobs(config, fsdp_runs=True)
     fsdp = bool(config["run"].get("fsdp", False))
-    if fsdp:
-        refuse_fsdp_remat(config["finetune"])
     world = join_group(config["run"], dev)
     config = copy.deepcopy(config)
     run, ft = config["run"], config["finetune"]
@@ -447,6 +446,7 @@ def train_finetune_mast(
             save()
             if done:
                 break
+    finish_saves()
     return model, stats, ckpt_dir
 
 

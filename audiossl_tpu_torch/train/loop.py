@@ -110,6 +110,7 @@ from audiossl_tpu_torch.train.optim import build_optimizer, warmup_cosine
 from audiossl_tpu_torch.train.preemption import PreemptionGuard
 from audiossl_tpu_torch.train.step import TrainStep
 from audiossl_tpu_torch.train.zero import assert_zero_compatible, build_zero_optimizer
+from audiossl_tpu_torch.utils.metrics import TrainMeter
 
 log = logging.getLogger("audiossl_tpu_torch.train")
 
@@ -194,7 +195,7 @@ def check_parallel_knobs(config: dict[str, Any], tp_runs: bool = False, fsdp_run
         raise NotImplementedError("pretrain.tp > 1 is run by train_upstream (SS-MAST) only: this trainer has no "
                                   "tensor-parallel path, in the JAX package either")
     if fsdp and not fsdp_runs:
-        raise NotImplementedError("run.fsdp is run by train_upstream (SS-MAST) and the MAST fine-tune only: this "
+        raise NotImplementedError("run.fsdp is run by train_upstream and the MAST fine-tune only: this "
                                   "trainer has no fully sharded path, in the JAX package either")
     if zero and not zero_runs:
         raise NotImplementedError("run.zero_optimizer is run by train_upstream only: this trainer has no ZeRO path "
@@ -203,27 +204,14 @@ def check_parallel_knobs(config: dict[str, Any], tp_runs: bool = False, fsdp_run
     return max(tp, 1)
 
 
-def check_fsdp(pre: dict[str, Any], objective_cls) -> None:
-    """``run.fsdp``'s own checks, before any data is read: JAX's stateless
-    augmentation (loop.py:244-256, naming the knob), then the port's
-    refusals of ``remat`` and of an objective with no gathering units."""
+def check_fsdp(pre: dict[str, Any]) -> None:
+    """``run.fsdp``'s own check, before any data is read: JAX's stateless
+    augmentation (loop.py:244-256, naming the knob)."""
     cfg = AugmentConfig.from_dict(pre)
     if cfg.normalization == "mean_var" or cfg.mixup_ratio is not None or cfg.kmix_ratio is not None:
         raise ValueError("run.fsdp requires stateless augmentation (normalization: precomputed/l2 and no "
                          "mixup/Kmix memory bank): the ring-bank and RunningNorm state are shaped for the "
                          "shard_map step")
-    refuse_fsdp_remat(pre)
-    if not getattr(objective_cls, "fsdp_units", None):
-        raise NotImplementedError(f"run.fsdp is ported for SS-MAST: {objective_cls.__name__} names no gathering "
-                                  "units (ROADMAP.md Queue 1)")
-
-
-def refuse_fsdp_remat(section: dict[str, Any]) -> None:
-    """``remat`` under ``run.fsdp`` raises: the gathered weights go after a
-    unit's forward, and a rematerialised block would need them again."""
-    if bool(section.get("remat", False)):
-        raise NotImplementedError("run.fsdp with remat: the gathered weights are released after the forward, and a "
-                                  "rematerialised block would need them again")
 
 
 def shard_objective_(objective) -> "fsdp.Shards":
@@ -323,6 +311,13 @@ def gather_generators(generator: torch.Generator) -> list[torch.Tensor]:
     return [s.clone() for s in dist.all_gather(st[None].to(generator.device)).cpu()] if dist.data_active() else [st]
 
 
+def finish_saves() -> None:
+    """Every checkpoint write on disk before any rank goes on (rank 0 writes
+    in the background; a resume may follow in the same processes)."""
+    ckpt.wait_until_finished()
+    dist.barrier()
+
+
 def stats_log(path: str):
     """``path`` opened for appending on rank 0; elsewhere a context that
     yields None (the metrics are the group's, written once)."""
@@ -362,7 +357,7 @@ def train_upstream(
     fsdp, zero = bool(run.get("fsdp", False)), bool(run.get("zero_optimizer", False))
     opt_name = str(run.get("optimizer", "sgd"))
     if fsdp:
-        check_fsdp(pre, objective_class(upstream))
+        check_fsdp(pre)
     if zero:
         assert_zero_compatible(opt_name)
     world = join_group(config["run"], dev, tp)
@@ -461,7 +456,6 @@ def train_upstream(
                 "config": config,
             }
             ckpt.save_checkpoint(ckpt_dir, step, state, export, config, keep_last)
-        dist.barrier()  # every rank returns with the checkpoint on disk (a resume may follow in the same processes)
 
     start_epoch, start_batch, rng_state = 0, 0, None
     if position is not None:
@@ -472,6 +466,7 @@ def train_upstream(
     done = preempted = False
     with stats_log(os.path.join(ckpt_dir, "stats.jsonl")) as stats_file, PreemptionGuard() as guard:
         buf = MetricsBuffer(int(run.get("log_every", 10)), stats_file)
+        eta = TrainMeter(total_steps=epochs * steps_per_epoch - step)
         t_end = time.time()
         for epoch in range(start_epoch, epochs):
             first = epoch == start_epoch
@@ -483,9 +478,10 @@ def train_upstream(
                 step += 1
                 batch_time = time.time() - t_end
                 t_end = time.time()
+                eta.update(batch_time)
                 if buf.push(epoch, step, loss, batch_time, data_time):
-                    log.info("epoch %d step %d loss %.4f (batch %.3fs data %.3fs)",
-                             epoch, step, buf.last_loss, batch_time, data_time)
+                    log.info("epoch %d step %d loss %.4f (batch %.3fs data %.3fs eta %.0fm)",
+                             epoch, step, buf.last_loss, batch_time, data_time, eta.eta_seconds / 60)
                     # the preemption check rides the log cadence
                     if guard.should_stop():
                         save()
@@ -506,4 +502,5 @@ def train_upstream(
                 save()
             if done:
                 break
+    finish_saves()
     return objective, step, ckpt_dir

@@ -20,7 +20,9 @@ since the last periodic save.
 The trainers (train/loop.py, train/decar_loop.py, train/deepcluster_loop.py,
 train/finetune_mast.py) install a guard around their epoch loops; on a
 positive ``should_stop()`` they flush the metrics, write the usual
-checkpoint at the current step, log, and return normally.
+checkpoint at the current step, log, and return normally. The guard's exit
+waits for the checkpoint writes in flight (``train.checkpoint`` saves in the
+background), so a preempted process leaves its last save whole on disk.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ import signal
 import threading
 
 import torch
+
+from audiossl_tpu_torch.train.checkpoint import wait_until_finished
 
 log = logging.getLogger("audiossl_tpu_torch.preemption")
 
@@ -63,11 +67,22 @@ class PreemptionGuard:
         return self
 
     def __exit__(self, *exc) -> None:
-        if self._installed:
-            for s, prev in self._prev.items():
-                signal.signal(s, prev)
-            self._prev.clear()
-            self._installed = False
+        """Waits for the saves in flight (the preemption save among them) and
+        puts the previous handlers back whatever happens. A failed write
+        raises here, unless the block is already leaving on an exception,
+        which then goes on and the write's error is logged."""
+        try:
+            wait_until_finished()
+        except Exception:
+            if exc[0] is None:
+                raise
+            log.exception("a checkpoint write failed while the trainer was leaving on %s", exc[0].__name__)
+        finally:
+            if self._installed:
+                for s, prev in self._prev.items():
+                    signal.signal(s, prev)
+                self._prev.clear()
+                self._installed = False
 
     @property
     def installed(self) -> bool:

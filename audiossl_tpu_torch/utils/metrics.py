@@ -1,8 +1,8 @@
-"""Training meters, clustering agreement and multi-label scores (port of the
-part of ``audiossl_tpu.utils.metrics`` the downstream probe, the clustering
-family and the supervised MAST fine-tune use: ``AverageMeter``,
-``Accuracy``, ``nmi``, ``mean_average_precision``, ``auc_roc`` and
-``d_prime``). numpy and scipy only: the card's machine has no sklearn."""
+"""Training meters, clustering agreement and multi-label scores (port of
+``audiossl_tpu.utils.metrics``): ``AverageMeter``, ``TrainMeter`` (the
+pretraining loop's ETA), ``Accuracy``, ``accuracy_topk``, ``nmi``,
+``mean_average_precision``, ``auc_roc``, ``d_prime`` and ``calc_recalls``.
+numpy and scipy only: the card's machine has no sklearn."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,6 +23,23 @@ class AverageMeter:
         self.sum += float(val) * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
+
+
+class TrainMeter:
+    """Step timing with an ETA (mvit/utils/meters.py:110-127)."""
+
+    def __init__(self, total_steps: int):
+        self.total_steps = total_steps
+        self.time = AverageMeter()
+        self.step = 0
+
+    def update(self, step_seconds: float):
+        self.time.update(step_seconds)
+        self.step += 1
+
+    @property
+    def eta_seconds(self) -> float:
+        return self.time.avg * max(self.total_steps - self.step, 0)
 
 
 class Accuracy:
@@ -117,3 +134,32 @@ def d_prime(auc: float) -> float:
     from scipy.stats import norm
 
     return float(norm.ppf(auc) * np.sqrt(2.0))
+
+
+def accuracy_topk(logits: np.ndarray, labels: np.ndarray, ks=(1,)) -> list[float]:
+    """The share of rows whose label is among the k highest logits, for each k."""
+    order = np.argsort(-logits, axis=1)
+    return [float((order[:, :k] == labels[:, None]).any(axis=1).mean()) for k in ks]
+
+
+def calc_recalls(s: np.ndarray) -> dict[str, float]:
+    """Cross-modal recall@{1,5,10} from a square similarity matrix (rows
+    audio, columns images or captions; row i's match is column i;
+    extras/mast_new/mast/utilities/util.py:9-67)."""
+    n = s.shape[0]
+    if s.shape != (n, n):
+        raise ValueError(f"calc_recalls takes a square similarity matrix, got {s.shape}")
+    a2i = np.argsort(-s, axis=0)[:10]  # each column's 10 best rows
+    i2a = np.argsort(-s, axis=1)[:, :10]  # each row's 10 best columns
+    a_found, i_found = np.full(n, -1), np.full(n, -1)
+    for i in range(n):
+        hits_a, hits_i = np.where(i2a[i] == i)[0], np.where(a2i[:, i] == i)[0]
+        if hits_a.size:
+            a_found[i] = hits_a[0]
+        if hits_i.size:
+            i_found[i] = hits_i[0]
+    out = {}
+    for k in (1, 5, 10):
+        out[f"A_r{k}"] = float(np.mean((a_found >= 0) & (a_found < k)))
+        out[f"I_r{k}"] = float(np.mean((i_found >= 0) & (i_found < k)))
+    return out

@@ -187,6 +187,23 @@ with 128).
     against world 1, and 10 s clips' sp log-mel against the one-process
     kernel frame for frame.
 
+  * the last modules (slice 17), phases 47-52: SS-MAST on MViTv2-B
+    (configs/ssmast.yaml at B=16) through train_upstream saving
+    asynchronously at steps 1, 2 and the epoch end (each save's blocking
+    time; the trained state saved once synchronously and once
+    asynchronously; a resume from step 1 against the straight run);
+    DeLoRes-S under run.fsdp on two gloo ranks (in phases 30-31's spawn: the
+    f32 gate against one process, 1 / 2 / 2 / 2 launches, the summed
+    reduce-scatter fault refused); SS-MAST under run.fsdp with remat (in
+    phases 38-41's spawn: its f32 gate and the recompute that skips the
+    gather refused, one step through train_upstream with 1 / 72 / 24 / 24
+    launches a rank, the recompute's forwards included); the Kaldi rows
+    kernel's magnitude mode (use_power=False) against its plain version and
+    timed beside the power mode (in phases 9 and 12); the streaming log-mel
+    and fbank on the card against the batch kernels; the native
+    torch.export artifact (the log-mel kernel as a custom op, a fixed
+    batch) loaded back and served against the module path.
+
 It checks the outputs, times each kernel, its plain version and a library
 composition (every kernel as CUDA graph replays, block 1's since slice 7;
 the attention at MAST-B's shapes and at AST-base's), serving (AudioNTT,
@@ -206,6 +223,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import math
@@ -724,6 +742,30 @@ def main() -> int:
     slice16 = {key: par[key] for key in ("pp_serve_launches_per_rank", "pp_train_launches_per_rank",
                                          "sp_long_audio_launches_per_rank", "sp_frames_launches_per_rank")}
     stamp(46)
+    # phases 47-52 (slice 17): the last modules. Phase 47: SS-MAST on
+    # MViTv2-B saving asynchronously, the blocking time of a save sync and
+    # async, a resume against the straight run; phase 48 (in phases 30-31's
+    # spawn): DeLoRes-S under run.fsdp on two gloo ranks, the f32 gate and
+    # its fault; phase 49 (in phases 38-41's spawn): SS-MAST under run.fsdp
+    # with remat, the f32 gate and its fault, one step through train_upstream;
+    # phase 50 (in phases 9 and 12): the magnitude fbank against its plain
+    # version and its time; phase 51: the streaming frontends against the
+    # batch kernels; phase 52: the native torch.export artifact served
+    with tempfile.TemporaryDirectory() as tmp:
+        async_ck = async_checkpoint_run(wav, tmp, dev, card)
+    srng = np.random.default_rng(1751)
+    t = np.arange(STREAM_SECONDS * 16000) / 16000.0
+    stream_pool = (0.3 * np.sin(2 * np.pi * srng.uniform(100, 2000, (STREAM_CLIPS, 1)) * t)
+                   + 0.05 * srng.standard_normal((STREAM_CLIPS, t.size))).astype(np.float32)
+    stream = streaming_checks(stream_pool, dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        native = native_export_run(tmp, pool, dev, card)
+    slice17 = {"async_ssmast_launches": async_ck["counts"],
+               "fsdp_delores_s_step_launches_per_rank": ddp["fsdp_delores_s_counts_per_rank"],
+               "fsdp_remat_ssmast_launches_per_rank": shard["fsdp_remat_ssmast_launches_per_rank"],
+               **{f"streaming_{name}_launches": st["counts"] for name, st in stream.items()},
+               "native_export_served_launches": native["counts"]}
+    stamp(52)
 
     # phase 25: the kernel line
     entries = [{
@@ -745,6 +787,7 @@ def main() -> int:
         **{key: c["log_mel_fused"] for key, c in slice14.items()},
         **{key: c["log_mel_fused"] for key, c in slice15.items()},
         **{key: c["log_mel_fused"] for key, c in slice16.items()},
+        **{key: c["log_mel_fused"] for key, c in slice17.items()},
         "max_abs_err": kernel_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -769,6 +812,7 @@ def main() -> int:
             **{key: c[name] for key, c in slice14.items()},
             **{key: c[name] for key, c in slice15.items()},
             **{key: c[name] for key, c in slice16.items()},
+            **{key: c[name] for key, c in slice17.items()},
             "max_abs_err": b1_err[name],
             **b1_times[name],
         })
@@ -788,6 +832,7 @@ def main() -> int:
             **{key: c[name] for key, c in slice14.items()},
             **{key: c[name] for key, c in slice15.items()},
             **{key: c[name] for key, c in slice16.items()},
+            **{key: c[name] for key, c in slice17.items()},
             "max_abs_err": max(attn_err[name], ast_err[name], probe9_err[name], ft_attn_err[name], tp_attn_err[name]),
             "ast_tp_max_abs_err": tp_attn_err[name],
             "mast_probe_max_abs_err": probe9_err[name],
@@ -812,8 +857,12 @@ def main() -> int:
             **{key: c[name] for key, c in slice14.items()},
             **{key: c[name] for key, c in slice15.items()},
             **{key: c[name] for key, c in slice16.items()},
+            **{key: c[name] for key, c in slice17.items()},
             "max_abs_err": max(rows_err[name], dispatch["max_abs_err"]) if name == "fused_rows_librosa" else rows_err[name],
             **rows_t[name],
+            # slice 17: the Kaldi mode's magnitude spectrum (use_power=False), a flag at launch
+            **({"magnitude": {"max_abs_err": rows_err["fused_rows_kaldi_magnitude"],
+                              **rows_t["fused_rows_kaldi_magnitude"]}} if name == "fused_rows_kaldi" else {}),
         })
     serving9 = {label: {k: v for k, v in run.items() if k != "counts"} for label, run in
                 (("mast_b_fbank", mast_serve), ("ast_base_fbank", ast_serve))}
@@ -831,7 +880,10 @@ def main() -> int:
                       "tar_native": {k: v for k, v in tar_run.items() if k != "counts"}, "nccl_world_one": nccl,
                       "tensor_parallel": {k: v for k, v in tp.items() if not k.endswith(("_per_rank", "_launches"))},
                       "sharded_state": {k: v for k, v in shard.items() if not k.endswith(("_per_rank", "_launches"))},
-                      "parallelism_library": {k: v for k, v in par.items() if not k.endswith("_launches_per_rank")}}))
+                      "parallelism_library": {k: v for k, v in par.items() if not k.endswith("_launches_per_rank")},
+                      "async_checkpoints": {k: v for k, v in async_ck.items() if k != "counts"},
+                      "streaming": {k: {kk: vv for kk, vv in v.items() if kk != "counts"} for k, v in stream.items()},
+                      "native_export": {k: v for k, v in native.items() if k != "counts"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
@@ -1481,15 +1533,22 @@ def attention_checks(dev) -> dict[str, float]:
 
 def rows_checks(dev) -> dict[str, float]:
     """The dense-rows kernel against its plain version: Kaldi mode at the
-    SS-MAST batch [64, 160000], librosa mode at the serving batch [256, 15200]."""
+    SS-MAST batch [64, 160000], librosa mode at the serving batch [256,
+    15200]; since slice 17 the Kaldi magnitude mode (``use_power=False``) at
+    [64, 160000] too (its data from a generator of its own)."""
     from audiossl_tpu_torch.frontend import fused_stft
-    from audiossl_tpu_torch.frontend.fbank import kaldi_fbank
+    from audiossl_tpu_torch.frontend.fbank import FbankConfig, kaldi_fbank
     from audiossl_tpu_torch.frontend.stft import log_mel
 
     rng = np.random.default_rng(11)
     errs = {}
+    mag = FbankConfig(use_power=False)
     for name, fn, plain, shape in (("fused_rows_kaldi", fused_stft.kaldi_fbank_fused, kaldi_fbank, (MAST_BATCH, MAST_CLIP)),
-                                   ("fused_rows_librosa", fused_stft.log_mel_dense_fused, log_mel, (SERVE_BATCH, CLIP))):
+                                   ("fused_rows_librosa", fused_stft.log_mel_dense_fused, log_mel, (SERVE_BATCH, CLIP)),
+                                   ("fused_rows_kaldi_magnitude", lambda w: fused_stft.kaldi_fbank_fused(w, mag),
+                                    lambda w: kaldi_fbank(w, mag), (MAST_BATCH, MAST_CLIP))):
+        if name.endswith("magnitude"):
+            rng = np.random.default_rng(1711)
         w = torch.from_numpy((0.5 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
         got, want = fn(w), plain(w)
         torch.cuda.synchronize()
@@ -1748,7 +1807,8 @@ def rows_times(dev, card) -> dict[str, dict]:
     """The rows kernel on prepared frame rows in both modes, its plain
     version and a torch.fft.rfft composition of the same function (the
     library yardstick), each a CUDA graph replay (graph_ms): Kaldi at
-    [64, 160000], librosa at [256, 15200]."""
+    [64, 160000] (power, and since slice 17 magnitude on the same rows),
+    librosa at [256, 15200]."""
     from audiossl_tpu_torch import no_tf32
     from audiossl_tpu_torch.frontend import fbank, fused_stft
     from audiossl_tpu_torch.frontend.stft import EPS32, EPS64, LogMelConfig, frame_signal
@@ -1761,26 +1821,31 @@ def rows_times(dev, card) -> dict[str, dict]:
     w = torch.from_numpy((0.5 * rng.standard_normal((SERVE_BATCH, CLIP))).astype(np.float32)).to(dev)
     lframes = frame_signal(w, lcfg.n_fft, lcfg.hop, lcfg.center).reshape(-1, lcfg.n_fft).contiguous()
     for name, mode, cfg, frames in (("fused_rows_kaldi", "kaldi", kcfg, kframes),
-                                    ("fused_rows_librosa", "librosa", lcfg, lframes)):
+                                    ("fused_rows_librosa", "librosa", lcfg, lframes),
+                                    ("fused_rows_kaldi_magnitude", "kaldi", fbank.FbankConfig(use_power=False), kframes)):
         c = fused_stft._rows_constants(cfg, frames.device)
         nfft = c.n
+        magnitude = name.endswith("magnitude")
 
-        def library(frames=frames, c=c, mode=mode):
+        def library(frames=frames, c=c, mode=mode, magnitude=magnitude):
             spec = torch.fft.rfft(frames * c.window, n=c.n)
             power = spec.real.square() + spec.imag.square()
+            if magnitude:
+                power = power.sqrt()
             if mode == "kaldi":
                 return torch.log(torch.clamp_min(power @ c.mel_t, EPS32))
             return torch.log((power + EPS64) @ c.mel_t + EPS32)
 
         with no_tf32():
-            lib_err = float((library() - fused_stft.fused_rows_plain(frames, c.bank, c.mel_t, mode)).abs().max())
+            plain = functools.partial(fused_stft.fused_rows_plain, frames, c.bank, c.mel_t, mode, magnitude)
+            lib_err = float((library() - plain()).abs().max())
             ms = graph_ms(lambda: fused_stft.fused_rows(frames, cfg, mode))
-            plain_ms = graph_ms(lambda: fused_stft.fused_rows_plain(frames, c.bank, c.mel_t, mode), iters=5)
+            plain_ms = graph_ms(plain, iters=5)
             library_ms = graph_ms(library)
         rows, width = frames.shape
         n_bins, n_mels = c.mel_t.shape
         nnz = int(torch.count_nonzero(c.mel_t))
-        flops = rows * (width + 2.5 * nfft * math.log2(nfft) + 3 * n_bins + 2 * nnz + 2 * n_mels)
+        flops = rows * (width + 2.5 * nfft * math.log2(nfft) + (4 if magnitude else 3) * n_bins + 2 * nnz + 2 * n_mels)
         nbytes = 4 * rows * (width + n_mels)
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
         print(f"[{card}] {name} [{rows}, {width}] rows, {nfft}-point FFT design: kernel {ms:.4f} ms, plain "
@@ -3343,7 +3408,7 @@ def step_distance(a: dict, b: dict) -> dict[str, float]:
 
 
 def ddp_delores_s_step(waves: np.ndarray, dev, timed: bool = False, perm: np.ndarray | None = None,
-                       f32: bool = False, fault: str | None = None) -> dict:
+                       f32: bool = False, fault: str | None = None, fsdp: bool = False) -> dict:
     """One DeLoRes-S SGD step at full width (configs/delores_s.yaml, bf16 or
     with ``f32`` in f32, seed TRAIN_SEED) on this process's share of
     ``waves``, ``fault`` planted (planted_fault): every process
@@ -3353,7 +3418,11 @@ def ddp_delores_s_step(waves: np.ndarray, dev, timed: bool = False, perm: np.nda
     rows; then TrainStep's loss and all-reduced gradients and the update.
     Counts from 0. ``perm`` reorders the batch's rows (views and masks
     alike) before the step. ``timed``: then 3 more steps on host clocks and
-    the busy share of 2 by torch.profiler."""
+    the busy share of 2 by torch.profiler. ``fsdp`` (slice 17): the
+    objective's parameters sharded over the group (run.fsdp: the encoder and
+    the projector gathered around their forwards), the gradients and the
+    parameters returned whole; its fault "sum_reduce_scatter"
+    (planted_shard_fault)."""
     from audiossl_tpu_torch.data.augment import AugmentConfig, AugmentPipeline
     from audiossl_tpu_torch.frontend import build_frontend
     from audiossl_tpu_torch.models.audiontt import AudioNTT2020Task6
@@ -3369,8 +3438,13 @@ def ddp_delores_s_step(waves: np.ndarray, dev, timed: bool = False, perm: np.nda
     frontend = build_frontend(pre["input"])
     pipeline = AugmentPipeline(AugmentConfig.from_dict(pre), epoch_samples=10**6)
     obj = init_objective("delores_s", cfg, seed=TRAIN_SEED, device=dev).train()
+    shards = None
+    if fsdp and dist.data_active():
+        from audiossl_tpu_torch.train.loop import shard_objective_
+
+        shards = shard_objective_(obj)
     step = TrainStep(obj, pipeline, frontend, sgd_torch([p for p in obj.parameters() if p.requires_grad], DDP_LR),
-                     torch.Generator(dev).manual_seed(0))
+                     torch.Generator(dev).manual_seed(0), layout=shards)
     state = pipeline.init_state(frontend.n_mels, frontend.num_frames(CLIP), dev)
     n = waves.shape[0]
     rows = slice(dist.rank() * n // dist.world(), (dist.rank() + 1) * n // dist.world())
@@ -3388,15 +3462,17 @@ def ddp_delores_s_step(waves: np.ndarray, dev, timed: bool = False, perm: np.nda
         if perm is not None:
             order = torch.from_numpy(perm).to(dev)
             v1, v2, masks[:] = v1[order], v2[order], [m[order] for m in masks]
-        with planted_fault(fault):
+        with (planted_shard_fault(fault) if fault == "sum_reduce_scatter" else planted_fault(fault)):
             loss = step.loss_and_grads(v1[rows], v2[rows])
     finally:
         AudioNTT2020Task6._dropout = original
-    grads = {k: p.grad.detach().float().cpu().clone() for k, p in obj.named_parameters()}
+    calls = dict(dist.calls)  # the step's own, before the gathers that make the dense copies below
+    whole = shards.dense_state_dict if shards is not None else (lambda sd: sd)
+    grads = {k: g.detach().float().cpu().clone() for k, g in whole({k: p.grad for k, p in obj.named_parameters()}).items()}
     step.update()
     torch.cuda.synchronize()
-    out = {"loss": float(loss), "grads": grads, "counts": read_launches(), "calls": dict(dist.calls),
-           "params": {k: p.detach().float().cpu().clone() for k, p in obj.named_parameters()}}
+    out = {"loss": float(loss), "grads": grads, "counts": read_launches(), "calls": calls,
+           "params": {k: p.detach().float().cpu().clone() for k, p in whole(dict(obj.named_parameters())).items()}}
     if timed:
         v1, v2 = v1[rows], v2[rows]
         step_s = []
@@ -3475,7 +3551,11 @@ def ddp_rank(rank: int, world: int, port: int, in_path: str, out_dir: str) -> No
                "delores_s_f32": brief(ddp_delores_s_step(d["waves"], dev, f32=True), "f32"),
                "faults": {f"{prec} {fault}": brief(ddp_delores_s_step(d["waves"], dev, f32=prec == "f32",
                                                                       fault=fault), prec)["err"]
-                          for prec in ("bf16", "f32") for fault in DDP_FAULTS}}
+                          for prec in ("bf16", "f32") for fault in DDP_FAULTS},
+               # slice 17: the same f32 step under run.fsdp, and with the sharded gradients summed
+               "delores_s_fsdp_f32": brief(ddp_delores_s_step(d["waves"], dev, f32=True, fsdp=True), "f32"),
+               "fsdp_fault": brief(ddp_delores_s_step(d["waves"], dev, f32=True, fsdp=True,
+                                                      fault="sum_reduce_scatter"), "f32")["err"]}
         config = ntt_config("delores_s")
         config["run"].update(save_path=os.path.join(d["tmp"], "ddp_delores_s"), epochs=1)
         reset_launches()
@@ -3554,9 +3634,23 @@ def ddp_runs(pool: np.ndarray, wav, tmp: str, dev, card) -> dict:
                 failures.append(f"the f32 gate does not catch the planted fault {name}: {e}")
         if failures:
             raise RuntimeError("; ".join(failures))
-        for key, res_st in (("bf16", st), ("f32", st32)):
+        # phase 48 (slice 17): DeLoRes-S under run.fsdp on the same rows, f32
+        fs, ferr = res["delores_s_fsdp_f32"], res["delores_s_fsdp_f32"]["err"]
+        caught = [k for k in res["fsdp_fault"] if res["fsdp_fault"][k] > bound32[k]]
+        print(f"[{card}] phase 48: DeLoRes-S under run.fsdp (AudioNTT-2048, f32, the encoder and the projector "
+              f"gathered around their forwards), rank {r}, against one process: {fmt(ferr)} (tol {bound32}); launches "
+              f"{fs['counts']}; collectives {fs['calls']}; planted fault sum_reduce_scatter: {fmt(res['fsdp_fault'])}, "
+              + (f"fails the f32 gate on {caught}" if caught else "passes the f32 gate"))
+        if not all(ferr[k] <= bound32[k] for k in ferr):
+            raise RuntimeError(f"rank {r}'s f32 DeLoRes-S step under run.fsdp strays from one process's: {ferr}")
+        if not caught:
+            raise RuntimeError(f"the f32 gate does not catch the summed fsdp reduce-scatter: {res['fsdp_fault']}")
+        want_calls = {**DDP_DELORES_S_CALLS, "fsdp_gather": 4, "fsdp_reduce_scatter": 4}
+        if fs["calls"] != want_calls:
+            raise RuntimeError(f"rank {r}'s fsdp DeLoRes-S step made collectives {fs['calls']}, expected {want_calls}")
+        for key, res_st in (("bf16", st), ("f32", st32), ("fsdp f32", fs)):
             expect_counts(f"DeLoRes-S step {key}, rank {r}", res_st["counts"], step_counts)
-            if res_st["calls"] != DDP_DELORES_S_CALLS:
+            if key != "fsdp f32" and res_st["calls"] != DDP_DELORES_S_CALLS:
                 raise RuntimeError(f"rank {r}'s {key} DeLoRes-S step made collectives {res_st['calls']}, "
                                    f"expected {DDP_DELORES_S_CALLS}")
         loop = res["delores_s_loop"]
@@ -3564,7 +3658,7 @@ def ddp_runs(pool: np.ndarray, wav, tmp: str, dev, card) -> dict:
                       {k: 2 * n for k, n in zip(NTT_KERNELS, TRAIN_LAUNCHES["delores_s"])})
         report[f"rank{r}"] = {**{f"{k}_err": v for k, v in err.items()}, **{f"{k}_err_f32": v for k, v in err32.items()},
                               "faults": res["faults"], "step_ms": st["step_ms"], "busy": st["busy"],
-                              "calls": st["calls"]}
+                              "calls": st["calls"], "fsdp_f32_err": ferr, "fsdp_fault": res["fsdp_fault"]}
     saved = torch.load(os.path.join(tmp, "ddp_delores_s_chkp", "state", "2.pt"), map_location="cpu", weights_only=True)
     aug = saved["augment"]
     if aug["world"] != DDP_WORLD or aug["mixup"]["bank"].shape[0] != DDP_WORLD or len(saved["generator"]) != DDP_WORLD:
@@ -3600,6 +3694,7 @@ def ddp_runs(pool: np.ndarray, wav, tmp: str, dev, card) -> dict:
         report[name] = {"counts_per_rank": ranks[0][name]["counts"], "calls_per_rank": ranks[0][name]["calls"],
                         "steps": steps}
     report["delores_s_counts_per_rank"] = ranks[0]["delores_s_step"]["counts"]
+    report["fsdp_delores_s_counts_per_rank"] = ranks[0]["delores_s_fsdp_f32"]["counts"]
     report["delores_s_loop_counts_per_rank"] = ranks[0]["delores_s_loop"]["counts"]
     return report
 
@@ -4150,9 +4245,9 @@ SHARD_GATE_CLIP = 1e-2  # the fine-tune gate's clip_grad_norm: below the gradien
 # the rows in another order, plus f32 round-off (DDP_FLOOR; the clip's norm
 # takes the loss's floor). Each kind's planted fault (the package is not
 # changed: the script swaps one function for the run) must fail its gate
-SHARD_KINDS = ("ssmast_fsdp", "ssmast_zero", "finetune_fsdp")
+SHARD_KINDS = ("ssmast_fsdp", "ssmast_zero", "finetune_fsdp", "ssmast_fsdp_remat")
 SHARD_FAULTS = {"ssmast_fsdp": "sum_reduce_scatter", "ssmast_zero": "zero_row_offset",
-                "finetune_fsdp": "replicated_n_times"}
+                "finetune_fsdp": "replicated_n_times", "ssmast_fsdp_remat": "recompute_skips_gather"}
 
 
 @contextlib.contextmanager
@@ -4160,8 +4255,10 @@ def planted_shard_fault(fault: str | None):
     """``fault`` planted in the package for the block: the fsdp gradients'
     reduce-scatter as a sum over the data axis (not its mean), the clip's
     global norm with the whole leaves summed over the axis as the pieces
-    are (each counted n times), or each rank's ZeRO slice taken from the
-    next row while its gradient is its own row's."""
+    are (each counted n times), each rank's ZeRO slice taken from the
+    next row while its gradient is its own row's, or (slice 17) a
+    rematerialised unit's recompute, which runs inside the backward,
+    building each whole weight from this rank's piece alone."""
     from audiossl_tpu_torch.parallel import dist, fsdp
     from audiossl_tpu_torch.train import zero
 
@@ -4174,8 +4271,17 @@ def planted_shard_fault(fault: str | None):
         sq = torch.cat([t.float().flatten() for t in list(sharded) + list(whole)]).square().sum()
         return dist.all_reduce_sum(sq, "fsdp_norm")
 
-    saved = dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice
-    if fault == "sum_reduce_scatter":
+    gather = fsdp.gather_pieces
+
+    def recompute_skips_gather(pieces, dims):
+        if torch._C._current_graph_task_id() == -1:  # not inside a backward: the forward's real gather
+            return gather(pieces, dims)
+        return [torch.cat([p.detach()] * dist.dp_world(), dim=d) for p, d in zip(pieces, dims)]
+
+    saved = dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice, fsdp.gather_pieces
+    if fault == "recompute_skips_gather":
+        fsdp.gather_pieces = recompute_skips_gather
+    elif fault == "sum_reduce_scatter":
         dist.reduce_scatter_mean = sum_reduce_scatter
     elif fault == "replicated_n_times":
         fsdp.global_sq_norm = replicated_n_times
@@ -4186,7 +4292,7 @@ def planted_shard_fault(fault: str | None):
     try:
         yield
     finally:
-        dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice = saved
+        dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice, fsdp.gather_pieces = saved
 
 
 def shard_gate_config() -> dict:
@@ -4202,7 +4308,8 @@ def shard_gate_step(kind: str, inputs: dict, dev, perm: np.ndarray | None = None
     process: the whole batch, the state whole and the plain optimizer),
     seeded weights alike on every rank, ``fault`` planted, ``perm``
     reordering the rows first: "ssmast_fsdp" (TrainStep's loss and backward
-    under fsdp), "ssmast_zero" (one AdamW step through ZeRO), "finetune_fsdp"
+    under fsdp; "ssmast_fsdp_remat" with every MViT block rematerialised),
+    "ssmast_zero" (one AdamW step through ZeRO), "finetune_fsdp"
     (MAST tiny's classifier, the augmentations off, layer-decay AdamW with
     the clip engaged). Returns the loss (the axis's mean), the whole
     gradients (ZeRO: the whole update instead), the fine-tune's clip norm."""
@@ -4238,8 +4345,10 @@ def shard_gate_step(kind: str, inputs: dict, dev, perm: np.ndarray | None = None
                                     torch.cat([p.grad.flatten() for p in step.params]).square().sum().sqrt())
             grads = {n: p.grad for n, p in model.named_parameters()}
         else:
-            obj = init_objective("ssmast", shard_gate_config(), seed=0).to(dev).train()
-            shards = shard_objective_(obj) if kind == "ssmast_fsdp" and sharded else None
+            cfg = shard_gate_config()
+            cfg["pretrain"]["remat"] = kind == "ssmast_fsdp_remat"
+            obj = init_objective("ssmast", cfg, seed=0).to(dev).train()
+            shards = shard_objective_(obj) if kind.startswith("ssmast_fsdp") and sharded else None
             params = [p for p in obj.parameters() if p.requires_grad]
             opt = ZeroOptimizer(params, adamw) if kind == "ssmast_zero" and sharded else adamw(params)
             step = TrainStep(obj, None, None, opt, torch.Generator(dev).manual_seed(0),
@@ -4265,7 +4374,7 @@ def shard_gate_inputs() -> dict:
     b = SHARD_GATE_BATCH
     ssmast = {"v1": rng.standard_normal((b, 1, 64, 96)).astype(np.float32),
               "v2": rng.standard_normal((b, 1, 64, 96)).astype(np.float32)}
-    return {"ssmast_fsdp": ssmast, "ssmast_zero": ssmast,
+    return {"ssmast_fsdp": ssmast, "ssmast_zero": ssmast, "ssmast_fsdp_remat": ssmast,
             "finetune_fsdp": {"waves": (0.3 * rng.standard_normal((b, 16000))).astype(np.float32),
                               "targets": (rng.random((b, 8)) < 0.4).astype(np.float32)}}
 
@@ -4292,17 +4401,20 @@ def shard_moment_shapes(opt, names: dict, keys: tuple[str, ...]) -> dict[str, tu
     return out
 
 
-def shard_ssmast_run(d: dict, knob: str, steps: int, dev, resume: bool = False) -> dict:
+def shard_ssmast_run(d: dict, knob: str, steps: int, dev, resume: bool = False, remat: bool = False) -> dict:
     """SS-MAST through train_upstream on a copy of configs/ssmast.yaml with
-    ``run.<knob>: true`` (B=64 as 32 a rank, bf16, MViTv2-B), ``steps``
-    steps, counts and collectives from 0, peak memory above what the rank
-    held before; the pieces and moments this rank held; with ``resume``
-    then one step more from the run's dense checkpoint."""
+    ``run.<knob>: true`` (B=64 as 32 a rank, bf16, MViTv2-B; ``remat``:
+    with pretrain.remat, slice 17), ``steps`` steps, counts and collectives
+    from 0, peak memory above what the rank held before; the pieces and
+    moments this rank held; with ``resume`` then one step more from the
+    run's dense checkpoint."""
     from audiossl_tpu_torch.parallel import dist
     from audiossl_tpu_torch.train.loop import train_upstream
 
     config = ssmast_config()
-    config["run"].update(save_path=os.path.join(d["tmp"], f"shard_{knob}"), epochs=1, **{knob: True})
+    config["run"].update(save_path=os.path.join(d["tmp"], f"shard_{knob}" + ("_remat" if remat else "")), epochs=1,
+                         **{knob: True})
+    config["pretrain"]["remat"] = remat
     from audiossl_tpu_torch.train import loop
 
     built, original = [], loop.build_zero_optimizer
@@ -4414,6 +4526,7 @@ def shard_rank(rank: int, world: int, port: int, in_path: str, out_dir: str) -> 
                 out["gates"][f"{kind} {SHARD_FAULTS[kind]}"] = shard_gate_step(kind, d["gates"][kind], dev,
                                                                                fault=SHARD_FAULTS[kind])
             out["fsdp"] = shard_ssmast_run(d, "fsdp", SHARD_FSDP_STEPS, dev, resume=True)
+            out["fsdp_remat"] = shard_ssmast_run(d, "fsdp", 1, dev, remat=True)
             out["zero"] = shard_ssmast_run(d, "zero_optimizer", SHARD_ZERO_STEPS, dev)
             out["finetune"] = shard_finetune_run(d, dev)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -4527,6 +4640,16 @@ def shard_runs(wav, tmp: str, dev, card) -> dict:
                   f"the rank held before; one fresh process at B={batch}: {peaks['ssmast'] / 2**30:.3f} GiB "
                   f"({st['peak_bytes'] / peaks['ssmast']:.3f} of it, {(peaks['ssmast'] - st['peak_bytes']) / 2**30:+.3f} "
                   "GiB less)")
+        # phase 49 (slice 17): one SS-MAST step under run.fsdp with remat: each
+        # block's recompute runs the attention forward again on the gathered weights
+        rm = res["fsdp_remat"]
+        want = {**shard_expected("ssmast", 1), "rel_attention_fwd": 3 * 24}
+        expect_counts(f"SS-MAST run.fsdp with remat, rank {r}, 1 step", rm["counts"], want)
+        print(f"[{card}] phase 49: SS-MAST run.fsdp with remat through train_upstream (MViTv2-B, B={MAST_BATCH} as "
+              f"{batch} a rank, bf16), rank {r}: 1 step in {rm['seconds']:.1f} s; launches {rm['counts']} (the "
+              f"recompute's 24 forwards included); collectives {rm['calls']} (the checkpoint's included); peak memory "
+              f"{rm['peak_bytes'] / 2**30:.3f} GiB above what the rank held before, against "
+              f"{res['fsdp']['peak_bytes'] / 2**30:.3f} GiB without remat")
         ftr = res["finetune"]
         eval_batches = -(-(-(-FT_EVAL // SHARD_WORLD)) // batch)
         expect_counts(f"fine-tune --fsdp, rank {r}", ftr["counts"],
@@ -4569,6 +4692,8 @@ def shard_runs(wav, tmp: str, dev, card) -> dict:
     report.update({
         "fsdp_ssmast_launches_per_rank": rs[0]["fsdp"]["counts"], "zero_ssmast_launches_per_rank": rs[0]["zero"]["counts"],
         "fsdp_finetune_launches_per_rank": rs[0]["finetune"]["counts"],
+        "fsdp_remat_ssmast_launches_per_rank": rs[0]["fsdp_remat"]["counts"],
+        "fsdp_remat_peak_gib_per_rank": [res["fsdp_remat"]["peak_bytes"] / 2**30 for res in rs],
         "collectives_a_step_per_rank": {knob: {k: v / steps for k, v in rs[0][knob]["calls"].items()}
                                         for knob, steps in (("fsdp", SHARD_FSDP_STEPS), ("zero", SHARD_ZERO_STEPS))},
         "finetune_collectives_per_rank": rs[0]["finetune"]["calls"],
@@ -4579,6 +4704,235 @@ def shard_runs(wav, tmp: str, dev, card) -> dict:
         "served_launches": served})
     return report
 
+
+
+# ---------------------------------------------------------------- slice 17: the last modules
+
+ASYNC_BATCH = 16  # SS-MAST on MViTv2-B (configs/ssmast.yaml at its full width) with a cut batch
+STREAM_CLIPS, STREAM_SECONDS = 8, 10  # the streaming frontends: 8 clips of 10 s in chunks
+STREAM_FIRST, STREAM_CHUNK = 3200, 1600  # 0.2 s, then 0.1 s chunks
+NATIVE_BATCH = 64  # the native serving program's fixed batch
+NATIVE_REQUESTS = (1, 7, 64, 65)
+
+
+def state_distance(a: dict, b: dict) -> float:
+    """max|d| over the objective's tensors and the optimizer's moments of two
+    saved states (0.0: equal bits)."""
+    out = 0.0
+    for k, v in a["objective"].items():
+        if v.is_floating_point():
+            out = max(out, float((v.float() - b["objective"][k].float()).abs().max()))
+    for i, st in a["optimizer"]["state"].items():
+        for k, v in st.items():
+            if torch.is_tensor(v) and v.is_floating_point():
+                out = max(out, float((v.float() - b["optimizer"]["state"][i][k].float()).abs().max()))
+    return out
+
+
+def async_checkpoint_run(wav, tmp: str, dev, card) -> dict:
+    """Phase 47: SS-MAST on MViTv2-B through train_upstream (configs/ssmast.yaml,
+    B=ASYNC_BATCH, bf16, cuDNN deterministic) for 2 steps with save_every 1:
+    a save at step 1, one at step 2 while the step-1 write may still run,
+    and the epoch end's at step 2 again, each call timed; then the trained
+    state (objective and AdamW on the card) saved once synchronously and
+    once asynchronously, each call's blocking time, and the background
+    write's; then a resume from the step-1 checkpoint alone to step 2, its
+    state against the straight run's (equal bits; where they differ, a
+    second straight run gives the yardstick, 4 times its distance)."""
+    import shutil
+
+    from audiossl_tpu_torch.train import checkpoint as ckpt
+    from audiossl_tpu_torch.train.loop import train_upstream
+
+    csv = ssmast_wavs(tmp, wav, 2 * ASYNC_BATCH)
+    config = ssmast_config()
+    config["run"].update(batch_size=ASYNC_BATCH, epochs=1)
+    calls, original = [], ckpt.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        original(*a, **kw)
+        calls.append(time.perf_counter() - t0)
+
+    built, restore = tp_capture_optimizer()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ckpt.save_checkpoint = timed_save
+    try:
+        def run(name, load=None):
+            config["run"]["save_path"] = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            obj, step, d = train_upstream(config, csv, "ssmast", load_checkpoint=load, max_steps=2, save_every=1,
+                                          device=dev)
+            return obj, step, d, time.perf_counter() - t0
+
+        reset_launches()
+        obj, step, straight, seconds = run("async_straight")
+        counts = read_launches()
+        loop_calls = list(calls)
+        opt = built[-1][0]
+        state = {"objective": obj.state_dict(), "optimizer": opt.state_dict()}
+        export = obj.export_state_dict()
+        state_bytes = sum(v.numel() * v.element_size() for v in state["objective"].values()) + sum(
+            v.numel() * v.element_size() for st in state["optimizer"]["state"].values() for v in st.values()
+            if torch.is_tensor(v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        original(os.path.join(tmp, "timing"), 10, state, export, block=True)
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        original(os.path.join(tmp, "timing"), 11, state, export)
+        async_s = time.perf_counter() - t0
+        ckpt.wait_until_finished()
+        write_s = time.perf_counter() - t0
+        del obj, opt, state, export
+        built.clear()
+        half = os.path.join(tmp, "async_half_chkp")
+        os.makedirs(os.path.join(half, "state"))
+        shutil.copy(os.path.join(straight, "state", "1.pt"), os.path.join(half, "state", "1.pt"))
+        shutil.copy(os.path.join(straight, "config.yaml"), os.path.join(half, "config.yaml"))
+        _, rstep, resumed, _ = run("async_resumed", load=half)
+        load = lambda d: torch.load(os.path.join(d, "state", "2.pt"), map_location="cpu", weights_only=True)  # noqa: E731
+        a = load(straight)
+        dist_resume, dist_straight = state_distance(load(resumed), a), None
+        if dist_resume > 0.0:
+            _, _, again, _ = run("async_again")
+            dist_straight = state_distance(load(again), a)
+    finally:
+        ckpt.save_checkpoint = original
+        restore()
+        torch.backends.cudnn.deterministic = deterministic
+    expect_counts("SS-MAST through train_upstream with async saves, 2 steps", counts,
+                  {"fused_rows_kaldi": 2, "rel_attention_fwd": 2 * 48, "rel_attention_bwd_dq": 2 * 24,
+                   "rel_attention_bwd_dkv": 2 * 24})
+    print(f"[{card}] phase 47: SS-MAST (MViTv2-B, B={ASYNC_BATCH}, bf16) 2 steps through train_upstream with saves "
+          f"at steps 1, 2 and the epoch end in {seconds:.1f} s; each save call blocked the loop "
+          f"{[round(c, 4) for c in loop_calls]} s; launches {counts}")
+    print(f"[{card}] phase 47: the trained state ({state_bytes / 2**30:.3f} GiB on the card: both towers, the "
+          f"queue, AdamW's moments): a synchronous save blocks {sync_s:.4f} s, an async save {async_s:.4f} s (the "
+          f"copy to host memory), its write then ran {write_s - async_s:.4f} s in the background")
+    print(f"[{card}] phase 47: resumed from the step-1 checkpoint to step {rstep}: max|d| from the straight run "
+          f"{dist_resume:.3e}" + ("; equal bits" if dist_resume == 0.0 else
+                                  f"; a second straight run is {dist_straight:.3e} from the first"))
+    if step != 2 or rstep != 2 or len(loop_calls) != 3:
+        raise RuntimeError(f"the async run took {step} / {rstep} steps and {len(loop_calls)} saves")
+    if dist_resume > 0.0 and not dist_resume <= 4.0 * dist_straight:
+        raise RuntimeError(f"the resumed state is {dist_resume:.3e} from the straight run (runs differ by "
+                           f"{dist_straight:.3e})")
+    if not async_s < sync_s:
+        raise RuntimeError(f"an async save blocked {async_s:.4f} s, a synchronous one {sync_s:.4f} s")
+    return {"counts": counts, "save_calls_s": loop_calls, "sync_save_s": sync_s, "async_save_s": async_s,
+            "background_write_s": write_s - async_s, "state_gib": state_bytes / 2**30,
+            "resume_max_abs_diff": dist_resume, "straight_runs_max_abs_diff": dist_straight}
+
+
+def streaming_checks(pool_wav, dev, card) -> dict:
+    """Phase 51: the streaming log-mel (the default config: the log-mel kernel
+    with center=False on each chunk) and the streaming fbank (the rows kernel
+    in Kaldi mode, power and magnitude), STREAM_CLIPS clips of
+    STREAM_SECONDS s in a first chunk of STREAM_FIRST samples and chunks of
+    STREAM_CHUNK, against the batch kernels on the whole clips (TOL_KERNEL,
+    and whether the bits are equal); counts from 0 (one launch a chunk, and
+    the log-mel's finish)."""
+    from audiossl_tpu_torch.frontend import fused_stft
+    from audiossl_tpu_torch.frontend.fbank import FbankConfig
+    from audiossl_tpu_torch.frontend.stft import LogMelConfig
+    from audiossl_tpu_torch.frontend.streaming import StreamingFbank, StreamingLogMel
+
+    waves = torch.from_numpy(pool_wav).to(dev)
+    n = waves.shape[1]
+    chunks = [(s, min(s + STREAM_CHUNK, n)) for s in range(STREAM_FIRST, n, STREAM_CHUNK)]
+    out = {}
+    for name, sl, batch in (("log_mel", StreamingLogMel(LogMelConfig()), lambda w: fused_stft.log_mel_fused(w)),
+                            ("fbank", StreamingFbank(FbankConfig()), lambda w: fused_stft.kaldi_fbank_fused(w)),
+                            ("fbank_magnitude", StreamingFbank(FbankConfig(use_power=False)),
+                             lambda w: fused_stft.kaldi_fbank_fused(w, FbankConfig(use_power=False)))):
+        reset_launches()
+        t0 = time.perf_counter()
+        state, first = sl.start(waves[:, :STREAM_FIRST])
+        outs = [first]
+        for a, b in chunks:
+            state, o = sl.step(state, waves[:, a:b])
+            outs.append(o)
+        if name == "log_mel":
+            outs.append(sl.finish(state))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        got = torch.cat(outs, dim=-1 if name == "log_mel" else -2)
+        want = batch(waves)
+        err = float((got - want).abs().max()) if got.shape == want.shape else float("inf")
+        launches = 1 + len(chunks) + (name == "log_mel")
+        expect_counts(f"streaming {name}", counts, {"log_mel_fused" if name == "log_mel" else "fused_rows_kaldi": launches})
+        print(f"[{card}] phase 51: streaming {name}, {STREAM_CLIPS} clips of {STREAM_SECONDS} s in {launches} chunks: "
+              f"frames {tuple(got.shape)} against the batch kernel {tuple(want.shape)}: max|d| {err:.3e} (tol "
+              f"{TOL_KERNEL})" + ("; equal bits" if err == 0.0 else "") + f"; {seconds:.3f} s; launches {counts}")
+        if not err <= TOL_KERNEL:
+            raise RuntimeError(f"the streaming {name} strays from the batch kernel: {err}")
+        out[name] = {"max_abs_err": err, "chunks": launches, "counts": counts}
+    return out
+
+
+def native_export_run(tmp: str, pool: np.ndarray, dev, card) -> dict:
+    """Phase 52: AudioNTT-2048 behind the log-mel (configs/delores_s.yaml,
+    seeded, bf16) exported by ``serve.export --frontend_impl native`` at a
+    batch of NATIVE_BATCH (the log-mel kernel as the custom op
+    ``audiossl_torch::log_mel``), loaded back and served to NATIVE_REQUESTS,
+    counts from 0 (one log-mel launch a batch), against the module path at
+    the same batches (TOL_BF16 of max|module|); the portable program
+    (symbolic batch, plain ops) beside it."""
+    from audiossl_tpu_torch.models.audiontt import random_state_dict
+    from audiossl_tpu_torch.serve import export as serve
+
+    sd_path = os.path.join(tmp, "audiontt.pth")
+    torch.save(random_state_dict(64, 2048, seed=0), sd_path)
+    cfg = os.path.join(ROOT, "configs", "delores_s.yaml")
+    arts, export_s = {}, {}
+    for impl in ("native", "portable", "module"):
+        arts[impl] = os.path.join(tmp, f"ntt_{impl}.pt2")
+        t0 = time.perf_counter()
+        serve.main(["--state_dict", sd_path, "--config", cfg, "--out", arts[impl], "--frontend_impl", impl,
+                    "--batch", str(NATIVE_BATCH), "--device", str(dev)])
+        export_s[impl] = time.perf_counter() - t0
+    art = serve.load_artifact(arts["native"])
+    nodes = [str(n.target) for n in art["program"].graph.nodes if "audiossl_torch" in str(n.target)]
+    native = serve.ServingEncoder(arts["native"], device=dev)
+    module = serve.ServingEncoder(arts["module"], fixed_batch=NATIVE_BATCH, device=dev)
+    portable = serve.ServingEncoder(arts["portable"], bucket=NATIVE_BATCH, device=dev)
+    native(pool[:NATIVE_BATCH])  # the program's first run, before the counts
+    reset_launches()
+    outs = {n: native(pool[:n]) for n in NATIVE_REQUESTS}
+    torch.cuda.synchronize()
+    counts = read_launches()
+    batches = sum(-(-n // NATIVE_BATCH) for n in NATIVE_REQUESTS)
+    expect_counts("the native program served", counts, {"log_mel_fused": batches})
+    errs = {}
+    for n, o in outs.items():
+        want = module(pool[:n])
+        if o.shape != want.shape or not np.isfinite(o).all():
+            raise RuntimeError(f"the native program served {o.shape} for {n} clips")
+        errs[n] = float(np.abs(o - want).max() / np.abs(want).max())
+    reset_launches()
+    p = portable(pool[:NATIVE_BATCH])
+    torch.cuda.synchronize()
+    pcounts = read_launches()
+    perr = float(np.abs(p - module(pool[:NATIVE_BATCH])).max() / np.abs(outs[NATIVE_BATCH]).max())
+    w = torch.from_numpy(pool[:NATIVE_BATCH]).to(dev)
+    with torch.inference_mode():
+        native_ms = cuda_ms(lambda: native.module(w), iters=10)
+        module_ms = cuda_ms(lambda: module.embedder(w), iters=10)
+        portable_ms = cuda_ms(lambda: portable.module(w), iters=10)
+    print(f"[{card}] phase 52: serve.export --frontend_impl native (AudioNTT-2048, bf16, batch {NATIVE_BATCH}; "
+          f"custom-op nodes {nodes}; exported in {export_s['native']:.1f} s) loaded back and served "
+          f"{list(NATIVE_REQUESTS)} clips in {batches} batches: launches {counts}; against the module path at the "
+          f"same batches max|d| / max|module| {max(errs.values()):.3e} (tol {TOL_BF16}); the portable program "
+          f"(plain ops, launches {pcounts}) {perr:.3e}; a batch of {NATIVE_BATCH}: native {native_ms:.3f} ms, module "
+          f"{module_ms:.3f} ms, portable {portable_ms:.3f} ms (CUDA events)")
+    if len(nodes) != 1 or max(errs.values()) > TOL_BF16 or perr > TOL_BF16:
+        raise RuntimeError(f"the native program: nodes {nodes}, errors {errs}, portable {perr}")
+    expect_counts("the portable program served", pcounts, {})
+    return {"counts": counts, "max_rel_err": max(errs.values()), "portable_rel_err": perr, "export_s": export_s,
+            "native_ms": native_ms, "module_ms": module_ms, "portable_ms": portable_ms}
 
 
 # ---------------------------------------------------------------- the parallelism library: pipeline, expert, sequence

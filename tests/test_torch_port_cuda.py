@@ -1026,3 +1026,52 @@ def test_sp_log_mel_frames_on_the_card(cuda, parallel_lib_ranks):
     assert np.abs(got - want).max() <= 1e-3
     for r in ranks:
         assert r["sp"]["launches"] == [0, 0, 0, 1] and r["sp"]["calls"]["sp_halo"] == 1
+
+
+# ---------------------------------------------------------------- slice 17: the magnitude fbank, the native export
+
+
+@pytest.mark.parametrize("n", [160000, 400, 12345])
+def test_fused_rows_kaldi_magnitude_matches_plain(cuda, n):
+    """The Kaldi mode with use_power=False: sqrt(power) into the mel product,
+    as the plain version and JAX's plain kaldi_fbank; the power mode's bits
+    on the same rows are unchanged, and the two modes differ."""
+    from audiossl_tpu_torch.frontend.fbank import FbankConfig, kaldi_fbank
+
+    cfg = FbankConfig(use_power=False)
+    w = torch.from_numpy((0.5 * np.random.default_rng(n + 17).standard_normal((3, n))).astype(np.float32)).to(cuda)
+    before = fused_stft.fused_rows.launches["kaldi"]
+    got = fused_stft.kaldi_fbank_fused(w, cfg)
+    want = kaldi_fbank(w, cfg)
+    power = fused_stft.kaldi_fbank_fused(w)
+    torch.cuda.synchronize()
+    assert fused_stft.fused_rows.launches["kaldi"] == before + 2
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(got, fused_stft.kaldi_fbank_fused(w, cfg))
+    assert torch.equal(power, fused_stft.kaldi_fbank_fused(w)) and float((power - got).abs().max()) > 1e-1
+
+
+def test_native_export_serves_through_the_log_mel_kernel(cuda, tmp_path):
+    """An AudioNTT (d = 64) behind the log-mel exported with the log-mel
+    custom op at a batch of 4 on the CPU, moved to the card at load: one
+    kernel launch a batch, the embeddings of the module path at the same
+    batches within 1e-3 of max(1, max|ref|) (f32)."""
+    from audiossl_tpu_torch.frontend import FrontendSpec
+    from audiossl_tpu_torch.models.audiontt import random_state_dict
+    from audiossl_tpu_torch.serve import export as serve
+
+    emb = serve.build_embedder(random_state_dict(64, 64, 0), FrontendSpec("logmel", 64, 16000), 15200,
+                               torch.float32, "cpu")
+    path = str(tmp_path / "native.pt2")
+    serve.save_exported(emb.artifact(), path, "native", batch=4)
+    enc = serve.ServingEncoder(path, device=cuda)
+    module = serve.ServingEncoder(emb.artifact(), fixed_batch=4, device=cuda)
+    waves = (0.3 * np.random.default_rng(5).standard_normal((6, 15200))).astype(np.float32)
+    before = fused_stft.log_mel_fused.launches
+    got = enc(waves)
+    torch.cuda.synchronize()
+    assert fused_stft.log_mel_fused.launches == before + 2
+    want = module(waves)
+    assert got.shape == want.shape == (6, 64)
+    assert np.abs(got - want).max() <= 1e-3 * max(1.0, float(np.abs(want).max()))

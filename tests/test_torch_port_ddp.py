@@ -21,6 +21,7 @@ Tolerances, each relative to max(1, max|ref|) unless said otherwise:
 import copy
 import functools
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -408,7 +409,9 @@ def ranks(tmp_path_factory):
     finally:
         while not ctx.join():
             pass
-    return [torch.load(str(d / f"rank{r}.pt"), weights_only=False) for r in range(WORLD)]
+    out = [torch.load(str(d / f"rank{r}.pt"), weights_only=False) for r in range(WORLD)]
+    shutil.rmtree(d, ignore_errors=True)  # the ranks' inputs and results, read: a whole run's disk stays bounded
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,6 +11,7 @@ steps against JAX's own trainer). MAST tiny cut to 4 blocks on both sides, 64 me
 frames (0.5 s clips), f32."""
 import json
 import os
+import shutil
 
 import numpy as np
 import pandas as pd
@@ -130,6 +131,7 @@ def test_cli_trains_evaluates_checkpoints_and_resumes_bit_for_bit(data, tmp_path
     assert "blocks.0.attn.rel_pos_h" in enc and not any(k.startswith("head") for k in enc)
     with open(os.path.join(straight, "config.yaml")) as f:
         assert yaml.safe_load(f)["finetune"]["model_size"] == "tiny"
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints, hundreds of MB: a whole run's disk stays bounded
 
 
 def test_resume_continues_the_step_counter(data, tmp_path):
@@ -140,6 +142,7 @@ def test_resume_continues_the_step_counter(data, tmp_path):
     assert sorted(os.listdir(os.path.join(first, "state"))) == ["4.pt"]
     _, again = _run(data, path, tmp_path, "c", resume=first, extra=["--epochs", "2"])
     assert sorted(os.listdir(os.path.join(again, "state"))) == ["4.pt", "8.pt"]
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints, hundreds of MB: a whole run's disk stays bounded
 
 
 def test_export_serves_and_probes(data, tmp_path, caplog):

@@ -5,6 +5,7 @@ of both steps, the second after one layer-decay AdamW update, within 1e-5
 (relative). MAST tiny cut to 4 blocks on both sides, 64 mels x 48 frames,
 f32, B = 8. JAX's whole trainer runs once here (it compiles)."""
 import json
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -61,3 +62,4 @@ def test_two_steps_without_augmentations_match_the_jax_trainer(data, tmp_path, m
     assert len(want) == len(got) == 2 and want[0] != want[1]
     for g, w in zip(got, want):
         assert abs(g - w) <= TOL_LOSS * abs(w), (got, want)
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints, hundreds of MB: a whole run's disk stays bounded

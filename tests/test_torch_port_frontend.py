@@ -283,14 +283,15 @@ class TestFbank:
             fused_stft.fused_rows_plain(torch.zeros((1, 400)), torch.zeros((400, 514)), torch.zeros((257, 128)), "htk")
 
 
-def _emulate_fft_rows(frames: np.ndarray, cfg, mode: str) -> np.ndarray:
+def _emulate_fft_rows(frames: np.ndarray, cfg, mode: str, magnitude: bool = False) -> np.ndarray:
     """f32 NumPy model of csrc/fused_rows.cu's FFT design, from the
     constants the wrapper hands it (fused_stft.rows_constants): window, pack
     even/odd samples as M = N/2 complex points, radix-4 Stockham passes (a
     radix-2 pass last where log2 M is odd) with the f32 twiddle table, the
     split post-pass X[k] = E + W_N^k O, power, the bins below n_dense from
     the dense design's arithmetic, each filter over its packed nonzero
-    weights, and the mode's log."""
+    weights (``magnitude``: over the square root of each bin's power, the
+    Kaldi magnitude mode), and the mode's log."""
     c = fused_stft.rows_constants(cfg)
     n, m = c.n, c.n // 2
     tw = (c.twiddle[:, 0] + 1j * c.twiddle[:, 1]).astype(np.complex64)
@@ -336,7 +337,8 @@ def _emulate_fft_rows(frames: np.ndarray, cfg, mode: str) -> np.ndarray:
     mel = np.zeros((frames.shape[0], len(c.mel_range)), np.float32)
     for i, (lo, hi) in enumerate(c.mel_range):
         w = c.fb_packed[c.mel_off[i]: c.mel_off[i] + hi - lo]
-        p = power[:, lo:hi] + (np.float32(EPS64) if mode == "librosa" else np.float32(0))
+        p = np.sqrt(power[:, lo:hi]) if magnitude else power[:, lo:hi] + (
+            np.float32(EPS64) if mode == "librosa" else np.float32(0))
         mel[:, i] = p @ w
     if mode == "librosa":
         return np.log(mel + np.float32(EPS32))

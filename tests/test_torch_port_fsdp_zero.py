@@ -29,10 +29,23 @@ Tolerances, each relative to max(1, max|ref|) unless said otherwise:
   relative, each gradient by the gradients' bound; the CLI's two steps
   against JAX's trainer with ``fsdp`` at world 2: the losses 1e-5 relative,
   the saved parameters 1e-5, both Adam moments by the gradients' bound;
+* the SS-MAST step under fsdp with ``remat`` (each block's recompute
+  gathering again) against the same JAX step by the same bounds; DeLoRes-S
+  under fsdp against JAX's GSPMD step (tree_shardings, SGD): the loss 1e-5
+  relative, the gradients by the gradients' bound, the state after the step
+  1e-5; DeLoRes-M, SLICER and UnFuSeD under fsdp by the same bounds against
+  JAX's GSPMD step (their MoCo state, key tower and queue, under
+  ``tree_shardings``) on each of 4 batches from the same state, every
+  gradient bound met in at least half of them (a max-pool or ReLU routing
+  that flips at round-off moves AudioNTT's gradients past it in some, as
+  tests/test_torch_port_objectives.py allows), where JAX's one-device step
+  meets it against its GSPMD step too; and against the same ranks'
+  data-parallel step (whole weights; of SLICER, whose cluster loss sees
+  the whole batch only under fsdp, the state the gradients do not set);
 * each planted fault (the gradients reduce-scattered as a sum; the whole
   leaves counted n times in the clip's norm, in one step and in the CLI's
-  two against JAX's trainer; a ZeRO slice one row off) must break the
-  bound the correct step meets;
+  two against JAX's trainer; a ZeRO slice one row off; a recompute that
+  skips the gather) must break the bound the correct step meets;
 * the checkpoint: an fsdp run resumed from step 1 equals the straight run
   at step 2 bit for bit (dense parameters, key tower, queue, moments); its
   export serves at world 1; a ZeRO checkpoint holds [2, k] moment rows and
@@ -42,6 +55,7 @@ import concurrent.futures
 import copy
 import functools
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -56,20 +70,26 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from audiossl_tpu.models import mast as jmast
 from audiossl_tpu.models import mvit as jmvit
+from audiossl_tpu.objectives.delores_m import DeloresM as JaxDeloresM
+from audiossl_tpu.objectives.delores_s import DeloresS as JaxDeloresS
+from audiossl_tpu.objectives.slicer import Slicer as JaxSlicer
 from audiossl_tpu.objectives.ssmast import SSMast as JaxSSMast
+from audiossl_tpu.objectives.unfused import Unfused as JaxUnfused
 from audiossl_tpu.parallel.fsdp import fsdp_spec as jax_fsdp_spec
 from audiossl_tpu.parallel.fsdp import tree_shardings
 from audiossl_tpu.train import optim as joptim
 from audiossl_tpu.train.zero import zero_init, zero_update
 from audiossl_tpu_torch.data.wav import write_wav
 from audiossl_tpu_torch.models import mast as pmast
-from audiossl_tpu_torch.models.convert import mast_classifier_from_flax, mast_with_head_from_flax
+from audiossl_tpu_torch.models.convert import (delores_m_from_flax, mast_classifier_from_flax, mast_with_head_from_flax,
+                                               slicer_from_flax, unfused_from_flax)
 from audiossl_tpu_torch.models.mvit import MViTConfig
 from audiossl_tpu_torch.parallel import dist
 from audiossl_tpu_torch.parallel import fsdp
 from audiossl_tpu_torch.train import zero
 from tests import torch_fsdp_zero_worker as worker
-from tests.test_torch_port_ddp import _delores_s_inputs, _port_delores_s_state
+from tests.test_torch_port_ddp import _cfg as _objective_cfg
+from tests.test_torch_port_ddp import _delores_s_inputs, _perturb, _port_delores_s_state
 from tests.test_torch_port_finetune_cli import N_CLASSES, data  # noqa: F401 (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -226,6 +246,12 @@ def _cli_inputs(d):
         out[f"{knob.split('_')[0]}_config"] = path = str(d / f"tiny_{knob}.yaml")
         with open(path, "w") as f:
             yaml.safe_dump(cfg, f)
+    cfg = _objective_cfg("delores_s", normalization="l2", augmentations={}, projection_dim=32)  # stateless
+    cfg["pretrain"]["base_encoder"].update(output_dim=32, compute_dtype="float32")
+    cfg["run"].update(batch_size=4, epochs=1, num_dataloader_workers=1, log_every=1, fsdp=True)
+    out["delores_s_config"] = path = str(d / "delores_s_fsdp.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
     return out
 
 
@@ -238,11 +264,135 @@ def _ft_cli_inputs(d, ft_data):
             "ft_config": str(d / "ft.yaml"), "save_path": str(d / "ft_port")}
 
 
+# held against JAX's GSPMD step and against the same ranks' data-parallel step
+AUDIONTT_FSDP = {"delores_m": (JaxDeloresM, delores_m_from_flax), "slicer": (JaxSlicer, slicer_from_flax),
+                 "unfused": (JaxUnfused, unfused_from_flax)}
+OBJ_B = 8  # their global batch: 4 clips a rank
+# as tests/test_torch_port_objectives.py's hold_steps: a ReLU, max-pool or
+# temporal-max routing that flips at round-off moves AudioNTT's f32
+# gradients past the bound in some batches (ROADMAP.md Queue 3), so each
+# step is taken from the same state on this many batches, at least half
+# must meet every gradient bound and every batch every other bound
+OBJ_BATCHES = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _objective_init(name):
+    """An AudioNTT objective of AUDIONTT_FSDP at d = 32, f32, dropout 0 (the
+    MoCo queue [128, 64]: at least 4096 elements, so sharded): JAX's init
+    with its biases, BatchNorm affines and statistics and its key tower
+    perturbed (the queue as initialised), and OBJ_BATCHES batches of OBJ_B
+    view pairs with labels (UnFuSeD's). Each clip has its own gain and its
+    own mel profile: clips of one white noise pool to nearly equal taps, and
+    the heads' BatchNorms and Barlow standardisation over the batch then
+    turn round-off into gradient (JAX's own GSPMD and one-device DeLoRes-M
+    steps differ by 490 times the gradients' bound on 4 such clips)."""
+    jcls, _ = AUDIONTT_FSDP[name]
+    cfg = _objective_cfg(name, num_negatives=64, projection_dim=32, task_label=8)
+    cfg["pretrain"]["base_encoder"].update(output_dim=32, compute_dtype="float32", dropout=0.0)
+    rng = np.random.default_rng(12)
+
+    def views():
+        x = 1.5 * rng.standard_normal((OBJ_B, 1, MF, MT)) * rng.uniform(0.3, 3.0, (OBJ_B, 1, 1, 1))
+        return (x + 2.0 * rng.standard_normal((OBJ_B, 1, MF, 1))).astype(np.float32)
+
+    batches = [(views(), views(), rng.integers(0, 8, OBJ_B).astype(np.int64)) for _ in range(OBJ_BATCHES)]
+    jobj = jcls(cfg, axis_name=None)
+    v1, v2, _ = batches[0]
+    params, bs, ssl = jax.jit(jobj.init)(jax.random.key(3), (_nhwc(v1[:2]), _nhwc(v2[:2])))
+    params, bs = _perturb(params, 13), _perturb(bs, 14)
+    if name != "unfused":  # UnFuSeD has no MoCo state
+        ssl = _perturb(ssl, 15)._replace(queue=np.asarray(ssl.queue), queue_ptr=np.asarray(ssl.queue_ptr))
+    if name != "unfused":
+        batches = [(a, b, None) for a, b, _ in batches]
+    return cfg, jobj, params, bs, ssl, batches
+
+
+@functools.lru_cache(maxsize=None)
+def _objective_fsdp_inputs(name):
+    """The fsdp check's inputs: DeLoRes-S from the data-parallel test's
+    draws, the others from ``_objective_init`` through the converters, their
+    first batch as ``v1``, ``v2`` (``labels``) and the others as ``more``."""
+    if name == "delores_s":
+        cfg, _, params, bs, v1, v2 = _delores_s()
+        return {"name": name, "config": cfg, "v1": v1, "v2": v2,
+                "state": {k: v.numpy() for k, v in _port_delores_s_state(params, bs).items()}}
+    cfg, _, params, bs, ssl, batches = _objective_init(name)
+    (v1, v2, labels), more = batches[0], batches[1:]
+    out = {"name": name, "config": cfg, "v1": v1, "v2": v2, "more": more,
+           "state": {k: v.numpy() for k, v in AUDIONTT_FSDP[name][1](params, bs, ssl).items()}}
+    if labels is not None:
+        out["labels"] = labels
+    return out
+
+
+def _jax_fsdp_objective(name, path):
+    """JAX's GSPMD step of ``name`` on a 2-device data mesh, as
+    ``make_train_step_gspmd`` takes it, from the same state on each batch
+    of ``_objective_init``: the parameters, batch statistics, MoCo state
+    (key tower, queue) and SGD's trace under ``tree_shardings``,
+    value_and_grad with axis_name None (BatchNorm, the InfoNCE, SLICER's
+    cluster loss and the enqueue over the global batch), the gradients
+    pinned to the parameters' shardings. Batch i's loss, gradients and the
+    state after the step that is not a parameter (key tower, queue and
+    pointer, running statistics), in the port's names, go to ``path.<i>``
+    for the ranks to read (``path.failed`` if they cannot be made), with
+    how far JAX's one-device step on the same batch lies from it (the loss
+    relative, the worst gradient over its bound)."""
+    try:
+        cfg, jobj, params, bs, ssl, batches = _objective_init(name)
+        convert = AUDIONTT_FSDP[name][1]
+        mesh = _mesh()
+        sh = tree_shardings((params, bs, ssl), mesh)
+        tx = joptim.sgd_torch(0.03)
+        o_sh = tree_shardings(jax.eval_shape(tx.init, params), mesh)
+        p, s, q = jax.device_put((params, bs, ssl), sh)
+        opt_state = jax.jit(tx.init, out_shardings=o_sh)(p)
+
+        def step(p, s, q, opt_state, *views):
+            (loss, aux), g = jax.value_and_grad(
+                lambda p: jobj.loss(p, s, q, views, jax.random.key(1), True, None), has_aux=True)(p)
+            g = jax.lax.with_sharding_constraint(g, sh[0])
+            updates, opt_state = tx.update(g, opt_state, p)
+            return optax.apply_updates(p, updates), aux.batch_stats, aux.ssl_state, loss, g
+
+        gspmd = jax.jit(step)
+        one = jax.jit(jax.value_and_grad(lambda p, *v: jobj.loss(p, bs, ssl, v, jax.random.key(1), True, None),
+                                         has_aux=True))
+        for i, (v1, v2, labels) in enumerate(batches):
+            views = [_nhwc(v1), _nhwc(v2)] + ([] if labels is None else [jnp.asarray(labels, jnp.int32)])
+            new_p, new_s, new_q, loss, g = _np_tree(gspmd(p, s, q, opt_state,
+                                                          *jax.device_put(views, NamedSharding(mesh, P("data")))))
+            (loss1, _), g1 = _np_tree(one(params, *views))
+            largest = max(float(np.abs(a).max()) for a in jax.tree.leaves(g))
+            spread = {"loss": abs(float(loss1) - float(loss)) / abs(float(loss)),
+                      "grads": max(float(np.abs(a - b).max()) / (1e-3 * float(np.abs(a).max()) + 1e-5 * largest)
+                                   for a, b in zip(jax.tree.leaves(g), jax.tree.leaves(g1)))}
+            grads = {k: v for k, v in convert(g, _np_tree(bs), _np_tree(ssl)).items()  # tensors: torch.save stores them raw
+                     if not k.startswith("encoder_k.") and k not in ("queue", "queue_ptr")
+                     and "running_" not in k and "num_batches" not in k}
+            state = {k: v for k, v in convert(new_p, new_s, new_q).items() if k not in grads}
+            torch.save({"loss": float(loss), "grads": grads, "state": state, "spread": spread}, f"{path}.tmp")
+            os.replace(f"{path}.tmp", f"{path}.{i}")
+    except BaseException:
+        open(f"{path}.failed", "w").close()
+        raise
+
+
+def _jax_ref(d, name):
+    return str(d / f"jax_fsdp_{name}.pt")
+
+
 def _inputs(d, ft_data):
-    """Two spawns' checks: fsdp (and the CLI runs), ZeRO and the fine-tune."""
+    """Two spawns' checks: fsdp (SS-MAST with and without remat, the AudioNTT
+    objectives, the CLI runs), ZeRO and the fine-tune."""
+    with concurrent.futures.ThreadPoolExecutor(len(AUDIONTT_FSDP)) as pool:  # their JAX inits, compiled at once
+        list(pool.map(_objective_init, AUDIONTT_FSDP))
     ss = _ssmast_inputs()
     accum = copy.deepcopy(ss)
     accum["config"]["pretrain"]["grad_accum_steps"] = 2
+    remat = copy.deepcopy(ss)
+    remat["config"]["pretrain"]["remat"] = True
     cfg, _, params, bs, v1, v2 = _delores_s()
     ds = {"name": "delores_s", "config": cfg, "state": {k: v.numpy() for k, v in _port_delores_s_state(params, bs).items()},
           "v1": v1, "v2": v2}
@@ -250,8 +400,14 @@ def _inputs(d, ft_data):
     ft_cli = _ft_cli_inputs(d, ft_data)
     return {"a": {"ssmast_fsdp": ss, "ssmast_fsdp_accum": accum,
                   "ssmast_fsdp_sum_reduce_scatter": {**ss, "fault": "sum_reduce_scatter"},
+                  "fsdp_delores_s": _objective_fsdp_inputs("delores_s"),
+                  "fsdp_delores_m": {**_objective_fsdp_inputs("delores_m"), "jax_ref": _jax_ref(d, "delores_m")},
                   "cli": _cli_inputs(d), "finetune_cli": {**ft_cli, "resume": True}},
-            "b": {"zero_ssmast": {**ss, "name": "ssmast"},
+            "b": {"ssmast_fsdp_remat": remat,
+                  "ssmast_fsdp_remat_recompute_skips_gather": {**remat, "fault": "recompute_skips_gather"},
+                  "fsdp_slicer": {**_objective_fsdp_inputs("slicer"), "jax_ref": _jax_ref(d, "slicer")},
+                  "fsdp_unfused": {**_objective_fsdp_inputs("unfused"), "jax_ref": _jax_ref(d, "unfused")},
+                  "zero_ssmast": {**ss, "name": "ssmast"},
                   "zero_ssmast_zero_row_offset": {**ss, "name": "ssmast", "fault": "zero_row_offset"},
                   "zero_delores_s": ds, "finetune_fsdp": ftd,
                   "finetune_fsdp_replicated_n_times": {**ftd, "fault": "replicated_n_times"},
@@ -262,8 +418,9 @@ def _inputs(d, ft_data):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory, data):  # noqa: F811 (the fine-tune's data fixture)
     """Every rank's results of every check, both spawns at once; while they
-    run, this process makes the JAX references and the port's one-process
-    fine-tune step."""
+    run, this process makes the JAX references (those of DeLoRes-M, SLICER
+    and UnFuSeD to files the ranks wait for) and the port's one-process
+    fine-tune step. The directory goes when the module's tests are done."""
     d = tmp_path_factory.mktemp("fsdp_zero")
     inputs = _inputs(d, data)
     saved = os.environ.get("OMP_NUM_THREADS")
@@ -280,12 +437,16 @@ def ranks(tmp_path_factory, data):  # noqa: F811 (the fine-tune's data fixture)
         os.environ.pop("OMP_NUM_THREADS") if saved is None else os.environ.__setitem__("OMP_NUM_THREADS", saved)
     try:  # JAX's trainer installs a signal handler: it runs in this thread, the other references beside it
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            jobs = [pool.submit(_jax_fsdp_ssmast), pool.submit(_jax_zero, "ssmast"), pool.submit(_jax_zero, "delores_s"),
-                    pool.submit(_one_process_finetune)]
+            jobs = [pool.submit(_jax_fsdp_objective, name, _jax_ref(d, name)) for name in AUDIONTT_FSDP]
+            jobs += [pool.submit(_jax_fsdp_ssmast), pool.submit(_jax_zero, "ssmast"), pool.submit(_jax_zero, "delores_s"),
+                     pool.submit(_jax_fsdp_delores_s), pool.submit(_one_process_finetune)]
             _jax_finetune(str(data), str(d / "ft_jax"))
             for job in jobs:
                 job.result()
     finally:
+        for name in AUDIONTT_FSDP:  # references that were never made: the ranks waiting for them stop
+            if not os.path.exists(f"{_jax_ref(d, name)}.{OBJ_BATCHES - 1}"):
+                open(f"{_jax_ref(d, name)}.failed", "w").close()
         for ctx in ctxs.values():
             while not ctx.join():
                 pass
@@ -295,7 +456,8 @@ def ranks(tmp_path_factory, data):  # noqa: F811 (the fine-tune's data fixture)
         for r, res in enumerate(rs):
             for k, v in res.items():
                 out.setdefault(k, [None] * WORLD)[r] = v
-    return out | {"dir": d}
+    yield out | {"dir": d}
+    shutil.rmtree(d, ignore_errors=True)  # inputs, results, checkpoints: a whole run's disk stays bounded
 
 
 # ---------------------------------------------------------------- fsdp_spec
@@ -414,6 +576,169 @@ def test_gradients_reduce_scattered_as_a_sum_fail_the_check(ranks):
     for r in ranks["ssmast_fsdp_sum_reduce_scatter"]:
         bad = _grads_close(r["grads"], want["grads"])
         assert bad and all(r["dims"][n] is not None for n in bad), bad
+
+
+def test_ssmast_step_under_fsdp_with_remat_matches_the_jax_gspmd_step(ranks):
+    """The same step with ``remat``: each of the query tower's 2 blocks is
+    rematerialised, its recompute gathering the block's weights again (2
+    more gathers a step, the reduce-scatters unchanged); everything after the
+    step against JAX's GSPMD step by the same bounds (remat moves no number
+    in JAX, so its step is the reference)."""
+    want = _jax_fsdp_ssmast()
+    for r in ranks["ssmast_fsdp_remat"]:
+        assert abs(float(r["loss"]) - want["loss"]) <= 1e-5 * abs(want["loss"]), (r["loss"], want["loss"])
+        assert not _grads_close(r["grads"], want["grads"])
+        for k, v in want["after"].items():
+            if k not in ("queue_ptr", "step"):
+                assert _rel(r["after"][k], v) <= 1e-5, k
+        for m, k in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            assert not _grads_close({n: v[k] for n, v in r["moments"].items()}, want[m]), m
+        assert r["step_calls"] == {"fsdp_gather": 2 * 3 + 1 + 2, "fsdp_reduce_scatter": 3, "all_reduce_grads": 1,
+                                   "all_gather": 2, "all_reduce": 1}, r["step_calls"]
+
+
+def test_a_recompute_that_skips_the_gather_fails_the_gradient_check(ranks):
+    """The planted fault: the blocks' recompute builds each whole weight from
+    this rank's piece alone. The forward (its gather is real) and so the
+    loss still hold; the gradients of the rematerialised blocks (and of the
+    patch embedding before them, which their backward feeds) break the
+    bound, the head's after them hold."""
+    want = _jax_fsdp_ssmast()
+    for r in ranks["ssmast_fsdp_remat_recompute_skips_gather"]:
+        assert abs(float(r["loss"]) - want["loss"]) <= 1e-5 * abs(want["loss"])
+        bad = _grads_close(r["grads"], want["grads"])
+        assert any(n.startswith("encoder.mast.blocks.") for n in bad), bad
+        assert not any(n.startswith("encoder.mlp_fc1") for n in bad), bad
+
+
+# ---------------------------------------------------------------- the AudioNTT objectives under fsdp
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_fsdp_delores_s():
+    """JAX's GSPMD DeLoRes-S step on a 2-device data mesh: the parameters and
+    SGD's trace under ``tree_shardings``, value_and_grad with axis_name None
+    (BatchNorm and the cross-correlation over the global batch), the
+    gradients pinned to the parameters' shardings."""
+    cfg, _, params, bs, v1, v2 = _delores_s()
+    jobj = JaxDeloresS(cfg, axis_name=None)
+    mesh = _mesh()
+    p_sh = tree_shardings(params, mesh)
+    tx = joptim.sgd_torch(0.03)
+    o_sh = tree_shardings(jax.eval_shape(tx.init, params), mesh)
+    params = jax.device_put(params, p_sh)
+    opt_state = jax.jit(tx.init, out_shardings=o_sh)(params)
+
+    def step(params, opt_state, v1, v2):
+        (loss, aux), g = jax.value_and_grad(
+            lambda p: jobj.loss(p, bs, (), (v1, v2), jax.random.key(1), True, None), has_aux=True)(params)
+        g = jax.lax.with_sharding_constraint(g, p_sh)
+        updates, opt_state = tx.update(g, opt_state, params)
+        return optax.apply_updates(params, updates), aux.batch_stats, loss, g
+
+    batch = NamedSharding(mesh, P("data"))
+    new_p, new_bs, loss, g = _np_tree(jax.jit(step)(params, opt_state, jax.device_put(_nhwc(v1), batch),
+                                                    jax.device_put(_nhwc(v2), batch)))
+    grads = {k: v.numpy() for k, v in _port_delores_s_state(g, bs).items() if "running" not in k and "num_batches" not in k}
+    return {"loss": float(loss), "grads": grads,
+            "after": {k: v.numpy() for k, v in _port_delores_s_state(new_p, new_bs).items()},
+            "sharded": sum("data" in tuple(jax_fsdp_spec(np.shape(leaf), WORLD)) for leaf in jax.tree.leaves(params))}
+
+
+def _held_step(r, want):
+    """One rank's fsdp step against a reference step: the loss 1e-5 relative,
+    each gradient by the gradients' bound, the state after the step 1e-5
+    (counters exact)."""
+    assert abs(float(r["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"])), (r["loss"], want["loss"])
+    assert not _grads_close(r["grads"], want["grads"])
+    for k, v in want["after"].items():
+        if k.endswith(("num_batches_tracked", "queue_ptr")):
+            assert int(r["after"][k]) == int(v), k
+        else:
+            assert _rel(r["after"][k], v) <= 1e-5, k
+
+
+def test_delores_s_step_under_fsdp_matches_the_jax_gspmd_step(ranks):
+    """DeLoRes-S on AudioNTT (d = 32) at world 2 under fsdp, 2 clips a rank,
+    one SGD step: the loss, the gradients and the state after the step
+    (running statistics over the global batch, the SyncBN path) against
+    JAX's GSPMD step with ``tree_shardings``. Its units are the encoder and
+    the projector; at d = 32 only the encoder holds leaves JAX shards (blocks
+    2 and 3, the first Dense), so a step gathers it once a view and
+    reduce-scatters once a view's backward; block 1's weight (576 elements,
+    under JAX's 4096) stays whole, as every leaf JAX does not shard, and
+    goes through the all-reduce."""
+    want = _jax_fsdp_delores_s()
+    for res in ranks["fsdp_delores_s"]:
+        r = res["fsdp"]
+        _held_step(r, want)
+        sharded = [k for k, d in r["dims"].items() if d is not None]
+        assert len(sharded) == want["sharded"] and "encoder.features_1.0.weight" not in sharded, sharded
+        assert r["step_calls"]["fsdp_gather"] == 2 and r["step_calls"]["fsdp_reduce_scatter"] == 2, r["step_calls"]
+        assert r["step_calls"]["all_reduce_grads"] == 1, r["step_calls"]
+
+
+@pytest.mark.parametrize("name", list(AUDIONTT_FSDP))
+def test_audiontt_objective_step_under_fsdp_matches_the_jax_gspmd_step(ranks, name):
+    """DeLoRes-M, SLICER and UnFuSeD at world 2 under fsdp, 4 clips a rank:
+    one SGD step from the same state (JAX's init, perturbed) on each of
+    OBJ_BATCHES batches, against JAX's GSPMD step (SLICER's cluster loss
+    over the whole batch there). In every batch the loss 1e-5 relative and
+    the state after the step that is not a parameter 1e-5 of max(1,
+    max|ref|): the key tower after its EMA, the running statistics over the
+    global batch, the queue with both ranks' keys in JAX's order, the
+    pointer and the counters exact. In at least half the batches every
+    gradient by the gradients' bound (OBJ_BATCHES), where JAX's one-device
+    step meets that bound against its GSPMD step too: a batch where it does
+    not tests nothing. Each rank reads JAX's results from the files the test
+    process wrote and returns each tensor's (max|fsdp - jax|, max|jax|)."""
+    for r in ranks[f"fsdp_{name}"]:
+        passing = 0
+        for j in r["jax"]:
+            assert j["spread"]["loss"] <= 1e-5, j["spread"]
+            assert abs(float(j["fsdp_loss"]) - j["loss"]) <= 1e-5 * abs(j["loss"]), (j["fsdp_loss"], j["loss"])
+            assert len(j["grads"]) == j["n_grads"] and len(j["state"]) == j["n_state"]  # every tensor compared
+            for k, (d, m) in j["state"].items():
+                assert (d == 0.0) if k.endswith(("num_batches_tracked", "queue_ptr")) else d <= 1e-5 * max(1.0, m), k
+            largest = max(m for _, m in j["grads"].values())
+            passing += j["spread"]["grads"] <= 1.0 and all(d <= 1e-3 * m + 1e-5 * largest for d, m in j["grads"].values())
+        assert passing >= len(r["jax"]) / 2, f"{passing} of {len(r['jax'])} batches meet every gradient bound"
+        assert len(r["jax"]) == OBJ_BATCHES
+
+
+@pytest.mark.parametrize("name", list(AUDIONTT_FSDP))
+def test_audiontt_objective_step_under_fsdp_equals_the_data_parallel_step(ranks, name):
+    """DeLoRes-M, SLICER (each with its MoCo key tower and a sharded [128, 64]
+    queue) and UnFuSeD (labelled) at world 2 under fsdp, 4 clips a rank, one
+    SGD step, against the same ranks' data-parallel step with whole weights
+    from the same state (a world-1 run is not the reference here: SyncBN's
+    E[x^2] - mean^2 moves the InfoNCE of 1/0.07 logits by 3e-5 relative):
+    the loss, the gradients, the whole state after the step (key tower,
+    queue, pointer and running statistics included); the queue is half on
+    each rank, and the ranks' gradients reach the pieces through the
+    reduce-scatter alone. SLICER's cluster loss sees the whole batch under
+    fsdp (JAX's GSPMD step) and each rank's own data-parallel (JAX's
+    shard_map step), so of SLICER only the state the gradients do not set
+    is the data-parallel step's; JAX's GSPMD step holds the rest in the
+    test above."""
+    for r in ranks[f"fsdp_{name}"]:  # each tensor's (max|fsdp - ddp|, max|ddp|), computed on the rank
+        same_loss = name != "slicer"
+        if same_loss:
+            assert abs(float(r["loss"]) - float(r["ref_loss"])) <= 1e-5 * abs(float(r["ref_loss"]))
+            largest = max(m for _, m in r["grads"].values())
+            assert not [n for n, (d, m) in r["grads"].items() if not d <= 1e-3 * m + 1e-5 * largest]
+        for k, (d, m) in r["after"].items():
+            if same_loss or k not in r["grads"]:
+                assert (d == 0.0) if k.endswith(("num_batches_tracked", "queue_ptr")) else d <= 1e-5 * max(1.0, m), k
+        assert r["step_calls"]["fsdp_reduce_scatter"] >= 1 and "fsdp_reduce_scatter" not in r["ref_step_calls"]
+        assert ("all_gather_rows" in r["step_calls"]) == (name == "slicer")
+        assert "all_gather_rows" not in r["ref_step_calls"]
+        assert any(d is not None for d in r["dims"].values())
+        if name != "unfused":
+            full, d = r["shapes"]["queue"], r["dims"]["queue"]
+            assert d is not None
+            assert r["piece_shapes"]["queue"] == tuple(s // WORLD if i == d else s for i, s in enumerate(full))
+            assert r["queue_ptr"] == OBJ_B * (2 if name == "slicer" else 1)
 
 
 # ---------------------------------------------------------------- ZeRO
@@ -659,6 +984,27 @@ def test_finetune_fsdp_checkpoint_resumes_bit_for_bit(ranks):
             assert torch.equal(torch.as_tensor(v), torch.as_tensor(b["optimizer"]["state"][i][k])), (i, k)
 
 
+def test_delores_s_under_fsdp_through_train_upstream_saves_a_dense_checkpoint_that_serves(ranks):
+    """DeLoRes-S (stateless augmentation: l2 normalisation, no mixup) through
+    train_upstream under ``run.fsdp`` at world 2: rank 0 saved the dense
+    state and the encoder export (``export_state_dict`` of the dense state),
+    which serves at world 1."""
+    from audiossl_tpu_torch.serve.export import embedder_from_checkpoint
+
+    d = ranks["dir"]
+    for r in ranks["cli"]:
+        assert r["delores_s_step"] == 1 and r["delores_s_pieces"]["encoder.features_2.0.weight"][1] == 64 // WORLD
+    saved = torch.load(str(d / "delores_s_fsdp_chkp" / "state" / "1.pt"), weights_only=True)
+    assert saved["objective"]["encoder.features_2.0.weight"].shape == (64, 64, 3, 3)
+    enc = torch.load(str(d / "delores_s_fsdp_chkp" / "encoder" / "1.pt"), weights_only=True)
+    for k, v in enc.items():
+        assert torch.equal(v, saved["objective"][f"encoder.{k}"]), k
+    emb = embedder_from_checkpoint(str(d / "delores_s_fsdp_chkp"), 16000, "f32", "cpu")
+    with torch.no_grad():
+        z = emb(torch.from_numpy(np.random.default_rng(8).standard_normal((2, 16000)).astype(np.float32)))
+    assert z.shape == (2, 32) and torch.isfinite(z).all()
+
+
 def test_zero_checkpoint_holds_rows_and_refuses_another_world(ranks):
     """The ZeRO checkpoint holds every moment as [2, k] rows and the world it
     was saved at; a resume at world 1 raises, as JAX's restore does."""
@@ -682,11 +1028,11 @@ def _cfg(name):
 
 
 def test_refusals_keep_jax_messages():
-    """run.fsdp with stateful augmentation (JAX's ValueError, naming the knob),
-    with remat, for an objective that names no gathering units; ZeRO with
-    LARS / LARC (JAX's message); the fine-tune refuses ZeRO and, under fsdp,
-    remat; DECAR and DeepCluster refuse both knobs; all before any data is
-    read."""
+    """run.fsdp with stateful augmentation (JAX's ValueError, naming the
+    knob); ZeRO with LARS / LARC (JAX's message); the fine-tune refuses ZeRO;
+    DECAR and DeepCluster refuse both knobs; all before any data is read.
+    (fsdp with remat and fsdp for the AudioNTT objectives run: the steps
+    above.)"""
     from audiossl_tpu_torch.train.decar_loop import train_decar
     from audiossl_tpu_torch.train.finetune_mast import train_finetune_mast
     from audiossl_tpu_torch.train.loop import train_upstream
@@ -699,11 +1045,9 @@ def test_refusals_keep_jax_messages():
 
     with pytest.raises(ValueError, match="run.fsdp requires stateless augmentation"):
         train_upstream(upstream("delores_s", {"fsdp": True}), "unused.csv", "delores_s", device="cpu")
-    with pytest.raises(NotImplementedError, match="run.fsdp with remat"):
-        train_upstream(upstream("ssmast", {"fsdp": True}, remat=True), "unused.csv", "ssmast", device="cpu")
-    with pytest.raises(NotImplementedError, match="run.fsdp is ported for SS-MAST: DeloresS"):
-        train_upstream(upstream("delores_s", {"fsdp": True}, normalization="l2", augmentations={}), "unused.csv",
-                       "delores_s", device="cpu")
+    for name in ("delores_m", "slicer", "unfused"):  # their configs as they stand: mean_var + mixup
+        with pytest.raises(ValueError, match="run.fsdp requires stateless augmentation"):
+            train_upstream(upstream(name, {"fsdp": True}), "unused.csv", name, device="cpu")
     for opt in ("lars", "larc"):
         with pytest.raises(ValueError, match=f"zero_optimizer supports elementwise optimizers .*'{opt}' needs "
                                              "full-tensor norms"):
@@ -712,9 +1056,6 @@ def test_refusals_keep_jax_messages():
     ft = _cfg("mast_ft")
     with pytest.raises(NotImplementedError, match="run.zero_optimizer is run by train_upstream only.*JAX's fine-tune"):
         train_finetune_mast({**ft, "run": {**ft["run"], "zero_optimizer": True}}, "t.json", "l.csv", device="cpu")
-    with pytest.raises(NotImplementedError, match="run.fsdp with remat"):
-        train_finetune_mast({"run": {**ft["run"], "fsdp": True}, "finetune": {**ft["finetune"], "remat": True}},
-                            "t.json", "l.csv", device="cpu")
     for knob, match in (("fsdp", "run.fsdp is run by train_upstream .* no fully sharded path"),
                         ("zero_optimizer", "run.zero_optimizer is run by train_upstream only")):
         with pytest.raises(NotImplementedError, match=match):

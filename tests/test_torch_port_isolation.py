@@ -4,9 +4,11 @@ package, importing it loads none of them, and without a CUDA device every
 entry point that asks for the card raises instead of running on the CPU."""
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -93,6 +95,35 @@ def test_parallelism_library_modules_are_scanned():
         assert os.path.exists(os.path.join(ROOT, "audiossl_tpu", m)), m
         with open(os.path.join(ROOT, "audiossl_tpu_torch", m)) as f:
             assert "audiossl_tpu." + m[:-3].replace("/", ".") in f.read(), m
+
+
+def test_last_modules_are_scanned_and_name_their_jax_counterparts():
+    """The modules that complete the port (async checkpoints, streaming, the
+    reference-checkpoint import, the data fixtures, the utilities) are among
+    the scanned files, so none of them imports JAX, and each names the JAX
+    module it ports, which exists."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    family = ["train/checkpoint.py", "frontend/streaming.py", "models/torch_import.py", "data/make_test_wavs.py",
+              "data/make_hf_fixture.py", "utils/cka.py", "utils/logging_utils.py", "utils/profiling.py",
+              "utils/metrics.py", "serve/export.py"]
+    assert {os.path.join("audiossl_tpu_torch", m) for m in family} <= files
+    for m in family:
+        assert os.path.exists(os.path.join(ROOT, "audiossl_tpu", m)), m
+        with open(os.path.join(ROOT, "audiossl_tpu_torch", m)) as f:
+            assert "audiossl_tpu." + m[:-3].replace("/", ".") in f.read(), m
+
+
+def test_exported_programs_ask_for_the_card_by_default(no_cuda, tmp_path):
+    from audiossl_tpu_torch.frontend import FrontendSpec
+    from audiossl_tpu_torch.models.audiontt import random_state_dict
+    from audiossl_tpu_torch.serve.export import ServingEncoder, build_embedder, save_exported
+
+    emb = build_embedder(random_state_dict(64, 32, seed=0), FrontendSpec("logmel", 64, 16000), 6400, device="cpu")
+    path = str(tmp_path / "native.pt2")
+    save_exported(emb.artifact(), path, "native", batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEncoder(path)
+    assert ServingEncoder(path, device="cpu")(np.zeros((3, 6400), np.float32)).shape == (3, 32)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -206,6 +237,7 @@ def test_ssmast_trainer_raises_without_cuda_unless_given_cpu(no_cuda, tmp_path):
     config["pretrain"]["input"].update(n_mels=64, target_length=96)
     _, step, _ = train_upstream(config, str(csv), "ssmast", device="cpu")  # an empty manifest: no step
     assert step == 0 and config["pretrain"]["steps_per_epoch"] == 1000  # the caller's config is not changed
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints, hundreds of MB: a whole run's disk stays bounded
 
 
 @pytest.mark.parametrize("name", ["delores_m", "slicer", "unfused"])

@@ -32,6 +32,7 @@ neighbour instead of the left.
 """
 import functools
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -176,8 +177,10 @@ def ranks(tmp_path_factory):
         for ctx in ctxs.values():
             while not ctx.join():
                 pass
-    return {world: [torch.load(str(d / f"world{world}" / f"rank{r}.pt"), weights_only=False) for r in range(world)]
-            for world in ctxs}
+    out = {world: [torch.load(str(d / f"world{world}" / f"rank{r}.pt"), weights_only=False) for r in range(world)]
+           for world in ctxs}
+    shutil.rmtree(d, ignore_errors=True)  # the ranks' inputs and results, read: a whole run's disk stays bounded
+    return out
 
 
 def _joined(res, name, key="out", axis=0):

@@ -5,6 +5,7 @@ same state bit for bit; the exported encoder loads into AudioNTT strictly.
 d = 32 at batch 4 with a 16-key queue, so the queue wraps within a run."""
 import json
 import os
+import shutil
 
 import numpy as np
 import pandas as pd
@@ -88,3 +89,4 @@ def test_cli_trains_resumes_and_exports(name, manifest, tmp_path):
         assert not torch.equal(a["objective"]["encoder_k.encoder.fc.0.weight"], a["objective"]["encoder.encoder.fc.0.weight"])
     enc = torch.load(os.path.join(straight, "encoder", "2.pt"), weights_only=True)
     AudioNTT2020Task6(n_mels=64, d=D).load_state_dict(enc, strict=True)
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints, hundreds of MB: a whole run's disk stays bounded

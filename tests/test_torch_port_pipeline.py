@@ -24,6 +24,7 @@ one "pp_output".
 """
 import functools
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -158,8 +159,10 @@ def ranks(tmp_path_factory):
         for ctx in ctxs.values():
             while not ctx.join():
                 pass
-    return {world: [torch.load(str(d / f"world{world}" / f"rank{r}.pt"), weights_only=False) for r in range(world)]
-            for world in ctxs}
+    out = {world: [torch.load(str(d / f"world{world}" / f"rank{r}.pt"), weights_only=False) for r in range(world)]
+           for world in ctxs}
+    shutil.rmtree(d, ignore_errors=True)  # the ranks' inputs and results, read: a whole run's disk stays bounded
+    return out
 
 
 # ---------------------------------------------------------------- the JAX references

@@ -12,6 +12,7 @@ would fail the test rather than end the process."""
 import json
 import logging
 import os
+import shutil
 import signal
 import threading
 
@@ -172,6 +173,7 @@ def test_finetune_loop_checkpoints_and_returns_on_sigterm(tmp_path, monkeypatch,
     a, b = _load(str(tmp_path / "straight_chkp"), 6), _load(stopped, 6)
     for key in ("model", "optimizer", "generator", "loader"):
         assert _equal_tensors(a[key], b[key]), key
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints, hundreds of MB: a whole run's disk stays bounded
 
 
 def test_clustering_trainers_stop_on_sigterm(tmp_path, monkeypatch, sigterm_ignored):

@@ -9,6 +9,7 @@ plain versions. Inputs are numpy from a seed."""
 import copy
 import functools
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -208,3 +209,4 @@ def test_cli_trains_checkpoints_resumes_and_exports(tmp_path):
     with torch.no_grad():
         z = trunk(torch.randn(3, 1, F_, T_))
     assert z.shape == (3, 768) and torch.isfinite(z).all()
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints, hundreds of MB: a whole run's disk stays bounded

@@ -38,6 +38,7 @@ import copy
 import dataclasses
 import functools
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -263,8 +264,9 @@ def ranks(tmp_path_factory):
         for ctx in ctxs.values():
             while not ctx.join():
                 pass
-    return {world: [torch.load(str(d / f"world{world}" / f"rank{r}.pt"), weights_only=False) for r in range(world)]
-            for world in ctxs} | {"dir": d}
+    yield {world: [torch.load(str(d / f"world{world}" / f"rank{r}.pt"), weights_only=False) for r in range(world)]
+           for world in ctxs} | {"dir": d}
+    shutil.rmtree(d, ignore_errors=True)  # the ranks' inputs, results and runs: a whole run's disk stays bounded
 
 
 # ---------------------------------------------------------------- the primitives

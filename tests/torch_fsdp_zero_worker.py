@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -66,10 +67,25 @@ def _offset_slice(a, n, rank):
     return zero.shard_rows(a, n)[(rank + 1) % n]
 
 
+_gather_pieces = fsdp.gather_pieces
+
+
+def _recompute_skips_gather(pieces, dims):
+    """The fault: a rematerialised unit's recompute (it runs inside the
+    backward) builds each whole weight from this rank's piece alone, with no
+    all-gather; the forward's gather is the real one."""
+    if torch._C._current_graph_task_id() == -1:
+        return _gather_pieces(pieces, dims)
+    n = dist.dp_world()
+    return [torch.cat([p.detach()] * n, dim=d) for p, d in zip(pieces, dims)]
+
+
 @contextlib.contextmanager
 def planted(fault: str | None):
-    saved = dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice
-    if fault == "sum_reduce_scatter":
+    saved = dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice, fsdp.gather_pieces
+    if fault == "recompute_skips_gather":
+        fsdp.gather_pieces = _recompute_skips_gather
+    elif fault == "sum_reduce_scatter":
         dist.reduce_scatter_mean = _sum_reduce_scatter
     elif fault == "replicated_n_times":
         fsdp.global_sq_norm = _replicated_n_times
@@ -80,7 +96,7 @@ def planted(fault: str | None):
     try:
         yield
     finally:
-        dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice = saved
+        dist.reduce_scatter_mean, fsdp.global_sq_norm, zero.local_slice, fsdp.gather_pieces = saved
 
 
 # ---------------------------------------------------------------- checks
@@ -126,6 +142,83 @@ def ssmast_fsdp_check(d):
     out["moments"] = {names[i]: {k: _np(v) for k, v in st.items() if k != "step"} for i, st in dense_opt["state"].items()}
     out["moment_shapes"] = {names[i]: tuple(st["exp_avg"].shape) for i, st in opt.state_dict()["state"].items()}
     return out
+
+
+def _distances(got, want):
+    """Each tensor's (max|got - want|, max|want|), as floats."""
+    return {k: (float(np.abs(np.asarray(got[k], np.float64) - np.asarray(v, np.float64)).max()),
+                float(np.abs(np.asarray(v, np.float64)).max())) for k, v in want.items()}
+
+
+def _await_reference(path, failed, timeout=900.0):
+    """What the test process wrote to ``path`` (a JAX reference it makes
+    while the ranks run), once its rename has put it there; raises where it
+    wrote the file ``failed`` instead, or nothing within ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if os.path.exists(failed) or time.monotonic() > deadline:
+            raise RuntimeError(f"no reference at {path}")
+        time.sleep(0.2)
+    return torch.load(path, weights_only=False)
+
+
+def _objective_step(d, mode, v1, v2, labels):
+    """One SGD step of the AudioNTT objective ``d["name"]`` from ``d["state"]``
+    through TrainStep, fsdp or data-parallel with whole weights, the batch's
+    rows shared over the data axis: the loss, the whole gradients, the whole
+    state after the step, the step's collectives; under fsdp which keys are
+    sharded and the pieces' shapes."""
+    from audiossl_tpu_torch.objectives import init_objective
+    from audiossl_tpu_torch.train.loop import shard_objective_
+    from audiossl_tpu_torch.train.optim import sgd_torch
+    from audiossl_tpu_torch.train.step import TrainStep
+
+    dev = d.get("device", "cpu")
+    obj = init_objective(d["name"], d["config"], seed=0)
+    obj.load_state_dict({k: _t(v) for k, v in d["state"].items()}, strict=True)
+    obj.to(dev).train()
+    shards = shard_objective_(obj) if mode == "fsdp" else None
+    names = [n for n, p in obj.named_parameters() if p.requires_grad]
+    params = [p for p in obj.parameters() if p.requires_grad]
+    dense = shards.dense_state_dict if shards is not None else (lambda sd: sd)
+    step = TrainStep(obj, None, None, sgd_torch(params, 0.03), torch.Generator(dev).manual_seed(dist.rank_seed(0)),
+                     layout=shards)
+    dist.calls.clear()
+    loss = step.loss_and_grads(share(v1, dev), share(v2, dev), None if labels is None else share(labels, dev))
+    step.update()
+    out = {"loss": _np(loss), "step_calls": dict(dist.calls),
+           "grads": {n: _np(g) for n, g in dense({n: p.grad for n, p in zip(names, params)}).items()},
+           "after": {k: _np(v) for k, v in dense(obj.state_dict()).items()}}
+    if shards is not None:
+        out.update(dims=dict(shards.dims), piece_shapes={k: tuple(v.shape) for k, v in obj.state_dict().items()})
+    return out
+
+
+def objective_fsdp_check(d):
+    """The fsdp step of the AudioNTT objective ``d["name"]`` (DeLoRes-S,
+    DeLoRes-M, SLICER, UnFuSeD) on ``d["v1"]``, ``d["v2"]`` (and
+    ``d["labels"]``), whole (``_objective_step``). With ``d["jax_ref"]``,
+    of the fsdp step only each tensor's distance from the same step
+    data-parallel with whole weights from the same state and, under
+    ``"jax"``, from JAX's step on that batch and on each of ``d["more"]``,
+    read from ``d["jax_ref"]``.<i> (DeLoRes-M's three 2048-wide heads make
+    whole results hundreds of MB)."""
+    got = _objective_step(d, "fsdp", d["v1"], d["v2"], d.get("labels"))
+    if not d.get("jax_ref"):
+        return {"fsdp": got}
+    want = _objective_step(d, "ddp", d["v1"], d["v2"], d.get("labels"))
+    jax = []
+    for i, batch in enumerate([None, *d["more"]]):
+        step = got if batch is None else _objective_step(d, "fsdp", *batch)
+        ref = _await_reference(f"{d['jax_ref']}.{i}", f"{d['jax_ref']}.failed")
+        jax.append({"loss": ref["loss"], "fsdp_loss": step["loss"], "spread": ref["spread"],
+                    "grads": _distances(step["grads"], ref["grads"]), "state": _distances(step["after"], ref["state"]),
+                    "n_grads": len(step["grads"]), "n_state": len(step["after"]) - len(step["grads"])})
+    return {"loss": got["loss"], "ref_loss": want["loss"], "step_calls": got["step_calls"],
+            "ref_step_calls": want["step_calls"], "dims": got["dims"], "piece_shapes": got["piece_shapes"],
+            "grads": _distances(got["grads"], want["grads"]), "after": _distances(got["after"], want["after"]),
+            "shapes": {k: tuple(v.shape) for k, v in want["after"].items()},
+            "queue_ptr": int(got["after"]["queue_ptr"]) if "queue_ptr" in got["after"] else None, "jax": jax}
 
 
 def zero_check(d):
@@ -186,7 +279,7 @@ def finetune_fsdp_check(d):
 def cli_check(d):
     """SS-MAST under fsdp through train_upstream: 2 steps straight through the
     CLI, and 1 step then a resume to 2; the pieces the objective held; one
-    ZeRO step to a checkpoint."""
+    ZeRO step to a checkpoint; one DeLoRes-S step under fsdp to a checkpoint."""
     from audiossl_tpu_torch.config import load_config
     from audiossl_tpu_torch.train.loop import train_upstream
     from audiossl_tpu_torch.train_upstream import main as train_main
@@ -201,7 +294,11 @@ def cli_check(d):
     zcfg = load_config(d["zero_config"])
     zcfg["run"]["save_path"] = os.path.join(d["dir"], "zero")
     train_upstream(zcfg, d["csv"], "ssmast", max_steps=1, device="cpu")
-    return {"pieces": pieces, "step": step}
+    dcfg = load_config(d["delores_s_config"])
+    dcfg["run"]["save_path"] = os.path.join(d["dir"], "delores_s_fsdp")
+    dobj, dstep, _ = train_upstream(dcfg, d["csv"], "delores_s", max_steps=1, device="cpu")
+    return {"pieces": pieces, "step": step, "delores_s_step": dstep,
+            "delores_s_pieces": {k: tuple(v.shape) for k, v in dobj.state_dict().items()}}
 
 
 def finetune_cli_check(d):
@@ -230,7 +327,10 @@ def finetune_cli_check(d):
 
 
 CHECKS = {"ssmast_fsdp": ssmast_fsdp_check, "ssmast_fsdp_accum": ssmast_fsdp_check,
-          "ssmast_fsdp_sum_reduce_scatter": ssmast_fsdp_check, "zero_delores_s": zero_check,
+          "ssmast_fsdp_sum_reduce_scatter": ssmast_fsdp_check, "ssmast_fsdp_remat": ssmast_fsdp_check,
+          "ssmast_fsdp_remat_recompute_skips_gather": ssmast_fsdp_check,
+          "fsdp_delores_s": objective_fsdp_check, "fsdp_delores_m": objective_fsdp_check,
+          "fsdp_slicer": objective_fsdp_check, "fsdp_unfused": objective_fsdp_check, "zero_delores_s": zero_check,
           "zero_ssmast": zero_check, "zero_ssmast_zero_row_offset": zero_check, "finetune_fsdp": finetune_fsdp_check,
           "finetune_fsdp_replicated_n_times": finetune_fsdp_check, "cli": cli_check,
           "finetune_cli": finetune_cli_check, "finetune_cli_replicated_n_times": finetune_cli_check}
